@@ -1,0 +1,490 @@
+"""Anti-diagonal wavefront DP: host prep and the plain PyTorch engine.
+
+Counterpart of ``exonerate_tpu/engine/wavefront.py``.  Two parts:
+
+- Host prep (``prepare_inputs``, ``_pad_inputs``, ``_grid_key``,
+  ``_bucket_ladder``, ``_bucket``): NumPy copies of the JAX module's
+  functions, unchanged, so the port needs no JAX to prepare a pair.
+- ``plain_wavefront`` / ``plain_walkback``: the plain PyTorch version of
+  the hand-written kernels in ``csrc/wavefront.cu`` (K1 score/region, K4
+  path) and ``csrc/walkback.cu``.  It interprets the same plan table
+  (built by ``cuda_wavefront.to_kernel_inputs``) with a Python loop over
+  anti-diagonals and torch ops on ``(B, Qp+1)`` int32 planes, in the
+  guarded cell semantics of the Pallas body
+  (``pallas_wavefront.py:832-1040``): per-transition source masks,
+  silent transitions in plan order, start/end scope masks, shadow lanes,
+  strict ``>`` replacement (first max wins) and one lexicographic
+  (score desc, j asc, i asc) reduce of per-lane best planes.  On CPU
+  tensors it is the port's engine; on the card it is what the kernels
+  are held against.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from exonerate_tpu.engine.region import Region
+from exonerate_tpu.model.ir import (IMPOSSIBLY_HIGH_SCORE,
+                                    IMPOSSIBLY_LOW_SCORE, Model)
+
+NEG = IMPOSSIBLY_LOW_SCORE
+
+
+# ---------------------------------------------------------------------------
+# input preparation (host side, NumPy) — copies of the JAX module's
+# ---------------------------------------------------------------------------
+
+def _grid_key(model: Model, t) -> str:
+    return f"g{model.calcs.index(t.calc)}_{t.advance_query}_{t.advance_target}"
+
+
+def prepare_inputs(model: Model, region: Region, data,
+                   subopt=None, pad_to=None,
+                   for_pallas: bool = False) -> tuple[dict[str, Any], tuple]:
+    """Materialize per-pair arrays in compact forms: factored match calcs
+    ship O(Q+T) index vectors + a small table; 1-D calcs ship vectors; only
+    genuinely 2-D grids ship whole planes (skewed on device).  Returns
+    (inputs, kinds) where kinds is the static classification used to trace
+    the engine (part of the jit cache key).
+
+    subopt: optional SubOpt mask; blocked cells ship as a boolean plane so
+    re-running with a grown mask reuses the jit cache."""
+    Q, T = region.query_length, region.target_length
+    Qp, Tp = pad_to if pad_to is not None else (Q, T)
+    assert Qp >= Q and Tp >= T
+    i_idx = np.arange(Q + 1)
+    inputs: dict[str, Any] = {}
+    kinds: dict[str, str] = {}
+    # blocked-cell plane, addressed by DESTINATION cell
+    # (ref: viterbi.c:701-704 SubOpt blocking of match transitions);
+    # omitted entirely when empty and bit-packed otherwise to keep
+    # host->device transfer tiny
+    blocked = None if subopt is None else subopt.blocked_grid(region)
+    if blocked is not None and blocked.any():
+        inputs["_blocked"] = np.packbits(blocked, axis=1)
+        kinds["_blocked"] = "blocked"
+    done = set()
+    for t in model.transitions:
+        if t.calc is None:
+            continue
+        key = _grid_key(model, t)
+        if key in done:
+            continue
+        done.add(key)
+        aq, at = t.advance_query, t.advance_target
+        si = np.clip(i_idx - aq, 0, Q)
+        if t.calc.factored_fn is not None:
+            f = t.calc.factored_fn(region, data)
+            inputs[key] = {
+                "q_idx_s": f["q_idx"][si].astype(np.int32),
+                "t_idx": f["t_idx"].astype(np.int32),
+                "table": f["table"].astype(np.int32),
+                "q_override_s": f.get(
+                    "q_override",
+                    np.zeros(Q + 1, np.int32))[si].astype(np.int32),
+            }
+            kinds[key] = "factored"
+            continue
+        g = np.asarray(t.calc.materialize(region, data))
+        if g.ndim == 0:
+            inputs[key] = g.astype(np.int32)
+            kinds[key] = "scalar"
+            continue
+        qdep = g.shape[0] > 1
+        tdep = g.ndim > 1 and g.shape[1] > 1
+        if qdep and not tdep:
+            v = g[:, 0] if g.ndim > 1 else g
+            inputs[key] = v[si].astype(np.int32)          # [Q+1]
+            kinds[key] = "qvec"
+        elif tdep and not qdep:
+            v = g[0] if g.ndim > 1 else g
+            inputs[key] = v.astype(np.int32)              # [T+1]
+            kinds[key] = "tvec"
+        else:
+            inputs[key] = g.astype(np.int32)              # [Q+1, T+1]
+            kinds[key] = "grid2d"
+    for c in model.calcs:
+        if c.shadow_inputs_fn is not None:
+            inputs[f"sh{model.calcs.index(c)}"] = c.shadow_inputs_fn(region,
+                                                                     data)
+    if for_pallas:
+        # gather-free kernel data: shadow start vectors and per-calc
+        # kernel inputs (see model/phase.py packed split-codon lanes)
+        for ix, sh in enumerate(model.shadows):
+            if sh.start_vec_fn is not None:
+                assert sh.start == "target_pos", sh
+                inputs[f"shv{ix}"] = np.asarray(
+                    sh.start_vec_fn(region, data), np.int32)
+                kinds[f"shv{ix}"] = "tvec"
+        for ci, c in enumerate(model.calcs):
+            if c.kernel_inputs_fn is not None:
+                tr = next(t for t in model.transitions if t.calc is c)
+                si = np.clip(i_idx - tr.advance_query, 0, Q)
+                for nm, (kind, arr) in c.kernel_inputs_fn(region,
+                                                          data).items():
+                    key = f"kc{ci}:{nm}"
+                    kinds[key] = kind
+                    arr = np.asarray(arr, np.int32)
+                    inputs[key] = arr[si] if kind == "qvec" else arr
+    inputs["_qstart"] = np.int32(region.query_start)
+    inputs["_tstart"] = np.int32(region.target_start)
+    inputs["_qlen"] = np.int32(Q)
+    inputs["_tlen"] = np.int32(T)
+    if pad_to is not None:
+        inputs = _pad_inputs(inputs, kinds, Q, T, Qp, Tp)
+    return inputs, tuple(sorted(kinds.items()))
+
+
+def _pad_inputs(inputs, kinds, Q, T, Qp, Tp):
+    """Pad per-pair arrays to a bucket shape (catch-all submat index 24
+    for factored vectors; zeros elsewhere)."""
+    out = {}
+    for k, v in inputs.items():
+        kind = kinds.get(k)
+        if kind == "factored":
+            out[k] = {
+                "q_idx_s": np.pad(v["q_idx_s"], (0, Qp - Q),
+                                  constant_values=24),
+                "t_idx": np.pad(v["t_idx"], (0, Tp - T),
+                                constant_values=24),
+                "table": v["table"],
+                "q_override_s": np.pad(v["q_override_s"], (0, Qp - Q)),
+            }
+        elif kind == "qvec":
+            out[k] = np.pad(v, (0, Qp - Q))
+        elif kind == "tvec":
+            out[k] = np.pad(v, (0, Tp - T))
+        elif kind == "grid2d":
+            out[k] = np.pad(v, ((0, Qp - Q), (0, Tp - T)))
+        elif kind == "blocked":
+            grid = np.unpackbits(v, axis=1)[:, :T + 1]
+            grid = np.pad(grid, ((0, Qp - Q), (0, Tp - T)))
+            out[k] = np.packbits(grid, axis=1)
+        else:
+            out[k] = v
+    return out
+
+
+def _bucket_ladder(max_n: int = 1 << 24, step: int = 256,
+                   ratio: float = 1.25) -> list[int]:
+    """Geometric ladder of padded lengths: each rung is at most `ratio`
+    above the previous, so padding wastes <= ratio while the number of
+    distinct compiled kernel shapes stays logarithmic (each fresh
+    (Qp, Tp) bucket costs a multi-minute Pallas compile — a linear
+    256-step grid causes a compile storm on real locus workloads)."""
+    rungs = [step]
+    while rungs[-1] < max_n:
+        nxt = max(rungs[-1] + step,
+                  ((int(rungs[-1] * ratio) + step - 1) // step) * step)
+        rungs.append(nxt)
+    return rungs
+
+
+_LADDER = _bucket_ladder()
+
+
+def _bucket(n: int, step: int = 256) -> int:
+    for r in _LADDER:
+        if n <= r:
+            return r
+    return _LADDER[-1]
+
+
+# ---------------------------------------------------------------------------
+# the plan table: one int32 row per transition of _build_plan(model), in
+# model order (csrc/wavefront.cu declares the same column and code numbers)
+# ---------------------------------------------------------------------------
+
+(P_AQ, P_AT, P_IN, P_OUT, P_FLAGS, P_CALC, P_C0, P_C1, P_C2, P_C3, P_C4,
+ P_SH_LANE_Q, P_SH_LANE_T, P_SH_MIN, P_SH_MAX, P_NSTART,
+ P_ST_DES0, P_ST_ONQ0, P_ST_DES1, P_ST_ONQ1) = range(20)
+PLAN_COLS = 20
+MAX_START_LANES = 2
+
+# P_FLAGS bits
+F_FROM_START = 1      # the input is the START state
+F_TO_END = 2          # the output is the END state
+F_P_UNDER = 4         # Protect.UNDERFLOW: clamp to NEG
+F_P_OVER = 8          # Protect.OVERFLOW: clamp to IMPOSSIBLY_HIGH_SCORE
+F_SH_Q = 16           # intron window on the query lane P_SH_LANE_Q
+F_SH_T = 32           # intron window on the target lane P_SH_LANE_T
+
+# P_CALC kinds and their operands
+C_NONE = 0            # calc 0
+C_SCALAR = 1          # scalars[C0]
+C_QVEC = 2            # qvecs[C0][i] (shifted by aq on the host)
+C_TVEC = 3            # tvecs[C0][j - at]
+C_FACTORED = 4        # qvecs[C4][i] if != 0, else
+#                       tables[C2 + qvecs[C0][i] * C3 + tvecs[C1][j - at]]
+
+# Scope codes of the start/end terminals
+SCOPE_ANYWHERE, SCOPE_EDGE, SCOPE_QUERY, SCOPE_TARGET, SCOPE_CORNER = range(5)
+
+
+@dataclass
+class KernelInputs:
+    """One batch of pairs, padded to (Qp, Tp), in the kernels' layout.
+
+    All tensors live on one device; the kernels read them in place."""
+    plan: torch.Tensor       # (P, PLAN_COLS) int32
+    ring_row: torch.Tensor   # (S,) int32: carry-ring row, -1 = none
+    lane_row: torch.Tensor   # (S, max(L, 1)) int32: lane-ring row, -1 = dead
+    dims: torch.Tensor       # (B, 4) int32: qstart, tstart, qlen, tlen
+    qvecs: torch.Tensor      # (B, NQ, Qp+1) int32
+    tvecs: torch.Tensor      # (B, NT, Tp+1) int32
+    tables: torch.Tensor     # (B, NTAB) int32, flattened factored tables
+    scalars: torch.Tensor    # (B, NSC) int32
+    walk: torch.Tensor       # (4, P+1) int32: AQ, AT, IN, FROM_START per id
+    Qp: int
+    Tp: int
+    S: int                   # states
+    L: int                   # lanes: shadow designations (+2 in region mode)
+    n_shadow: int
+    K: int                   # largest advance; the ring holds K+1 diagonals
+    NR: int                  # carry-ring rows (states read across diagonals)
+    NL: int                  # live lane-ring rows
+    start_id: int
+    end_id: int
+    start_scope: int
+    end_scope: int
+    mode: str                # "score" | "region" | "path"
+
+    @property
+    def batch(self) -> int:
+        return int(self.dims.shape[0])
+
+
+def _scope_start(scope: int, si, sj):
+    if scope == SCOPE_ANYWHERE:
+        return None
+    if scope == SCOPE_EDGE:
+        return (si == 0) | (sj == 0)
+    if scope == SCOPE_QUERY:
+        return si == 0
+    if scope == SCOPE_TARGET:
+        return sj == 0
+    return (si == 0) & (sj == 0)
+
+
+def _scope_end(scope: int, i, j, qlen, tlen):
+    if scope == SCOPE_ANYWHERE:
+        return None
+    if scope == SCOPE_EDGE:
+        return (i == qlen) | (j == tlen)
+    if scope == SCOPE_QUERY:
+        return i == qlen
+    if scope == SCOPE_TARGET:
+        return j == tlen
+    return (i == qlen) & (j == tlen)
+
+
+def plain_wavefront(ki: KernelInputs):
+    """The whole wavefront for a batch, in plain PyTorch.
+
+    Returns ``(out, tb)``: ``out`` is a (5, B) int32 tensor of score,
+    query_end, target_end, query_start, target_start (the starts are 0
+    outside region mode; a pair with no alignment reports NEG, 0, 0, 0,
+    0), and ``tb`` the (B, Qp+Tp+1, S, Qp+1) uint8 cube of winning plan
+    ids (``plan row + 1``, 0 = unset) in path mode, else None."""
+    want_region = ki.mode == "region"
+    want_path = ki.mode == "path"
+    dev = ki.dims.device
+    B, W, D = ki.batch, ki.Qp + 1, ki.Qp + ki.Tp + 1
+    S, L, K = ki.S, ki.L, ki.K
+    rs_q, rs_t = ki.n_shadow, ki.n_shadow + 1
+    plan = ki.plan.tolist()
+    i = torch.arange(W, dtype=torch.int32, device=dev)
+    qstart, tstart, qlen, tlen = (ki.dims[:, c:c + 1] for c in range(4))
+    neg = torch.full((B, W), NEG, dtype=torch.int32, device=dev)
+    zero = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    # target vectors reversed and padded: v[d - i - at] for i = 0..W-1 is
+    # the contiguous slice starting at W + Tp - d + at
+    trev = F.pad(torch.flip(ki.tvecs, dims=(2,)), (W, W + K))
+    qv, tabs, scal = ki.qvecs, ki.tables, ki.scalars
+    b_sc, b_j, b_qs, b_ts = neg, zero, zero, zero    # per-lane best planes
+    tb = (torch.zeros((B, D, S, W), dtype=torch.uint8, device=dev)
+          if want_path else None)
+    blank = ([neg] * S, [[zero] * L for _ in range(S)])
+    prev = [blank] * K                # prev[k]: diagonal d-1-k
+
+    def shift(x, aq, fill):
+        return F.pad(x[:, :W - aq], (aq, 0), value=fill) if aq else x
+
+    for d in range(D):
+        j = d - i
+        cell_ok = (j >= 0) & (j <= tlen) & (i <= qlen)           # (B, W)
+        masks: dict = {}
+        reads: dict = {}
+        calcs: dict = {}
+        scores: list = [None] * S
+        lanes: list = [[None] * L for _ in range(S)]
+        tbv: list = [None] * S
+        for pid, row in enumerate(plan):
+            aq, at = row[P_AQ], row[P_AT]
+            inp, out, flags = row[P_IN], row[P_OUT], row[P_FLAGS]
+            adv = aq + at
+            si, sj = i - aq, j - at
+            ok = masks.get((aq, at))
+            if ok is None:
+                ok = masks[(aq, at)] = cell_ok & (i >= aq) & (j >= at)
+            if flags & F_FROM_START:
+                sm = _scope_start(ki.start_scope, si, sj)
+                if sm is not None:
+                    ok = ok & sm
+                base = 0
+                src_l = [zero] * L
+            elif adv == 0:
+                if scores[inp] is None:
+                    continue             # nothing reached this state yet
+                base = scores[inp]
+                src_l = [v if v is not None else zero for v in lanes[inp]]
+            else:
+                hit = reads.get((inp, adv, aq))
+                if hit is None:
+                    p_sc, p_ln = prev[adv - 1]
+                    hit = reads[(inp, adv, aq)] = (
+                        shift(p_sc[inp], aq, NEG),
+                        [shift(v, aq, 0) for v in p_ln[inp]])
+                base, src_l = hit
+            if flags & F_TO_END:
+                em = _scope_end(ki.end_scope, i, j, qlen, tlen)
+                if em is not None:
+                    ok = ok & em
+            kind = row[P_CALC]
+            ckey = (kind, row[P_C0], row[P_C1], at)
+            calc = calcs.get(ckey)
+            if calc is None:
+                st = W + ki.Tp - d + at
+                if kind == C_NONE:
+                    calc = 0
+                elif kind == C_SCALAR:
+                    calc = scal[:, row[P_C0]:row[P_C0] + 1]
+                elif kind == C_QVEC:
+                    calc = qv[:, row[P_C0]]
+                elif kind == C_TVEC:
+                    calc = trev[:, row[P_C0], st:st + W]
+                else:                    # C_FACTORED
+                    idx = (qv[:, row[P_C0]] * row[P_C3]
+                           + trev[:, row[P_C1], st:st + W] + row[P_C2])
+                    g = torch.gather(tabs, 1, idx.long())
+                    ov = qv[:, row[P_C4]]
+                    calc = torch.where(ov != 0, ov, g)
+                calcs[ckey] = calc
+            if flags & (F_SH_Q | F_SH_T):
+                # intron length window (model/intron.py:140-149) on the
+                # SOURCE position and the source cell's shadow lane
+                lo = scal[:, row[P_SH_MIN]:row[P_SH_MIN] + 1]
+                hi = scal[:, row[P_SH_MAX]:row[P_SH_MAX] + 1]
+                bad = None
+                for flag, pos, lane in ((F_SH_Q, si + qstart, P_SH_LANE_Q),
+                                        (F_SH_T, sj + tstart, P_SH_LANE_T)):
+                    if flags & flag:
+                        length = pos - src_l[row[lane]] + 2
+                        b = (length < lo) | (length > hi)
+                        bad = b if bad is None else bad | b
+                calc = torch.where(bad, NEG, torch.as_tensor(
+                    calc, dtype=torch.int32, device=dev))
+            val = base + calc            # int32, wraps like the reference
+            if not torch.is_tensor(val):
+                val = torch.full((B, W), val, dtype=torch.int32, device=dev)
+            if flags & F_P_UNDER:
+                val = torch.clamp(val, min=NEG)
+            if flags & F_P_OVER:
+                val = torch.clamp(val, max=IMPOSSIBLY_HIGH_SCORE)
+            val = torch.clamp(val, min=NEG)
+            keep = ok if flags & F_FROM_START else ok & (base > NEG)
+            val = torch.where(keep, val, NEG)
+            cur = scores[out] if scores[out] is not None else neg
+            take = val > cur             # strict: first max wins
+            scores[out] = torch.where(take, val, cur)
+            if want_path:
+                old = tbv[out] if tbv[out] is not None else zero
+                tbv[out] = torch.where(take, pid + 1, old)
+            if L:
+                new_l = list(src_l)
+                for k in range(row[P_NSTART]):
+                    des = row[P_ST_DES0 + 2 * k]
+                    new_l[des] = (si + qstart if row[P_ST_ONQ0 + 2 * k]
+                                  else sj + tstart)
+                if want_region and flags & F_FROM_START:
+                    new_l[rs_q], new_l[rs_t] = si, sj
+                for ln in range(L):
+                    old = lanes[out][ln]
+                    lanes[out][ln] = torch.where(
+                        take, new_l[ln], old if old is not None else zero)
+        es = scores[ki.end_id]
+        if es is not None:
+            # per lane (fixed i) j grows with d, so strict > keeps the
+            # smallest-j end cell of each score
+            take_e = es > b_sc
+            b_sc = torch.where(take_e, es, b_sc)
+            b_j = torch.where(take_e, j, b_j)
+            if want_region:
+                e_ln = lanes[ki.end_id]
+                b_qs = torch.where(take_e, e_ln[rs_q], b_qs)
+                b_ts = torch.where(take_e, e_ln[rs_t], b_ts)
+        if want_path:
+            tb[:, d] = torch.stack([v if v is not None else zero
+                                    for v in tbv], dim=1).to(torch.uint8)
+        new_diag = ([v if v is not None else neg for v in scores],
+                    [[v if v is not None else zero for v in lanes[s]]
+                     for s in range(S)])
+        prev = [new_diag] + prev[:-1]
+    # lexicographic winner: max score, then min j, then min i
+    big = 1 << 30
+    m = b_sc.max(dim=1).values
+    tie = b_sc == m[:, None]
+    jmin = torch.where(tie, b_j, big).min(dim=1).values
+    tie2 = tie & (b_j == jmin[:, None])
+    imin = torch.where(tie2, i, big).min(dim=1).values
+    sel = tie2 & (i == imin[:, None])
+    qs = torch.where(sel, b_qs, 0).sum(dim=1)
+    ts = torch.where(sel, b_ts, 0).sum(dim=1)
+    found = m > NEG
+    out = torch.stack([torch.where(found, x, dead).to(torch.int32)
+                       for x, dead in ((m, NEG), (imin, 0), (jmin, 0),
+                                       (qs, 0), (ts, 0))])
+    return out, tb
+
+
+def plain_walkback(tb: torch.Tensor, stats: torch.Tensor,
+                   walk: torch.Tensor, end_id: int, cap: int):
+    """Walk the traceback cube back from each pair's best end cell
+    (``pallas_wavefront._build_walkback:1564-1587``).
+
+    ``tb`` is (B, D, S, W) uint8, ``stats`` the (5, B) wavefront output
+    (rows 1, 2 are the end cell), ``walk`` the (4, P+1) id table.
+    Returns ``(ops, res)``: (B, cap) int32 plan ids end->start, and
+    (3, B) int32 rows n_ops, query_start, target_start.  A walk stops on
+    id 0 or at ``cap`` steps (n_ops == cap marks it unusable), and ends
+    after a transition from START."""
+    B, D, S, W = tb.shape
+    tbn = tb.cpu().numpy()
+    qe, te = stats[1].tolist(), stats[2].tolist()
+    aq_t, at_t, in_t, fs_t = walk.tolist()
+    ops = np.zeros((B, cap), np.int32)
+    res = np.zeros((3, B), np.int32)
+    for b in range(B):
+        k, i, j, s = 0, qe[b], te[b], end_id
+        while True:
+            tid = int(tbn[b, min(max(i + j, 0), D - 1), s,
+                          min(max(i, 0), W - 1)])
+            if tid == 0 or k >= cap:
+                break
+            if tid >= len(aq_t):     # not a plan id: an overlong walk
+                k = cap
+                break
+            ops[b, k] = tid
+            k += 1
+            i -= aq_t[tid]
+            j -= at_t[tid]
+            s = in_t[tid]
+            if fs_t[tid]:
+                break
+        res[:, b] = (k, i, j)
+    return (torch.from_numpy(ops).to(tb.device),
+            torch.from_numpy(res).to(tb.device))
