@@ -3,9 +3,9 @@
 A second package beside ``exonerate_tpu``: the host layer (sequences,
 models, seeding, native engines, output) is shared by import, and every
 module of the JAX package that reaches JAX has a counterpart here under
-the same name.  The exhaustive anti-diagonal Viterbi runs on
-hand-written CUDA kernels (``csrc/``), with a plain PyTorch version of
-each kernel beside it for CPU tensors.
+the same name.  The exhaustive anti-diagonal Viterbi and the seeded
+heuristic's band scan run on hand-written CUDA kernels (``csrc/``), with
+a plain PyTorch version of each kernel beside it for CPU tensors.
 
 The device is explicit: ``device()`` resolves it once and callers pass
 the ``torch.device`` down.  There is no silent fall-back to the CPU.

@@ -34,7 +34,8 @@ class Built:
     log: str            # nvcc's output, including the -Xptxas -v lines
 
 
-_lock = threading.Lock()
+_lock = threading.Lock()            # guards _stem_locks
+_stem_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 builds: dict[str, Built] = {}
 
@@ -74,8 +75,12 @@ def build(stem: str) -> Built:
 
 
 def load(stem: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<stem>.cu, built on first use."""
+    """The loaded library for csrc/<stem>.cu, built on first use.  Safe to
+    call from several threads: each source has its own lock, so different
+    sources build at once."""
     with _lock:
+        stem_lock = _stem_locks.setdefault(stem, threading.Lock())
+    with stem_lock:
         lib = _loaded.get(stem)
         if lib is None:
             built = build(stem)

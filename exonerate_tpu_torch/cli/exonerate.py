@@ -2,7 +2,8 @@
 
 Counterpart of ``exonerate_tpu/cli/exonerate.py``: the same flags (its
 ``build_parser``), the same output, with the port's Analysis, GAM and
-optimal, which run the exhaustive DP on the CUDA wavefront kernels.  Run
+optimal, which run the exhaustive DP on the CUDA wavefront kernels and
+the default heuristic's SDP band scan on the band kernels.  Run
 it as ``python -m exonerate_tpu_torch.cli.exonerate <query> <target>
 [flags]``; ``EXONERATE_TPU_TORCH_DEVICE`` picks the device (``cuda`` by
 default, ``cpu`` for the plain PyTorch engines).

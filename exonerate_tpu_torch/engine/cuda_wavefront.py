@@ -363,11 +363,13 @@ _typed: set = set()
 
 
 def _lib(stem: str, fn: str, argtypes: list):
+    """Entry point ``fn`` of csrc/<stem>.cu, typed once per (stem, fn):
+    a library with several entry points types each of them."""
     lib = _cudabuild.load(stem)
-    if stem not in _typed:
+    if (stem, fn) not in _typed:
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
-        _typed.add(stem)
+        _typed.add((stem, fn))
     return getattr(lib, fn)
 
 

@@ -161,6 +161,27 @@ def test_unsupported_models_name_the_missing_kernel():
                             kinds + (("_blocked", "blocked"),), CPU)
 
 
+def test_lib_types_every_entry_point_of_a_library(monkeypatch):
+    """_lib sets argtypes/restype per (library, entry point): the second
+    entry point of a library gets its own, so 64-bit pointers are never
+    passed as C int."""
+    class Fn:
+        argtypes = restype = None
+
+    class Lib:
+        first, second = Fn(), Fn()
+
+    lib = Lib()
+    monkeypatch.setattr(cw._cudabuild, "load", lambda stem: lib)
+    monkeypatch.setattr(cw, "_typed", set())
+    ptrs = [cw._P, cw._P, cw._I]
+    assert cw._lib("fake", "first", ptrs) is lib.first
+    assert cw._lib("fake", "second", [cw._I, cw._P]) is lib.second
+    assert lib.first.argtypes == ptrs
+    assert lib.second.argtypes == [cw._I, cw._P]
+    assert lib.first.restype is lib.second.restype is cw.ctypes.c_int
+
+
 def test_max_batch_budgets():
     model = est2genome_create()
     assert cw.max_batch(model, 2304, 2304, "region") >= 64
