@@ -14,43 +14,75 @@ script then exits non-zero and prints no result line):
    ptxas' register/shared-memory lines.
 3. K6/K7 vs plain: the band kernels against the plain PyTorch band scan,
    exactly (boundary bits, column best, live, xband, band_end per
-   locus), on a ragged batch of synthetic est2genome pairs and a ner
-   joint-span pair (tests/torch_sdp_cases.py).  Then the
-   est2genome_genomic golden through the port's CLI on the forced device
-   route, byte-equal to the golden (this first heuristic run also builds
-   the host's native libraries, so that phase 4 is timed warm).
-4. The heuristic scan at full width (the main path of the band kernels):
-   16 mutated calm cDNAs against a 1 Mb genome holding 8 spliced copies
-   (benchmarks/genome_scan.py's recipe, rng 7), through the port's CLI
-   with default routing and with EXONERATE_TPU_SDP=native; the outputs
-   must be byte-equal, with 16 comparisons on cuda-sdp, K6/K7 launched,
-   no fallback, 16/16 queries spliced and no plain-scan pass.  K6/K7
-   are launched again on the scan's band batch, and worker processes
-   start the plain passes over that batch on the CPU (in parallel, over
-   slices of the batch), to be held against the kernels' outputs in
-   phase 9.
-5. K1 vs plain: est2genome, calm (tests/golden/data/all4.fa record 1)
+   locus), on a ragged batch of synthetic est2genome pairs, a ner
+   joint-span pair and, per split-codon model (protein2genome,
+   coding2genome, cdna2genome), a ragged pair of jobs whose exons split
+   codons of both phases (kernel K9 inside K7; tests/torch_sdp_cases.py).
+   Then the est2genome_genomic golden through the port's CLI on the
+   forced device route, byte-equal to the golden (this first heuristic
+   run also builds the host's native libraries, so that the scans are
+   timed warm).
+4. The est2genome scan at full width (the band kernels' first main
+   path): 16 mutated calm cDNAs against a 1 Mb genome holding 8 spliced
+   copies (benchmarks/genome_scan.py's recipe, rng 7), through the port's
+   CLI with default routing and with EXONERATE_TPU_SDP=native; the
+   outputs must be byte-equal, with 16 comparisons on cuda-sdp, K6/K7
+   launched, no fallback, 16/16 queries spliced and no plain-scan pass.
+   K6/K7 are launched again on the scan's band batch, and worker
+   processes start the plain passes over that batch on the CPU (over
+   slices of the batch), to be held against the kernels' outputs in the
+   last phase.
+5. The split-codon paths (kernel K9), each through the port's CLI
+   against the native route, byte for byte, with its kernels launched and
+   no fallback but one: in the coding2genome scan the hybrid's locus
+   cross-check disagrees on one comparison (the host's re-run of one
+   locus alone scores 2008 where the band scan of the whole comparison
+   scores 2007; the comparison goes to the host, as in the JAX package's
+   device tier on the same input); a second one fails the script.
+   After each scan K6/K7 run again on every launch the main path made of
+   its band batch (the same comparisons, Qp and Wp), and the comparisons
+   whose cross-check disagreed, else the widest, start their plain check
+   in two more worker processes at the shape of their launch.
+   a. coding2genome scan: the 16 cDNAs against the same recipe's genome
+      cut at cDNA 251 and 402 (a phase-1 and a phase-2 intron of calm's
+      CDS), default routing; its output holds split-codon (S) operations.
+   b. protein2genome scan: 8 mutated calm proteins against that genome on
+      the forced device route (EXONERATE_TPU_SDP=device; by default the
+      149-residue queries stay under DEVICE_MIN_Q); no fallback.
+   c. protein2genome -E yes: the calm protein against a 12 kb locus of
+      the same three exons; the region scan and the path DP run on K1
+      and K4 (optimal's native cut-over set to 100,000 cells for this
+      run), against the native dense DP; S operations at both introns.
+      The run's K1/K4 inputs are captured; all but the first widest
+      region scan are launched again and their plain versions (with the
+      walk-back's) start in one more worker process.
+6. K1 vs plain: est2genome, calm (tests/golden/data/all4.fa record 1)
    against itself, 2175x2175, B=64, score and region modes, plus a ragged
-   batch; the kernel's outputs must equal the plain PyTorch version's
-   exactly (score 10875).  Times both with CUDA events, in turns.
-6. K4 + walk-back vs plain and vs the native dense DP, calm 2175^2 path.
-7. CLI end to end: the port's CLI must reproduce the exhaustive_est2genome
+   batch and the model zoo; the split-codon plans: the calm protein
+   against 8 windows of the 12 kb locus (score, region, path), the
+   coding2genome and cdna2genome split pairs, and the protein2genome -E
+   run's first widest region scan on its own inputs (B=1, Qp 256 x Tp
+   12288), timed for kernel K9's row.  Times with CUDA events.
+7. K4 + walk-back vs plain and vs the native dense DP, calm 2175^2 path.
+8. CLI end to end: the port's CLI must reproduce the exhaustive_est2genome
    golden byte for byte and give vulgar score 10875 on calm x calm, with
    the kernels' launch counters above 0 and no engine fallback.
-8. K6/K7 against the plain passes, exactly, on the est2genome_genomic
-   comparison of phase 3, timed kernel vs plain with CUDA events, in
-   turns.
-9. The scan's plain check: every slice's plain pass must equal the
-   kernels' outputs exactly (bits, live; column best, live, xband).
+9. K6/K7 against the plain passes, exactly, on the est2genome_genomic
+   comparison of phase 3, timed kernel vs plain with CUDA events.
+10. The plain checks of the worker processes: every slice's plain pass
+    must equal the kernels' outputs exactly (bits, live; column best,
+    live, xband), and every other K1/K4 launch of the -E run its plain
+    version (scores, ends, starts; traceback cube, walk-back).
 
-Phases 5-8 run on the card while the plain check of phase 4 runs on the
-host's cores, so their host-clock and plain times share the host with
-it.
+Phases 5-9 run on the card while the plain checks run on the host's
+cores, so their host-clock and plain times share the host with them.
 
 The last three lines are nvidia-smi's name and power limit of the card,
 a JSON object of the kernels (route, source, the TPU kernel each
 replaces, main-path launches, max |kernel - plain|, kernel and plain
-milliseconds), and the result object.
+milliseconds, the bound: the larger of the bytes moved over 3.35 TB/s
+and the int32 operations over the int32 peak, and the library call:
+none computes these DPs), and the result object.
 """
 from __future__ import annotations
 
@@ -71,13 +103,27 @@ DATA = os.path.join(ROOT, "tests", "golden", "data")
 CALM_LEN = 2175
 CALM_SELF_SCORE = 10875
 BATCH = 64
-SCAN_GENES, SCAN_QUERIES, SCAN_LEN = 8, 16, 1_000_000
+SCAN_QUERIES, SCAN_LEN = 16, 1_000_000
 SCAN_REV_CHUNKS, SCAN_FWD_CHUNKS = 2, 3  # plain-check worker processes
-DEADLINE_S = 1100                        # the plain check's last moment
+DEADLINE_S = 1100                        # the plain checks' last moment
+# the card's peaks for the bound (NVIDIA H100 SXM data sheet: 3.35 TB/s
+# of HBM3; Hopper white paper: 64 INT32 lanes per SM x 132 SMs x 1.98
+# GHz boost = 16.7 T int32 operations/s)
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 64 * 132 * 1.98e9
 # worker pools and temporary directories, closed when the script ends
 _EXIT = contextlib.ExitStack()
 SCAN_ARGV = ["-m", "est2genome", "--bestn", "1", "--maxintron", "20000",
              "--showvulgar", "yes", "--showalignment", "no"]
+C2G_ARGV = ["-m", "coding2genome", "--bestn", "1", "--maxintron", "20000",
+            "--showvulgar", "yes", "--showalignment", "no"]
+P2G_ARGV = ["-m", "protein2genome", "--bestn", "1", "--maxintron", "20000",
+            "--showvulgar", "yes", "--showalignment", "no"]
+P2G_E_CUTOVER = 100_000      # optimal.NATIVE_TPU_CELLS for the p2g -E run
+CROSSCHECK = "sdp device->host: locus score mismatch"
+# the one comparison of the coding2genome scan whose locus cross-check
+# disagrees (query 9, 2008 != 2007), as in the JAX package's device tier
+C2G_MAX_CROSSED = 1
 
 
 def _card_line() -> str:
@@ -111,32 +157,85 @@ def _cuda_call(fn):
 
 
 def _turns(plain, kernel, kernel_reps: int = 3):
-    """Warm up both, then time plain, kernel, kernel, plain."""
-    plain()
-    kernel()
+    """Warm up the kernel, then time kernel, plain, kernel.  The plain
+    loop runs once (its time is bound by the host's launch rate) and its
+    output is returned for the caller's check: (kernel output, plain
+    output, kernel ms, plain ms)."""
+    got = kernel()
     torch.cuda.synchronize()
-    p1 = _cuda_ms(plain)
     k1 = _cuda_ms(kernel, kernel_reps)
+    want, p = _cuda_call(plain)
     k2 = _cuda_ms(kernel, kernel_reps)
-    p2 = _cuda_ms(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return got, want, (k1 + k2) / 2, p
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
+def _bound(n_bytes: float, n_ops: float):
+    """(least ms the card could take, what bounds it)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / INT32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _tb_valid(ki, tb: torch.Tensor) -> torch.Tensor:
+    """The cells of K4's traceback cube (B, D, S, W) that lie inside each
+    pair's DP (cell (i, d - i) with i <= qlen and d - i <= tlen): the
+    kernel leaves the others unwritten."""
+    qlen = ki.dims[:, 2].long()[:, None, None]
+    tlen = ki.dims[:, 3].long()[:, None, None]
+    d = torch.arange(tb.shape[1], device=tb.device)[None, :, None]
+    i = torch.arange(tb.shape[3], device=tb.device)[None, None, :]
+    ok = (d - i >= 0) & (d - i <= tlen) & (i <= qlen)
+    return ok[:, :, None, :].expand_as(tb)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _wave_work(ki, out_bytes: int):
+    """Bytes (inputs read once, outputs written once) and int32 operations
+    (an add and a compare per plan row per valid cell) of one K1/K4
+    launch on ``ki``."""
+    dims = ki.dims.long()
+    cells = int(((dims[:, 2] + 1) * (dims[:, 3] + 1)).sum())
+    n_in = _nbytes(ki.plan, ki.ring_row, ki.lane_row, ki.dims, ki.qvecs,
+                   ki.tvecs, ki.tables, ki.scalars)
+    return n_in + out_bytes, 2 * cells * ki.plan.shape[0]
+
+
+def _band_work(bi, forward: bool):
+    """Bytes and int32 operations (an add and a compare per candidate per
+    valid band cell) of one K6 (reverse) or K7 (forward) launch."""
+    dims = bi.dims.long()
+    cells = int(((dims[:, 0] + 1) * (dims[:, 1] + 1)).sum())
+    bits = bi.batch * bi.Dp * bi.n_words * 4
+    n_in = _nbytes(bi.fwd_plan if forward else bi.rev_plan, bi.spans,
+                   bi.dims, bi.qvecs, bi.tvecs, bi.scalars)
+    out = bi.batch * 4 * ((bi.Wp + 1) + 2 if forward else 1)
+    plan = bi.fwd_plan if forward else bi.rev_plan
+    return n_in + bits + out, 2 * cells * plan.shape[0]
+
+
 def _synthetic_sdp_jobs():
     """A ragged est2genome batch (single exon, two exons with an intron,
-    two seeds in one column, two distant loci) and a ner joint-span
-    pair, from the cases of tests/torch_sdp_cases.py."""
+    two seeds in one column, two distant loci), a ner joint-span pair
+    and, per split-codon model, its split case with its wide-flanked
+    twin, from the cases of tests/torch_sdp_cases.py."""
     import torch_sdp_cases as tc
     e2g = tc.case("single_exon")[0]
     ragged = [tc.case(n, e2g)[1:] for n in (
         "single_exon", "two_exons_intron", "seed_layers_same_column",
         "distant_loci")]
     ner, pair, plan = tc.case("ner_joint_span")
-    return [(e2g, ragged), (ner, [(pair, plan)])]
+    out = [(e2g, ragged), (ner, [(pair, plan)])]
+    for name in tc.SPLIT_CASES:
+        m = tc.case(name)[0]
+        out.append((m, [tc.case(n, m)[1:] for n in (name, name + "_wide")]))
+    return out
 
 
 def _band_vs_plain(bi, label):
@@ -190,62 +289,75 @@ def _plain_check(path: str, forward: bool, idx: list):
             int((bi.dims[:, 0] + bi.dims[:, 1]).max()) + 1)
 
 
-def _start_plain_check(bi, outs: dict, tmp: str):
-    """Save the batch and the kernels' outputs under ``tmp`` and start
-    the plain passes in worker processes: K6's over SCAN_REV_CHUNKS
-    slices of the batch, K7's over SCAN_FWD_CHUNKS (comparisons sorted
-    by length).  Returns (pool, [(pass name, idx, async result)])."""
-    import dataclasses
-    import multiprocessing
-    path = os.path.join(tmp, "scan_band.pt")
-    fields = {f.name: getattr(bi, f.name) for f in dataclasses.fields(bi)}
-    torch.save({"bi": {k: v.cpu() if torch.is_tensor(v) else v
-                       for k, v in fields.items()},
+def _start_plain_check(label, bi, outs: dict, tmp: str, tasks: list):
+    """Save the batch and the kernels' outputs under ``tmp`` and start the
+    plain passes in worker processes, one per (forward, comparisons)
+    task.  Returns (pool, [(label and pass, idx, async result)])."""
+    path = os.path.join(tmp, f"{label.replace(' ', '_')}_band.pt")
+    torch.save({"bi": _cpu_fields(bi),
                 **{k: v.cpu() for k, v in outs.items()}}, path)
-    length = (bi.dims[:, 0] + bi.dims[:, 1]).tolist()
-    order = sorted(range(bi.batch), key=lambda b: -length[b])
-    tasks = ([(False, c) for c in np.array_split(order, SCAN_REV_CHUNKS)]
-             + [(True, c) for c in np.array_split(order, SCAN_FWD_CHUNKS)])
-    pool = multiprocessing.get_context("spawn").Pool(len(tasks))
-    return pool, [("K7" if fwd else "K6", [int(b) for b in idx],
+    pool = _pool(len(tasks))
+    return pool, [(f"{label} {'K7' if fwd else 'K6'}", [int(b) for b in idx],
                    pool.apply_async(_plain_check,
                                     (path, fwd, [int(b) for b in idx])))
                   for fwd, idx in tasks]
 
 
-def _synthesize_scan(calm: str, tmp: str):
-    """benchmarks/genome_scan.py's recipe (rng 7): 8 copies of calm[:1200]
-    split into 3 exons with 200-1200 bp GT..AG introns, ~1% mutated, in
-    a 1 Mb random genome; 16 queries with ~2% mutations.  Returns the
-    query and target FASTA paths."""
-    rng = np.random.default_rng(7)
-    cdna = calm[:1200]
-    exons = [cdna[:400], cdna[400:800], cdna[800:]]
-    genome = rng.choice(list("acgt"), SCAN_LEN).tolist()
-    spacing = SCAN_LEN // (SCAN_GENES + 1)
-    for g in range(SCAN_GENES):
-        pos = spacing * (g + 1)
-        for i, exon in enumerate(exons):
-            ex = list(exon)
-            for _ in range(len(ex) // 100):
-                ex[rng.integers(0, len(ex))] = rng.choice(list("ACGT"))
-            genome[pos:pos + len(ex)] = ex
-            pos += len(ex)
-            if i < len(exons) - 1:
-                ilen = int(rng.integers(200, 1200))
-                genome[pos:pos + ilen] = (["g", "t"] + rng.choice(
-                    list("acgt"), ilen - 4).tolist() + ["a", "g"])
-                pos += ilen
-    qf, tf = os.path.join(tmp, "q.fa"), os.path.join(tmp, "t.fa")
-    with open(qf, "w") as fh:
-        for qn in range(SCAN_QUERIES):
-            q = list(cdna)
-            for _ in range(len(q) // 50):
-                q[rng.integers(0, len(q))] = rng.choice(list("ACGT"))
-            fh.write(f">q{qn}\n{''.join(q)}\n")
-    with open(tf, "w") as fh:
-        fh.write(">genome\n" + "".join(genome) + "\n")
-    return qf, tf
+def _cpu_fields(obj) -> dict:
+    """A dataclass's fields, tensors moved to the CPU (to be saved)."""
+    import dataclasses
+    return {f.name: (lambda v: v.cpu() if torch.is_tensor(v) else v)(
+        getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+
+
+def _pool(n: int):
+    """n spawned worker processes, ended when the script ends."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(n)
+    _EXIT.callback(pool.join)
+    _EXIT.callback(pool.terminate)
+    return pool
+
+
+def _plain_wave_check(path: str):
+    """Worker process, CPU only: the plain wavefront over the K1/K4
+    inputs saved at ``path``, held against the kernel's outputs saved
+    with it; in path mode also the traceback cube's valid cells and the
+    plain walk-back over the kernel's cube against the walk-back
+    kernel's.  Returns (equal, max |kernel - plain|, seconds, diagonals
+    walked)."""
+    from exonerate_tpu_torch.engine import wavefront as wf
+    torch.set_num_threads(1)
+    saved = torch.load(path, weights_only=True)
+    ki = wf.KernelInputs(**saved["ki"])
+    t0 = time.perf_counter()
+    stats, tb = wf.plain_wavefront(ki)
+    secs = time.perf_counter() - t0
+    err = _max_err(stats, saved["out"])
+    ok = torch.equal(stats, saved["out"])
+    if ki.mode == "path":
+        valid = _tb_valid(ki, tb)
+        err = max(err, _max_err(tb[valid], saved["tb"][valid]))
+        ops, res = wf.plain_walkback(saved["tb"], saved["out"], ki.walk,
+                                     ki.end_id, saved["cap"])
+        ok = ok and not err and torch.equal(res, saved["res"]) and all(
+            torch.equal(ops[b, :int(res[0, b])],
+                        saved["ops"][b, :int(res[0, b])])
+            for b in range(ki.batch))
+    return ok, err, secs, int((ki.dims[:, 2] + ki.dims[:, 3]).max()) + 1
+
+
+def _write_fasta(path: str, records) -> str:
+    with open(path, "w") as fh:
+        for name, seq in records:
+            fh.write(f">{name}\n{seq}\n")
+    return path
+
+
+def _vulgar_ops(out: str) -> list:
+    """The operation letters of every vulgar line of ``out``."""
+    return [ln.split()[10::3] for ln in out.splitlines()
+            if ln.startswith("vulgar:")]
 
 
 def main() -> int:
@@ -263,23 +375,27 @@ def main() -> int:
 
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from exonerate_tpu import observe
-    from exonerate_tpu.alphabet import AlphabetType
-    from exonerate_tpu.engine import sdp_native
-    from exonerate_tpu.engine.region import Region
-    from exonerate_tpu.model.affine import AffineModelType, affine_create
-    from exonerate_tpu.model.data import AlignData
-    from exonerate_tpu.model.est2genome import est2genome_create
-    from exonerate_tpu.seqio import Sequence, iter_fasta
-    from exonerate_tpu_torch import _cudabuild
+    import torch_split_cases as sc
+    from exonerate_tpu_torch import _cudabuild, observe
+    from exonerate_tpu_torch.alphabet import AlphabetType
     from exonerate_tpu_torch.cli.exonerate import main as cli_main
     from exonerate_tpu_torch.engine import cuda_sdp as cs
     from exonerate_tpu_torch.engine import cuda_wavefront as cw
+    from exonerate_tpu_torch.engine import optimal
     from exonerate_tpu_torch.engine import sdp_device as sd
     from exonerate_tpu_torch.engine import sdp_hybrid as hy
+    from exonerate_tpu_torch.engine import sdp_native
     from exonerate_tpu_torch.engine import wavefront as wf
-    if "jax" in sys.modules:
-        raise RuntimeError("the port imported jax")
+    from exonerate_tpu_torch.engine.region import Region
+    from exonerate_tpu_torch.model import registry
+    from exonerate_tpu_torch.model.affine import (AffineModelType,
+                                                  affine_create)
+    from exonerate_tpu_torch.model.data import AlignData
+    from exonerate_tpu_torch.model.est2genome import est2genome_create
+    from exonerate_tpu_torch.seqio import Annotation, Sequence, iter_fasta
+    for mod in ("jax", "exonerate_tpu"):
+        if sys.modules.get(mod) is not None:
+            raise RuntimeError(f"the port imported {mod}")
 
     # -- 2. build (one nvcc per source, all started together) -----------
     from concurrent.futures import ThreadPoolExecutor
@@ -312,18 +428,43 @@ def main() -> int:
     import cases
     engines = {}
 
-    def run_cli(argv):
+    def run_cli(argv, allow_crosscheck=False):
+        """The CLI's output and host seconds; raises on any engine
+        fallback, except, with ``allow_crosscheck``, the hybrid's locus
+        cross-check (see scan())."""
         buf = io.StringIO()
         t0 = time.perf_counter()
         if cli_main(argv, out=buf) != 0:
             raise RuntimeError(f"CLI exit status for {argv}")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        if observe.fallback_counts:
-            raise RuntimeError(f"engine fallbacks: "
-                               f"{dict(observe.fallback_counts)}")
+        bad = {k: v for k, v in observe.fallback_counts.items()
+               if not (allow_crosscheck and k.startswith(CROSSCHECK))}
+        if bad:
+            raise RuntimeError(f"engine fallbacks: {bad}")
         engines.update(observe.engine_counts)
         return buf.getvalue(), secs
+
+    # launches of every kernel on the main paths: each path is driven with
+    # the counters set to 0 just before it and read just after
+    counters = {"K1": cw.wavefront_scan, "K4": cw.wavefront_path,
+                "walkback": cw.walkback, "K6": cs.band_reverse,
+                "K7": cs.band_forward, "K9": cw.K9}
+    main_launches = dict.fromkeys(counters, 0)
+
+    def zero_counts():
+        for c in counters.values():
+            c.launches = 0
+
+    def read_counts(label, want):
+        got = {k: c.launches for k, c in counters.items()}
+        for k, v in got.items():
+            main_launches[k] += v
+        missing = [k for k in want if got[k] < 1]
+        if missing:
+            raise RuntimeError(f"{label}: kernels {missing} never ran on the "
+                               f"main path ({got})")
+        return {k: v for k, v in got.items() if v}
 
     # the band batches the hybrid sends to the card, captured on the way
     captured = []
@@ -337,11 +478,16 @@ def main() -> int:
 
     # -- 3. K6/K7 vs plain, synthetic pairs ------------------------------
     band_err = 0
+    split_band = None
     for bmodel, jobs in _synthetic_sdp_jobs():
         drop = jobs[0][0].args.dropoff
-        err, _, _ = _band_vs_plain(cs.band_inputs(bmodel, jobs, drop, dev),
-                                   f"{bmodel.name} x{len(jobs)}")
+        bi = cs.band_inputs(bmodel, jobs, drop, dev)
+        err, _, plain_fwd = _band_vs_plain(bi, f"{bmodel.name} x{len(jobs)}")
         band_err = max(band_err, err)
+        if bi.split and bmodel.name.startswith("protein2genome"):
+            bits0 = cs.band_reverse(bi)[0]
+            split_band = (bmodel.name, bi.Qp, bi.Wp, _cuda_ms(
+                lambda: cs.band_forward(bi, bits0), 3), plain_fwd)
         got = cs.run_kernel(bmodel, jobs, drop, dev)
         want = cs.run_kernel(bmodel, jobs, drop, cpu)
         for g, w in zip(got, want):
@@ -349,12 +495,13 @@ def main() -> int:
                     or not np.array_equal(g["band_end"], w["band_end"]):
                 raise RuntimeError(f"K6/K7 {bmodel.name}: run_kernel on "
                                    f"the card != on the CPU")
-        print(f"K6/K7 {bmodel.name} x{len(jobs)}: kernel == plain "
-              f"(bits, column best, live, xband, band_end per locus)")
+        print(f"K6/K7 {bmodel.name} x{len(jobs)}"
+              f"{' (split codons, K9)' if bi.split else ''}: kernel == "
+              f"plain (bits, column best, live, xband, band_end per locus)")
 
     # the est2genome_genomic golden through the CLI on the forced device
     # route (this first heuristic run also builds the host's native
-    # libraries, so that the scan below is timed warm)
+    # libraries, so that the scans below are timed warm)
     name_g = "est2genome_genomic"
     argv_g = dict((n, a) for n, _prog, a in cases.CASES)[name_g]
     captured.clear()
@@ -375,7 +522,7 @@ def main() -> int:
           f"({secs:.2f} s host clock)")
     gmodel, gjobs, _ = captured[0]
 
-    # -- 4. the heuristic scan at full width (the band kernels' main path)
+    # -- 4. the est2genome scan at full width (the band kernels' main path)
     plain_passes = [0]
     real_pass = sd._run_pass
 
@@ -383,55 +530,105 @@ def main() -> int:
         plain_passes[0] += 1
         return real_pass(*args, **kwargs)
 
-    with tempfile.TemporaryDirectory() as scan_dir:
-        argv_s = SCAN_ARGV + list(_synthesize_scan(str(calm), scan_dir))
+    real_resolve = hy.HybridSDPPair._resolve
+
+    def scan(label, argv, mode, want_kernels, force=None, max_crossed=0):
+        """The CLI over ``argv`` on the route ``force`` (None: default)
+        and on the native route; returns (output, engines, captured
+        batches, [(batch, comparison) of each locus cross-check
+        mismatch]).
+
+        The hybrid's locus cross-check may disagree on at most
+        ``max_crossed`` comparisons: the host's re-run of one locus alone
+        finds another score than the band scan of the whole comparison,
+        and the comparison goes to the host.  The JAX package's device
+        tier does the same on such inputs (ROADMAP.md, Queue 3); the
+        caller holds the kernels to the plain passes on each such
+        comparison.  Any other fallback, or one more, fails."""
         captured.clear()
+        mismatched = []
+
+        def resolve(self, lx):
+            try:
+                return real_resolve(self, lx)
+            except hy.HybridFallback:
+                if self.plan is not None:
+                    mismatched.append(self.plan)
+                raise
+
         sd._run_pass = counted_pass
         hy.run_device_batch = spy
-        cs.band_reverse.launches = 0
-        cs.band_forward.launches = 0
+        hy.HybridSDPPair._resolve = resolve
+        if force:
+            os.environ["EXONERATE_TPU_SDP"] = force
+        observe.reset()
+        zero_counts()
         try:
-            out_dev, secs_dev = run_cli(argv_s)
-            band_launches = {"K6": cs.band_reverse.launches,
-                             "K7": cs.band_forward.launches}
-            scan_engines = dict(observe.engine_counts)
+            out_dev, secs_dev = run_cli(argv, max_crossed > 0)
+            launches = read_counts(label, want_kernels)
+            eng = dict(observe.engine_counts)
+            falls = dict(observe.fallback_counts)
             hy.run_device_batch = real_batch
+            hy.HybridSDPPair._resolve = real_resolve
+            batches = list(captured)
             os.environ["EXONERATE_TPU_SDP"] = "native"
-            out_nat, secs_nat = run_cli(argv_s)
+            observe.reset()
+            out_nat, secs_nat = run_cli(argv)
         finally:
             os.environ.pop("EXONERATE_TPU_SDP", None)
             sd._run_pass = real_pass
             hy.run_device_batch = real_batch
-    vulgar = [ln.split() for ln in out_dev.splitlines()
-              if ln.startswith("vulgar:")]
-    spliced = {v[1] for v in vulgar if "I" in v[10::3]}
-    print(f"scan {SCAN_QUERIES} x {SCAN_LEN / 1e6:.0f} Mb est2genome "
-          f"[{card}]: default routing {secs_dev:.2f} s, "
-          f"EXONERATE_TPU_SDP=native {secs_nat:.2f} s (host clock); "
-          f"engines {scan_engines}; launches {band_launches}; "
-          f"{len(spliced)}/{SCAN_QUERIES} queries spliced")
-    if out_dev != out_nat:
-        raise RuntimeError("scan: the device route's output differs from "
-                           "the native route's")
-    if scan_engines.get(cs.engine_name(dev)) != 16:
-        raise RuntimeError(f"scan: want 16 comparisons on "
-                           f"{cs.engine_name(dev)}, got {scan_engines}")
-    if min(band_launches.values()) < 1:
-        raise RuntimeError(f"a band kernel never ran: {band_launches}")
+            hy.HybridSDPPair._resolve = real_resolve
+        crossed = [(bx, jx) for bx, (_m, jobs_, _s) in enumerate(batches)
+                   for jx, (_p, pl) in enumerate(jobs_)
+                   if any(pl is q for q in mismatched)]
+        print(f"{label} [{card}]: {mode} {secs_dev:.2f} s, "
+              f"EXONERATE_TPU_SDP=native {secs_nat:.2f} s (host clock); "
+              f"engines {eng}; launches {launches}; fallbacks {falls}")
+        if sum(falls.values()) != len(crossed):
+            raise RuntimeError(f"{label}: fallbacks {falls} are not the "
+                               f"{len(crossed)} locus cross-checks found")
+        if len(crossed) > max_crossed:
+            raise RuntimeError(f"{label}: {len(crossed)} locus cross-check "
+                               f"mismatches, at most {max_crossed} allowed")
+        if out_dev != out_nat:
+            raise RuntimeError(f"{label}: the {mode} output differs from "
+                               f"the native route's")
+        if eng.get(cs.engine_name(dev), 0) < 1:
+            raise RuntimeError(f"{label}: no comparison on "
+                               f"{cs.engine_name(dev)}: {eng}")
+        if plain_passes[0]:
+            raise RuntimeError(f"{label}: {plain_passes[0]} plain band-scan "
+                               f"passes ran on the main path")
+        return out_dev, eng, batches, crossed
+
+    tmp_dir = _EXIT.enter_context(tempfile.TemporaryDirectory())
+    queries, genome = sc.scan_genome((400, 800))
+    qf = _write_fasta(os.path.join(tmp_dir, "q.fa"),
+                      [(f"q{k}", q) for k, q in enumerate(queries)])
+    tf = _write_fasta(os.path.join(tmp_dir, "t.fa"), [("genome", genome)])
+    out_dev, scan_eng, batches, _ = scan(
+        f"scan {SCAN_QUERIES} x {SCAN_LEN / 1e6:.0f} Mb est2genome",
+        SCAN_ARGV + [qf, tf], "default routing", ("K6", "K7"))
+    spliced = {v[1] for v in (ln.split() for ln in out_dev.splitlines()
+                              if ln.startswith("vulgar:"))
+               if "I" in v[10::3]}
+    print(f"  {len(spliced)}/{SCAN_QUERIES} queries spliced")
+    if scan_eng.get(cs.engine_name(dev)) != SCAN_QUERIES:
+        raise RuntimeError(f"scan: want {SCAN_QUERIES} comparisons on "
+                           f"{cs.engine_name(dev)}, got {scan_eng}")
     if len(spliced) != SCAN_QUERIES:
         raise RuntimeError(f"scan: {len(spliced)}/{SCAN_QUERIES} queries "
                            f"with a spliced alignment")
-    if plain_passes[0]:
-        raise RuntimeError(f"scan: {plain_passes[0]} plain band-scan passes "
-                           f"ran on the main path")
-    if len(captured) != 1:
+    if len(batches) != 1:
         raise RuntimeError(f"scan: want one device batch, got "
-                           f"{len(captured)}")
-    smodel, sjobs, batch_secs = captured[0]
+                           f"{len(batches)}")
+    smodel, sjobs, batch_secs = batches[0]
     bi = cs.band_inputs(smodel, sjobs, sjobs[0][0].args.dropoff, dev)
     (bits_s, live_r), s_rev = _cuda_call(lambda: cs.band_reverse(bi))
     (col_s, live_f, xb_s), s_fwd = _cuda_call(
         lambda: cs.band_forward(bi, bits_s))
+    scan_work = (_band_work(bi, False), _band_work(bi, True))
     ws = [pl.W for _, pl in sjobs]
     print(f"scan band batch: B={len(sjobs)}, Qp {bi.Qp}, W {min(ws)}-"
           f"{max(ws)}, Wp {bi.Wp}, Dp {bi.Dp}, "
@@ -440,34 +637,197 @@ def main() -> int:
           f"{s_fwd:.3f} ms (CUDA events); in the default-route run the "
           f"batch took {batch_secs:.2f} s host clock (host prep, copies, "
           f"K6, K7)")
-    check_dir = _EXIT.enter_context(tempfile.TemporaryDirectory())
+    length = (bi.dims[:, 0] + bi.dims[:, 1]).tolist()
+    order = sorted(range(bi.batch), key=lambda b: -length[b])
+    tasks = [(fwd, c) for fwd, n in ((False, SCAN_REV_CHUNKS),
+                                     (True, SCAN_FWD_CHUNKS))
+             for c in np.array_split(order, min(n, bi.batch))]
     pool, pending = _start_plain_check(
-        bi, {"bits": bits_s, "live_r": live_r, "colbest": col_s,
-             "live_f": live_f, "xband": xb_s}, check_dir)
-    _EXIT.callback(pool.join)
-    _EXIT.callback(pool.terminate)
+        "scan", bi, {"bits": bits_s, "live_r": live_r, "colbest": col_s,
+                     "live_f": live_f, "xband": xb_s}, tmp_dir, tasks)
+    pools = [pool]
     check_t0 = time.perf_counter()
     del bi, bits_s, col_s
 
-    # -- 5. K1 vs plain --------------------------------------------------
+    def check_launches(label, model_, jobs_, check):
+        """K6/K7 again on each launch that the main path made of the band
+        batch ``jobs_`` (``cuda_sdp.launch_batches``), timed by CUDA
+        events; the comparisons ``check`` start their plain check in
+        worker processes at the shape of their launch.  Returns (K6 ms,
+        K7 ms, each summed over the launches; (B, Qp, Wp) of each launch;
+        the launches' summed (bytes, operations) for K6 and for K7)."""
+        k6 = k7 = 0.0
+        shapes, w6, w7 = [], [0, 0], [0, 0]
+        for n, chunk in enumerate(cs.launch_batches(model_, jobs_)):
+            bi = cs.band_inputs(model_, [jobs_[j] for j in chunk],
+                                jobs_[0][0].args.dropoff, dev)
+            (bits, live_r), t6 = _cuda_call(lambda: cs.band_reverse(bi))
+            (col, live_f, xb), t7 = _cuda_call(
+                lambda: cs.band_forward(bi, bits))
+            k6, k7 = k6 + t6, k7 + t7
+            shapes.append((len(chunk), bi.Qp, bi.Wp))
+            for w, work in ((w6, _band_work(bi, False)),
+                            (w7, _band_work(bi, True))):
+                w[0], w[1] = w[0] + work[0], w[1] + work[1]
+            mine = [chunk.index(j) for j in check if j in chunk]
+            if mine:
+                pool, more = _start_plain_check(
+                    f"{label} launch {n}", bi,
+                    {"bits": bits, "live_r": live_r, "colbest": col,
+                     "live_f": live_f, "xband": xb}, tmp_dir,
+                    [(False, mine), (True, mine)])
+                pools.append(pool)
+                pending.extend(more)
+            del bi, bits, col
+        return k6, k7, shapes, (tuple(w6), tuple(w7))
+
+    def to_check(label, batches, crossed):
+        """The band batch holding every cross-check mismatch (the largest
+        batch when there is none) and the comparisons to hold to the
+        plain passes: the mismatched ones, else the widest."""
+        bx = max(range(len(batches)), key=lambda b: len(batches[b][1]))
+        if any(b != bx for b, _ in crossed):
+            raise RuntimeError(f"{label}: cross-check mismatches {crossed} "
+                               f"outside the batch checked")
+        widths = [pl.W for _, pl in batches[bx][1]]
+        return (batches[bx], widths,
+                [jx for _, jx in crossed] or [int(np.argmax(widths))])
+
+    # -- 5. the split-codon paths (K9) -----------------------------------
+    # a. coding2genome scan, default routing
+    squeries, sgenome = sc.scan_genome(sc.CUTS)
+    sqf = _write_fasta(os.path.join(tmp_dir, "sq.fa"),
+                       [(f"q{k}", q) for k, q in enumerate(squeries)])
+    stf = _write_fasta(os.path.join(tmp_dir, "st.fa"),
+                       [("split_genome", sgenome)])
+    c2g_out, c2g_eng, c2g_batches, c2g_crossed = scan(
+        f"coding2genome scan {SCAN_QUERIES} x {SCAN_LEN / 1e6:.0f} Mb",
+        C2G_ARGV + [sqf, stf], "default routing", ("K6", "K7", "K9"),
+        max_crossed=C2G_MAX_CROSSED)
+    if not any("S" in ops for ops in _vulgar_ops(c2g_out)):
+        raise RuntimeError("coding2genome scan: no split-codon operation")
+    (cmodel, cjobs, c_secs), c_ws, c_check = to_check(
+        "coding2genome scan", c2g_batches, c2g_crossed)
+    c_rev, c_fwd, c_shapes, c2g_work = check_launches(
+        "coding2genome", cmodel, cjobs, c_check)
+    print(f"  coding2genome band batch: B={len(cjobs)}, W {min(c_ws)}-"
+          f"{max(c_ws)}, launches (B, Qp, Wp) {c_shapes} [{card}]: K6 "
+          f"{c_rev:.3f} ms, K7 {c_fwd:.3f} ms (CUDA events); batch "
+          f"{c_secs:.2f} s host clock; plain check of comparisons "
+          f"{c_check} started")
+
+    # b. protein2genome scan, forced device route
+    proteins = sc.mutated_proteins(8)
+    pqf = _write_fasta(os.path.join(tmp_dir, "pq.fa"),
+                       [(f"p{k}", p) for k, p in enumerate(proteins)])
+    p2g_out, _, p2g_batches, p2g_crossed = scan(
+        "protein2genome scan 8 x 1 Mb", P2G_ARGV + [pqf, stf],
+        "EXONERATE_TPU_SDP=device", ("K6", "K7", "K9"), force="device")
+    if not any("S" in ops for ops in _vulgar_ops(p2g_out)):
+        raise RuntimeError("protein2genome scan: no split-codon operation")
+    (pmodel, pjobs, p_secs), p_ws, p_check = to_check(
+        "protein2genome scan", p2g_batches, p2g_crossed)
+    pk_rev, pk_fwd, p_shapes, p2g_work = check_launches(
+        "protein2genome", pmodel, pjobs, p_check)
+    print(f"  protein2genome band batch: B={len(pjobs)}, W {min(p_ws)}-"
+          f"{max(p_ws)}, launches (B, Qp, Wp) {p_shapes} [{card}]: K6 "
+          f"{pk_rev:.3f} ms, K7 {pk_fwd:.3f} ms (CUDA events, summed); "
+          f"batch {p_secs:.2f} s host clock; plain check of comparisons "
+          f"{p_check} started")
+
+    # c. protein2genome -E yes: the calm protein x the 12 kb split locus
+    locus = sc.split_locus()
+    prot = sc.calm_protein()
+    eqf = _write_fasta(os.path.join(tmp_dir, "calm_p.fa"), [("calm", prot)])
+    etf = _write_fasta(os.path.join(tmp_dir, "locus.fa"), [("locus", locus)])
+    argv_e = ["-m", "protein2genome", "-E", "yes", "--bestn", "1", eqf, etf,
+              "--showvulgar", "yes", "--showalignment", "no"]
+    p2g_cells = (len(prot) + 1) * (len(locus) + 1)
+    saved_cut = optimal.NATIVE_TPU_CELLS
+    # the K1/K4 inputs of the run, captured on the way
+    e_kis = []
+    real_tki = cw.to_kernel_inputs
+
+    def capture_ki(*args, **kwargs):
+        e_kis.append(real_tki(*args, **kwargs))
+        return e_kis[-1]
+
+    observe.reset()
+    zero_counts()
+    try:
+        optimal.NATIVE_TPU_CELLS = P2G_E_CUTOVER
+        cw.to_kernel_inputs = capture_ki
+        out_e, secs_e = run_cli(argv_e)
+        cw.to_kernel_inputs = real_tki
+        e_launches = read_counts("protein2genome -E yes",
+                                 ("K1", "K4", "walkback", "K9"))
+        e_eng = dict(observe.engine_counts)
+        optimal.NATIVE_TPU_CELLS = p2g_cells + 1
+        observe.reset()
+        nat_e, nat_secs_e = run_cli(argv_e)
+    finally:
+        optimal.NATIVE_TPU_CELLS = saved_cut
+        cw.to_kernel_inputs = real_tki
+    ops_e = _vulgar_ops(out_e)
+    print(f"protein2genome -E yes calm protein {len(prot)} aa x locus "
+          f"{len(locus)} bp [{card}]: kernels {secs_e:.2f} s, native "
+          f"{nat_secs_e:.2f} s (host clock); engines {e_eng}; launches "
+          f"{e_launches}; vulgar ops {ops_e}; K1/K4 inputs (mode, B, Qp, "
+          f"Tp) {[(k.mode, k.batch, k.Qp, k.Tp) for k in e_kis]}")
+    if out_e != nat_e:
+        raise RuntimeError("protein2genome -E yes: the kernels' output "
+                           "differs from the native route's")
+    if len(ops_e) != 1 or ops_e[0].count("I") != 2 \
+            or ops_e[0].count("S") != 4:
+        raise RuntimeError("protein2genome -E yes: want split codons (S) "
+                           "at both introns")
+    # every K1/K4 launch of the run is held to the plain version on its
+    # own inputs: the first widest region scan on the card in phase 6
+    # (timed, kernel K9's row), the others here, their plain versions in
+    # a worker process
+    e_main = max((k for k in e_kis if k.mode == "region"),
+                 key=lambda k: k.batch * (k.Qp + 1) * (k.Tp + 1))
+    e_pool = None
+    for n, ki in enumerate(e_kis):
+        if ki is e_main:
+            continue
+        if ki.mode == "path":
+            stats, tb = cw.wavefront_path(ki)
+            cap = ki.Qp + ki.Tp + 1 + cw.WALK_SLACK
+            ops, res = cw.walkback(tb, stats, ki.walk, ki.end_id, cap)
+            outs = {"out": stats, "tb": tb, "ops": ops, "res": res,
+                    "cap": cap}
+        else:
+            outs = {"out": cw.wavefront_scan(ki)}
+        path = os.path.join(tmp_dir, f"p2g_e_{n}.pt")
+        torch.save({"ki": _cpu_fields(ki),
+                    **{k: v.cpu() if torch.is_tensor(v) else v
+                       for k, v in outs.items()}}, path)
+        if e_pool is None:
+            e_pool = _pool(1)
+            pools.append(e_pool)
+        pending.append((f"protein2genome -E launch {n} ({ki.mode}, Qp "
+                        f"{ki.Qp} x Tp {ki.Tp})", list(range(ki.batch)),
+                        e_pool.apply_async(_plain_wave_check, (path,))))
+        del outs
+
+    # -- 6. K1 vs plain --------------------------------------------------
     for mode in ("score", "region"):
         ki = cw.to_kernel_inputs(model, [inputs] * BATCH, kinds, dev, mode)
-        got = cw.wavefront_scan(ki)
-        want = wf.plain_wavefront(ki)[0]
-        torch.cuda.synchronize()
+        got, want, ms, plain_ms = _turns(lambda: wf.plain_wavefront(ki)[0],
+                                         lambda: cw.wavefront_scan(ki))
         err = _max_err(got, want)
         if err or not torch.equal(got, want):
             raise RuntimeError(f"K1 {mode}: kernel != plain (max err {err})")
         if set(got[0].tolist()) != {CALM_SELF_SCORE}:
             raise RuntimeError(f"K1 {mode}: scores {set(got[0].tolist())}")
-        ms, plain_ms = _turns(lambda: wf.plain_wavefront(ki),
-                              lambda: cw.wavefront_scan(ki))
         print(f"K1 {mode} calm {CALM_LEN}^2 x{BATCH} [{card}]: kernel "
               f"{ms:.3f} ms ({ms / BATCH:.4f} ms/pair, "
               f"{cells * BATCH / ms / 1e6:.3f} GCUPS), plain {plain_ms:.3f}"
               f" ms ({plain_ms / BATCH:.4f} ms/pair, "
               f"{cells * BATCH / plain_ms / 1e6:.4f} GCUPS)")
-        report[f"K1_{mode}"] = (err, ms, plain_ms)
+        report[f"K1_{mode}"] = (err, ms, plain_ms,
+                                _wave_work(ki, 5 * BATCH * 4))
     ragged = [(Region(0, 0, 100, 160), data), (Region(40, 10, 80, 150), data),
               (Region(10, 30, 120, 90), data)]
     pa = Sequence("a", None, "MKVLAAGICAGWLLWKKMKVL")
@@ -484,17 +844,22 @@ def main() -> int:
                 raise RuntimeError(f"K1 {mode} ragged {m.name}: {g} != {c}")
     print("K1 ragged batches (est2genome x3, affine:local protein): equal")
     # the rest of the zoo the kernels serve: every start/end scope, the
-    # K=4/6 carry rings of codon models, NER; region and path modes
-    from exonerate_tpu.model import registry
+    # K=4/6 carry rings of codon models, NER; region and path modes; the
+    # split-codon pairs of coding2genome and cdna2genome
     dna_q, dna_t = calm.subseq(0, 300), calm.subseq(20, 330)
-    prot = Sequence("p", None, "MADQLTEEQIAEFKEAFSLFDKDGDGTITTKELGTVMRSL")
+    pep = Sequence("p", None, "MADQLTEEQIAEFKEAFSLFDKDGDGTITTKELGTVMRSL")
+    zoo = [(mt, q, t) for mt, q, t in (
+        ("AFFINE_GLOBAL", dna_q, dna_t), ("AFFINE_BESTFIT", dna_q, dna_t),
+        ("AFFINE_OVERLAP", dna_q, dna_t), ("NER", dna_q, dna_t),
+        ("CODING2CODING", dna_q, dna_t), ("PROTEIN2DNA", pep, dna_t))]
+    for mt, cuts in (("CODING2GENOME", sc.C2G_CUTS), ("CDNA2GENOME", sc.CUTS)):
+        q, t = sc.small_pair("cdna", cuts=cuts)
+        qs = Sequence("q", None, q)
+        if mt == "CDNA2GENOME":
+            qs.annotation = Annotation(0, len(q))
+        zoo.append((mt, qs, Sequence("t", None, t)))
     names = []
-    for mt, q, t in (("AFFINE_GLOBAL", dna_q, dna_t),
-                     ("AFFINE_BESTFIT", dna_q, dna_t),
-                     ("AFFINE_OVERLAP", dna_q, dna_t),
-                     ("NER", dna_q, dna_t),
-                     ("CODING2CODING", dna_q, dna_t),
-                     ("PROTEIN2DNA", prot, dna_t)):
+    for mt, q, t in zoo:
         mtype = getattr(registry.ModelType, mt)
         m = registry.get_model(mtype, q.alphabet.type, t.alphabet.type)
         jobs = [(Region(0, 0, len(q), len(t)),
@@ -508,33 +873,83 @@ def main() -> int:
             raise RuntimeError(f"K4 + walk-back != plain on {m.name}")
         names.append(m.name)
     print(f"K1/K4 model zoo ({', '.join(names)}): equal")
+    # the split-codon plans at width: the calm protein against 8 windows
+    # of the 12 kb locus (each holds the whole gene)
+    p2g = registry.get_model(registry.ModelType.PROTEIN2GENOME,
+                             AlphabetType.PROTEIN, AlphabetType.DNA)
+    pdata = AlignData(Sequence("calm", None, prot),
+                      Sequence("locus", None, locus))
+    windows = [Region(0, 2800 + 30 * k, len(prot), 2000) for k in range(8)]
+    wQp, wTp = wf._bucket(len(prot)), wf._bucket(2000)
+    per = [wf.prepare_inputs(p2g, r, pdata, pad_to=(wQp, wTp),
+                             for_pallas=True) for r in windows]
+    for mode in ("score", "region", "path"):
+        ki = cw.to_kernel_inputs(p2g, [p for p, _ in per], per[0][1], dev,
+                                 mode)
+        if mode == "path":
+            (stats, tb), (p_stats, p_tb), ms, p_ms = _turns(
+                lambda: wf.plain_wavefront(ki),
+                lambda: cw.wavefront_path(ki), 1)
+            valid = _tb_valid(ki, tb)
+            err = max(_max_err(stats, p_stats),
+                      _max_err(tb[valid], p_tb[valid]))
+            ok = torch.equal(stats, p_stats) and not err
+            cap = ki.Qp + ki.Tp + 1 + cw.WALK_SLACK
+            ops, res = cw.walkback(tb, stats, ki.walk, ki.end_id, cap)
+            p_ops, p_res = wf.plain_walkback(tb, stats, ki.walk, ki.end_id,
+                                             cap)
+            ok = ok and torch.equal(res, p_res) and all(
+                torch.equal(ops[b, :int(res[0, b])],
+                            p_ops[b, :int(res[0, b])])
+                for b in range(ki.batch))
+            del tb, p_tb
+        else:
+            got, want, ms, p_ms = _turns(
+                lambda: wf.plain_wavefront(ki)[0],
+                lambda: cw.wavefront_scan(ki))
+            err = _max_err(got, want)
+            ok = torch.equal(got, want)
+        if not ok:
+            raise RuntimeError(f"K1/K4 {mode} protein2genome windows: "
+                               f"kernel != plain (max err {err})")
+        print(f"K1/K4 {mode} protein2genome calm protein x 8 windows of "
+              f"2000 bp (split codons, K9) [{card}]: kernel == plain; "
+              f"kernel {ms:.3f} ms, plain {p_ms:.3f} ms")
+    # K1 on the p2g -E yes run's own inputs (its first widest region scan,
+    # B=1), timed: kernel K9's row
+    got, want, e_ms, e_plain_ms = _turns(
+        lambda: wf.plain_wavefront(e_main)[0],
+        lambda: cw.wavefront_scan(e_main))
+    err = _max_err(got, want)
+    if err or not torch.equal(got, want):
+        raise RuntimeError(f"K1 region protein2genome -E yes: kernel != "
+                           f"plain (max err {err})")
+    e_shape = (f"Qp {e_main.Qp} x Tp {e_main.Tp} x{e_main.batch}, "
+               f"{len(prot)} x {len(locus)}")
+    print(f"K1 region protein2genome -E yes run's scan ({e_shape}; split "
+          f"codons, K9) [{card}]: kernel == plain; kernel {e_ms:.3f} ms, "
+          f"plain {e_plain_ms:.3f} ms")
+    report["K9"] = (err, e_ms, e_plain_ms,
+                    _wave_work(e_main, 5 * e_main.batch * 4))
 
-    # -- 6. K4 + walk-back vs plain and the native dense DP --------------
+    # -- 7. K4 + walk-back vs plain and the native dense DP --------------
     ki = cw.to_kernel_inputs(model, [inputs], kinds, dev, "path")
-    stats, tb = cw.wavefront_path(ki)
-    p_stats, p_tb = wf.plain_wavefront(ki)
-    torch.cuda.synchronize()
+    (stats, tb), (p_stats, p_tb), path_ms, path_plain_ms = _turns(
+        lambda: wf.plain_wavefront(ki), lambda: cw.wavefront_path(ki), 2)
     D, W = Qp + Tp + 1, Qp + 1
-    d_ix = torch.arange(D, device=dev)[:, None]
-    i_ix = torch.arange(W, device=dev)[None, :]
-    valid = ((d_ix - i_ix >= 0) & (d_ix - i_ix <= CALM_LEN)
-             & (i_ix <= CALM_LEN))[None, :, None, :].expand_as(tb)
+    valid = _tb_valid(ki, tb)
     tb_err = _max_err(tb[valid], p_tb[valid])
     if tb_err or not torch.equal(stats, p_stats):
         raise RuntimeError(f"K4: kernel != plain (tb max err {tb_err})")
     cap = D + cw.WALK_SLACK
-    ops, res = cw.walkback(tb, stats, ki.walk, ki.end_id, cap)
-    p_ops, p_res = wf.plain_walkback(tb, stats, ki.walk, ki.end_id, cap)
+    (ops, res), (p_ops, p_res), walk_ms, walk_plain_ms = _turns(
+        lambda: wf.plain_walkback(tb, stats, ki.walk, ki.end_id, cap),
+        lambda: cw.walkback(tb, stats, ki.walk, ki.end_id, cap), 10)
     k = int(res[0, 0])
     if not torch.equal(res, p_res) or not torch.equal(ops[:, :k],
                                                       p_ops[:, :k]):
         raise RuntimeError("walk-back: kernel != plain")
     walk_err = _max_err(res, p_res)
-    path_ms, path_plain_ms = _turns(lambda: wf.plain_wavefront(ki),
-                                    lambda: cw.wavefront_path(ki), 2)
-    walk_ms, walk_plain_ms = _turns(
-        lambda: wf.plain_walkback(tb, stats, ki.walk, ki.end_id, cap),
-        lambda: cw.walkback(tb, stats, ki.walk, ki.end_id, cap), 10)
     del tb, p_tb, valid
     got = cw.find_path_batched(model, [(full, data)], device=dev)[0]
     t0 = time.perf_counter()
@@ -554,16 +969,20 @@ def main() -> int:
           f" plain {path_plain_ms:.3f} ms; walk-back kernel {walk_ms:.4f} ms"
           f", plain {walk_plain_ms:.3f} ms ({k} ops); native dense DP "
           f"{nat_s * 1e3:.1f} ms (host clock); path equals native")
-    report["K4"] = (tb_err, path_ms, path_plain_ms)
-    report["walkback"] = (walk_err, walk_ms, walk_plain_ms)
+    S, B1 = ki.S, 1
+    report["K4"] = (tb_err, path_ms, path_plain_ms,
+                    _wave_work(ki, 5 * 4 + B1 * D * S * W))
+    # per step the walk reads one cube byte and one id-table column and
+    # writes one op
+    report["walkback"] = (walk_err, walk_ms, walk_plain_ms,
+                          (k * (1 + 16 + 4) + _nbytes(stats) + 12, 6 * k))
 
-    # -- 7. the port's CLI, end to end (the exhaustive main path) -------
+    # -- 8. the port's CLI, end to end (the exhaustive main path) -------
     golden = dict((n, argv) for n, _prog, argv in cases.CASES)[
         "exhaustive_est2genome"]
-    cw.wavefront_scan.launches = 0
-    cw.wavefront_path.launches = 0
-    cw.walkback.launches = 0
     engines.clear()
+    observe.reset()
+    zero_counts()
     out, secs = run_cli(golden)
     with open(os.path.join(cases.OUTDIR, "exhaustive_est2genome.txt")) as fh:
         if cases.normalize(out) != fh.read():
@@ -573,71 +992,79 @@ def main() -> int:
           f"({secs:.2f} s host clock)")
     with open(os.path.join(DATA, "all4.fa")) as fh:
         calm_fa = ">" + fh.read()[1:].split("\n>")[0] + "\n"
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "calm.fa")
-        with open(path, "w") as fh:
-            fh.write(calm_fa)
-        out, secs = run_cli(["-m", "est2genome", "-E", "yes", "-S", "no",
-                             "--bestn", "1", path, path, "--showvulgar",
-                             "yes", "--showalignment", "no"])
+    path = os.path.join(tmp_dir, "calm.fa")
+    with open(path, "w") as fh:
+        fh.write(calm_fa)
+    out, secs = run_cli(["-m", "est2genome", "-E", "yes", "-S", "no",
+                         "--bestn", "1", path, path, "--showvulgar",
+                         "yes", "--showalignment", "no"])
     vulgar = [ln.split() for ln in out.splitlines()
               if ln.startswith("vulgar:")]
     if not vulgar or int(vulgar[0][9]) != CALM_SELF_SCORE:
         raise RuntimeError(f"CLI calm x calm: vulgar {vulgar[:1]}")
     print(f"CLI est2genome -E calm x calm: vulgar score {vulgar[0][9]} "
           f"({secs:.2f} s host clock)")
-    launches = {"K1": cw.wavefront_scan.launches,
-                "K4": cw.wavefront_path.launches,
-                "walkback": cw.walkback.launches}
-    print(f"main-path launches {launches}; engines {engines}")
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"a kernel of the main path never ran: {launches}")
+    launches = read_counts("exhaustive est2genome CLI",
+                           ("K1", "K4", "walkback"))
+    print(f"exhaustive main-path launches {launches}; engines {engines}")
     if cw.engine_name(dev) not in engines:
         raise RuntimeError(f"the CLI did not use {cw.engine_name(dev)}")
 
-    # -- 8. K6/K7 vs plain on est2genome_genomic's comparison, timed ----
+    # -- 9. K6/K7 vs plain on est2genome_genomic's comparison, timed ----
     pair_g, plan_g = max(gjobs, key=lambda j: (j[0].region.query_length + 1)
                          * (j[1].W + 1))
     q_g, w_g = pair_g.region.query_length, plan_g.W
     bi = cs.band_inputs(gmodel, [(pair_g, plan_g)], pair_g.args.dropoff, dev)
-    err, p_rev1, p_fwd1 = _band_vs_plain(bi, name_g)
+    err, p_rev, p_fwd = _band_vs_plain(bi, name_g)
     band_err = max(band_err, err)
     k_rev = (_cuda_ms(lambda: cs.band_reverse(bi), 3)
              + _cuda_ms(lambda: cs.band_reverse(bi), 3)) / 2
     bits_g = cs.band_reverse(bi)[0]
     k_fwd = (_cuda_ms(lambda: cs.band_forward(bi, bits_g), 3)
              + _cuda_ms(lambda: cs.band_forward(bi, bits_g), 3)) / 2
-    p_rev = (p_rev1 + _cuda_ms(lambda: sd.plain_band_reverse(bi))) / 2
-    p_fwd = (p_fwd1 + _cuda_ms(lambda: sd.plain_band_forward(bi, bits_g))) / 2
     n_diag_g = q_g + w_g + 1
     print(f"{name_g}'s comparison Q {q_g} x W {w_g} "
           f"({n_diag_g} diagonals) [{card}]: K6 kernel {k_rev:.3f} ms, "
           f"plain {p_rev:.3f} ms; K7 kernel {k_fwd:.3f} ms, plain "
           f"{p_fwd:.3f} ms; kernel == plain")
+    genomic_work = (_band_work(bi, False), _band_work(bi, True))
+    if split_band is not None:
+        print(f"K7 on the split-codon synthetic batch {split_band[0]} (Qp "
+              f"{split_band[1]}, Wp {split_band[2]}) [{card}]: kernel "
+              f"{split_band[3]:.3f} ms, plain {split_band[4]:.3f} ms")
+    print(f"K6/K7 at the scans' batches [{card}]: est2genome {s_rev:.3f} / "
+          f"{s_fwd:.3f} ms; coding2genome {c_rev:.3f} / {c_fwd:.3f} ms; "
+          f"protein2genome {pk_rev:.3f} / {pk_fwd:.3f} ms (summed over "
+          f"{len(p_shapes)} launches)")
 
-    # -- 9. the scan's plain check (started in phase 4) -------------------
+    # -- 10. the scans' plain checks (started in phases 4 and 5) ---------
     wait_t0 = time.perf_counter()
     for pname, idx, res in pending:
         left = DEADLINE_S - (time.perf_counter() - t_start)
         equal, err, secs, n_diag = res.get(timeout=max(left, 1.0))
-        print(f"scan plain check {pname} over comparisons {idx} (B="
-              f"{len(idx)}, {n_diag} diagonals): {secs:.1f} s on one host "
-              f"core ({secs / n_diag * 1e3:.3f} ms per diagonal); max "
+        print(f"plain check {pname} over comparisons {idx} (B={len(idx)}, "
+              f"{n_diag} diagonals): {secs:.1f} s on one host core "
+              f"({secs / n_diag * 1e3:.3f} ms per diagonal); max "
               f"|kernel - plain| {err}")
         if not equal:
-            raise RuntimeError(f"K6/K7 scan batch: {pname} kernel != plain "
-                               f"on comparisons {idx} (max err {err})")
+            raise RuntimeError(f"{pname}: kernel != plain on comparisons "
+                               f"{idx} (max err {err})")
         band_err = max(band_err, err)
-    pool.close()
-    print(f"scan plain check: kernel == plain on all {len(sjobs)} "
-          f"comparisons (bits, live; column best, live, xband), "
-          f"{time.perf_counter() - check_t0:.1f} s after it started, "
-          f"{time.perf_counter() - wait_t0:.1f} s of it waited for")
-    report["K6"] = (band_err, k_rev, p_rev)
-    report["K7"] = (band_err, k_fwd, p_fwd)
+    for pool in pools:
+        pool.close()
+    print(f"plain checks: kernel == plain on all {len(sjobs)} comparisons "
+          f"of the est2genome scan, comparisons {c_check} of the "
+          f"coding2genome scan and {p_check} of the protein2genome scan "
+          f"(bits, live; column best, live, xband) and on the protein2genome"
+          f" -E run's other K1/K4 launches (scores, ends, starts; cube, "
+          f"walk-back), {time.perf_counter() - check_t0:.1f} s after they "
+          f"started, {time.perf_counter() - wait_t0:.1f} s of it waited for")
+    report["K6"] = (band_err, k_rev, p_rev, genomic_work[0])
+    report["K7"] = (band_err, k_fwd, p_fwd, genomic_work[1])
 
     src = "exonerate_tpu_torch/csrc/"
     pw = "exonerate_tpu/engine/pallas_wavefront.py"
+    sp = "exonerate_tpu/engine/sdp_pallas.py"
     kernels = [
         ("K1 wavefront_scan (region, calm 2175^2 x64)", "K1", "K1_region",
          src + "wavefront.cu", pw + ":427"),
@@ -645,21 +1072,35 @@ def main() -> int:
          src + "wavefront.cu", pw + ":1147"),
         ("walkback (calm 2175^2 x1)", "walkback", "walkback",
          src + "walkback.cu", pw + ":1550"),
-    ]
-    sp = "exonerate_tpu/engine/sdp_pallas.py"
-    kernels += [
         (f"K6 band_reverse ({name_g}, Q {q_g} x W {w_g})", "K6", "K6",
          src + "sdp_band.cu", sp + ":974"),
         (f"K7 band_forward ({name_g}, Q {q_g} x W {w_g})", "K7", "K7",
          src + "sdp_band.cu", sp + ":996"),
+        (f"K9 split codon: C_SPLIT inside K1 (region, the protein2genome "
+         f"-E yes run's scan, {e_shape})", "K9", "K9",
+         src + "wavefront.cu", "exonerate_tpu/model/phase.py:305"),
     ]
-    launches.update(band_launches)
     rows = []
     for kname, lkey, rkey, source, replaces in kernels:
-        err, ms, plain_ms = report[rkey]
+        err, ms, plain_ms, (n_bytes, n_ops) = report[rkey]
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
         rows.append({"name": kname, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[lkey],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "replaces": replaces, "launches": main_launches[lkey],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
+    for label, (rev, fwd), k6, k7 in (("est2genome scan", scan_work, s_rev,
+                                       s_fwd),
+                                      ("coding2genome scan", c2g_work, c_rev,
+                                       c_fwd),
+                                      ("protein2genome scan", p2g_work,
+                                       pk_rev, pk_fwd)):
+        print(f"bound at the {label}'s batch: K6 {_bound(*rev)[0]:.3f} ms "
+              f"({_bound(*rev)[1]}; kernel {k6:.3f} ms), K7 "
+              f"{_bound(*fwd)[0]:.3f} ms ({_bound(*fwd)[1]}; kernel "
+              f"{k7:.3f} ms)")
+    print(f"main-path launches {main_launches}; script "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(_card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

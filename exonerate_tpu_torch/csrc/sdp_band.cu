@@ -69,13 +69,16 @@ constexpr int32_t POS = 987654321;        // IMPOSSIBLY_HIGH_SCORE
 // ran the scan's batch 1.8x faster than 256 on an H100 (PERF.md, section 5)
 constexpr int THREADS = 1024;
 
-// maxima (engine/cuda_sdp.py)
-constexpr int MAX_S = 16;
+// maxima (engine/cuda_sdp.py).  The per-thread cell state is sized by
+// the state bound of the instantiation: SMALL_S (est2genome) or MAX_S
+// (the split-codon models, up to cdna2genome's 22 states).
+constexpr int SMALL_S = 16;
+constexpr int MAX_S = 24;
 constexpr int MAX_SH = 4;
-constexpr int MAX_SPANS = 4;
+constexpr int MAX_SPANS = 6;
 constexpr int MAX_CAND = 64;
 constexpr int MAX_SEED_LAYERS = 4;
-constexpr int MAX_STARTS = 2;
+constexpr int MAX_STARTS = 4;
 
 // candidate-table columns (engine/sdp_device.py: BP_*)
 constexpr int BP_AQ = 0;
@@ -93,10 +96,19 @@ constexpr int BP_SH_LANE_Q = 11;
 constexpr int BP_SH_LANE_T = 12;
 constexpr int BP_SH_MIN = 13;
 constexpr int BP_SH_MAX = 14;
-constexpr int BP_NSTART = 15;
-constexpr int BP_ST_DES0 = 16;
-constexpr int BP_ST_ONQ0 = 17;
-constexpr int BP_COLS = 20;
+constexpr int BP_C4 = 15;
+constexpr int BP_C5 = 16;
+constexpr int BP_C6 = 17;
+constexpr int BP_NSTART = 18;
+constexpr int BP_ST_DES0 = 19;    // start lane k: BP_ST_DES0 + 2k ...
+constexpr int BP_ST_SRC0 = 20;    // ... and its source, BP_ST_SRC0 + 2k
+constexpr int BP_COLS = 27;
+
+// BP_ST_SRC codes: _abs_t or the query lane of the source cell, or
+// ST_TVEC + r: tvecs row r at the source column (a shadow start vector)
+constexpr int ST_TARGET = 0;
+constexpr int ST_QUERY = 1;
+constexpr int ST_TVEC = 2;
 
 // BP_FLAGS bits
 constexpr int BF_P_UNDER = 1;
@@ -112,6 +124,7 @@ constexpr int K_FACTORED = 2;
 constexpr int K_SCALAR = 3;
 constexpr int K_QVEC = 4;
 constexpr int K_TVEC = 5;
+constexpr int K_SPLIT = 6;
 
 // span-table columns
 constexpr int SP_STATE = 0;
@@ -150,7 +163,14 @@ __device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
     return (int32_t)((uint32_t)a - (uint32_t)b);
 }
 
-template <bool FWD>
+// floor division by 6, as jnp's // on int32
+__device__ __forceinline__ int floordiv6(int32_t x) {
+    const int q = x / 6;
+    return (x % 6 != 0 && x < 0) ? q - 1 : q;
+}
+
+// MS bounds the model's states: the cell state csc/cpm/cln is sized by it
+template <bool FWD, int MS>
 __global__ void __launch_bounds__(THREADS) band_kernel(const Params p) {
     __shared__ int32_t s_plan[MAX_CAND * BP_COLS];
     __shared__ int32_t s_span[MAX_SPANS * SP_COLS];
@@ -190,7 +210,7 @@ __global__ void __launch_bounds__(THREADS) band_kernel(const Params p) {
     };
 
     bool any_live = false, any_xband = false;
-    int32_t csc[MAX_S], cpm[MAX_S], cln[MAX_S * MAX_SH];
+    int32_t csc[MS], cpm[MS], cln[MS * MAX_SH];
 
     const int n_diag = qlen + wlen + 1;
     for (int step = 0; step < n_diag; ++step) {
@@ -290,6 +310,35 @@ __global__ void __launch_bounds__(THREADS) band_kernel(const Params p) {
                         case K_SCALAR: tsc = scl[row[BP_C0]]; break;
                         case K_QVEC: tsc = qlane(row[BP_C0], qi); break;
                         case K_TVEC: tsc = tcol(row[BP_C1], tj); break;
+                        case K_SPLIT: {
+                            // kernel K9 (model/phase.py:305-327): the aa of
+                            // a codon split by an intron, decoded from the
+                            // packed lanes, indexes the 25 query rows
+                            // R0..R24 (pre-shifted by aq: read at lane i)
+                            const int phase = row[BP_C2];
+                            if (!(s_ln[row[BP_C3]] >= phase)) {
+                                tsc = NEG;
+                                break;
+                            }
+                            int32_t sel, sub = 0;
+                            if (phase == 1) {
+                                sel = s_ln[row[BP_C4]];
+                                const int k = floordiv6(sel);
+                                if (k >= 0 && k < 3)
+                                    sub = tcol(row[BP_C1] + k, tj);
+                            } else {
+                                sel = tcol(row[BP_C1], tj);
+                                const int k = floordiv6(sel);
+                                if (k >= 0 && k < 3)
+                                    sub = s_ln[row[k == 0 ? BP_C4
+                                                   : k == 1 ? BP_C5 : BP_C6]];
+                            }
+                            int field = sel % 6;
+                            if (field < 0) field += 6;
+                            const int aa = (sub >> (5 * field)) & 31;
+                            tsc = aa < 25 ? qlane(row[BP_C0] + aa, i) : 0;
+                            break;
+                        }
                         case K_NONE: default: has = false; break;
                     }
                     const int flags = row[BP_FLAGS];
@@ -323,10 +372,13 @@ __global__ void __launch_bounds__(THREADS) band_kernel(const Params p) {
                     if (FWD && n_sh) {
                         const int n_start = row[BP_NSTART] < MAX_STARTS
                             ? row[BP_NSTART] : MAX_STARTS;
-                        for (int k = 0; k < n_start; ++k)
+                        for (int k = 0; k < n_start; ++k) {
+                            const int src = row[BP_ST_SRC0 + 2 * k];
                             s_ln[row[BP_ST_DES0 + 2 * k]] =
-                                row[BP_ST_ONQ0 + 2 * k]
-                                ? i - aq : tcol(p.row_abs_t, j - at);
+                                src == ST_TARGET ? tcol(p.row_abs_t, j - at)
+                                : src == ST_QUERY ? i - aq
+                                : tcol(src - ST_TVEC, j - at);
+                        }
                         for (int l = 0; l < n_sh; ++l)
                             cln[w * MAX_SH + l] = s_ln[l];
                     }
@@ -474,7 +526,10 @@ __global__ void __launch_bounds__(THREADS) band_kernel(const Params p) {
 
 template <bool FWD>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-    band_kernel<FWD><<<p.B, THREADS, 0, stream>>>(p);
+    if (p.S <= SMALL_S)
+        band_kernel<FWD, SMALL_S><<<p.B, THREADS, 0, stream>>>(p);
+    else
+        band_kernel<FWD, MAX_S><<<p.B, THREADS, 0, stream>>>(p);
     return cudaGetLastError();
 }
 

@@ -57,7 +57,8 @@ namespace {
 constexpr int32_t NEG = -987654321;       // IMPOSSIBLY_LOW_SCORE
 constexpr int32_t HIGH = 987654321;       // IMPOSSIBLY_HIGH_SCORE
 constexpr int THREADS = 256;              // a power of two (final reduce)
-constexpr int MAX_L = 4;                  // lanes per state (cuda_wavefront)
+constexpr int MAX_L = 6;                  // lanes per state (cuda_wavefront)
+constexpr int LEAN_L = 4;                 // ... in the lean instantiation
 
 // plan-table columns (engine/wavefront.py: P_*)
 constexpr int P_AQ = 0;
@@ -75,10 +76,18 @@ constexpr int P_SH_LANE_Q = 11;
 constexpr int P_SH_LANE_T = 12;
 constexpr int P_SH_MIN = 13;
 constexpr int P_SH_MAX = 14;
-constexpr int P_NSTART = 15;
-constexpr int P_ST_DES0 = 16;
-constexpr int P_ST_ONQ0 = 17;
-constexpr int PLAN_COLS = 20;
+constexpr int P_C5 = 15;
+constexpr int P_C6 = 16;
+constexpr int P_NSTART = 17;
+constexpr int P_ST_DES0 = 18;     // start lane k: P_ST_DES0 + 2k ...
+constexpr int P_ST_SRC0 = 19;     // ... and its source, P_ST_SRC0 + 2k
+constexpr int PLAN_COLS = 28;    // a row is 7 x 16 bytes (aligned loads)
+
+// P_ST_SRC codes: the source cell's target or query position, or
+// ST_TVEC + r: tvecs row r at the source column (a shadow start vector)
+constexpr int ST_TARGET = 0;
+constexpr int ST_QUERY = 1;
+constexpr int ST_TVEC = 2;
 
 // P_FLAGS bits
 constexpr int F_FROM_START = 1;
@@ -94,6 +103,7 @@ constexpr int C_SCALAR = 1;
 constexpr int C_QVEC = 2;
 constexpr int C_TVEC = 3;
 constexpr int C_FACTORED = 4;
+constexpr int C_SPLIT = 5;
 
 // scope codes
 constexpr int SCOPE_ANYWHERE = 0;
@@ -161,10 +171,55 @@ __device__ __forceinline__ bool better(int32_t s, int32_t j, int32_t i,
     return s > bs || (s == bs && (j < bj || (j == bj && i < bi)));
 }
 
-template <int MODE>
+// floor division and modulo by 6, as jnp's // and % on int32
+__device__ __forceinline__ int floordiv6(int32_t x) {
+    const int q = x / 6;
+    return (x % 6 != 0 && x < 0) ? q - 1 : q;
+}
+
+// Kernel K9, the split-codon score (model/phase.py:305-327,
+// _make_split_pallas_fn), evaluated as one calc kind of the plan.  The
+// amino acid of a codon split by an intron is decoded from packed 5-bit
+// fields: phase 1 selects one of three target rows E1p0..2 (C1..C1+2) at
+// the source column by the "split c1" lane (C4) // 6, phase 2 one of the
+// lanes "split p2k0..2" (C4..C6) by the N4 row (C1) at the source column
+// // 6; the field is the selector % 6.  The aa then indexes the 25 query
+// rows R0..R24 (C0..C0+24, already shifted by aq on the host) directly:
+// one load, no 25-way select.  aa 25..31 scores 0; a cell whose "target
+// intron" lane (C3, the intron's absolute start) is below the phase
+// scores NEG.
+template <typename Lane>
+__device__ __forceinline__ int32_t split_codon(
+    const int32_t* row, const Lane& src_lane, const int32_t* qv,
+    const int32_t* tv, int W, int WT, int i, int sj) {
+    const int phase = row[P_C2];
+    if (!(src_lane(row[P_C3]) >= phase)) return NEG;
+    int32_t sel, sub = 0;
+    if (phase == 1) {
+        sel = src_lane(row[P_C4]);
+        const int k = floordiv6(sel);
+        if (k >= 0 && k < 3) sub = tv[(row[P_C1] + k) * WT + sj];
+    } else {
+        sel = tv[row[P_C1] * WT + sj];
+        const int k = floordiv6(sel);
+        if (k >= 0 && k < 3)
+            sub = src_lane(row[k == 0 ? P_C4 : k == 1 ? P_C5 : P_C6]);
+    }
+    int field = sel % 6;
+    if (field < 0) field += 6;
+    const int aa = (sub >> (5 * field)) & 31;
+    return aa < 25 ? qv[(row[P_C0] + aa) * W + i] : 0;
+}
+
+// FULL: the plan may hold kernel K9's pieces (a C_SPLIT row or a start
+// lane read from a tvec) and up to MAX_L lanes per state.  The lean
+// instantiation (!FULL) serves the other plans, up to LEAN_L lanes, with
+// the split-codon body and the vector start decode compiled out, so that
+// the models served before K9 keep the code they had.
+template <int MODE, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 wavefront_kernel(const Params p) {
-    extern __shared__ int32_t smem[];
+    extern __shared__ __align__(16) int32_t smem[];
     const int tid = threadIdx.x;
     const int b = blockIdx.x;
     const int S = p.S, L = p.L;
@@ -253,6 +308,11 @@ wavefront_kernel(const Params p) {
                                   + tv[row[P_C1] * WT + sj]];
                         break;
                     }
+                    case C_SPLIT:
+                        if (FULL)
+                            calc = split_codon(row, src_lane, qv, tv, W, WT,
+                                               i, sj);
+                        break;
                     case C_NONE: default: break;
                 }
                 if (flags & (F_SH_Q | F_SH_T)) {
@@ -279,11 +339,15 @@ wavefront_kernel(const Params p) {
                 CV(out) = val;
                 if (MODE == MODE_PATH) CV(V_TB + out) = r + 1;
                 if (L > 0) {
-                    int32_t nl[MAX_L];
+                    int32_t nl[FULL ? MAX_L : LEAN_L];
                     for (int l = 0; l < L; ++l) nl[l] = src_lane(l);
-                    for (int k = 0; k < row[P_NSTART]; ++k)
+                    for (int k = 0; k < row[P_NSTART]; ++k) {
+                        const int src = row[P_ST_SRC0 + 2 * k];
                         nl[row[P_ST_DES0 + 2 * k]] =
-                            row[P_ST_ONQ0 + 2 * k] ? si + qstart : sj + tstart;
+                            src == ST_TARGET ? sj + tstart
+                            : !FULL || src == ST_QUERY ? si + qstart
+                            : tv[(src - ST_TVEC) * WT + sj];
+                    }
                     if (MODE == MODE_REGION && (flags & F_FROM_START)) {
                         nl[rs_q] = si;
                         nl[rs_t] = sj;
@@ -355,7 +419,7 @@ wavefront_kernel(const Params p) {
     }
 }
 
-template <int MODE>
+template <int MODE, bool FULL>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
     const int lanes = p.L > 0 ? p.L : 1;
     int cell_vars = p.S + p.S * p.L + (MODE == MODE_PATH ? p.S : 0);
@@ -364,11 +428,17 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
         * ((size_t)p.n_plan * PLAN_COLS + p.S + (size_t)p.S * lanes
            + (size_t)cell_vars * THREADS);
     cudaError_t err = cudaFuncSetAttribute(
-        wavefront_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        wavefront_kernel<MODE, FULL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    wavefront_kernel<MODE><<<p.B, THREADS, smem, stream>>>(p);
+    wavefront_kernel<MODE, FULL><<<p.B, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch(const Params& p, bool full, cudaStream_t stream) {
+    return full ? launch<MODE, true>(p, stream)
+                : launch<MODE, false>(p, stream);
 }
 
 }  // namespace
@@ -380,7 +450,7 @@ extern "C" int wavefront_launch(
     const int32_t* scalars, int nsc, int32_t* ring, int32_t* lring,
     uint8_t* tb, int32_t* out, int n_plan, int B, int Qp, int Tp, int S,
     int L, int NR, int NL, int R, int n_shadow, int start_id, int end_id,
-    int start_scope, int end_scope, void* stream) {
+    int start_scope, int end_scope, int split, void* stream) {
     if (B <= 0) return 0;
     if (L > MAX_L) return (int)cudaErrorInvalidValue;
     Params p{plan, ring_row, lane_row, dims, qvecs, tvecs, tables, scalars,
@@ -388,11 +458,12 @@ extern "C" int wavefront_launch(
              L, NR, NL, R, n_shadow, start_id, end_id, start_scope,
              end_scope};
     cudaStream_t s = (cudaStream_t)stream;
+    const bool full = split || L > LEAN_L;
     cudaError_t err;
     switch (mode) {
-        case MODE_SCORE: err = launch<MODE_SCORE>(p, s); break;
-        case MODE_REGION: err = launch<MODE_REGION>(p, s); break;
-        case MODE_PATH: err = launch<MODE_PATH>(p, s); break;
+        case MODE_SCORE: err = launch<MODE_SCORE>(p, full, s); break;
+        case MODE_REGION: err = launch<MODE_REGION>(p, full, s); break;
+        case MODE_PATH: err = launch<MODE_PATH>(p, full, s); break;
         default: err = cudaErrorInvalidValue;
     }
     return (int)err;

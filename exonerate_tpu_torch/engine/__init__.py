@@ -1,0 +1,1 @@
+from .region import Region

@@ -31,28 +31,33 @@ from typing import Optional
 import numpy as np
 import torch
 
-from exonerate_tpu.engine import sdp_bands
-from exonerate_tpu.engine.sdp import model_uses_boundary
-from exonerate_tpu.engine.sdp_native import _lane_for
-from exonerate_tpu.model.ir import Model
+from . import sdp_bands
+from .sdp import model_uses_boundary
+from .sdp_native import _lane_for
+from ..model.ir import Model
 
 from . import sdp_device as sd
-from .cuda_wavefront import _lib
+from .cuda_wavefront import K9, _lib
 from .wavefront import _bucket
 from .sdp_device import (BF_EVENT, BF_P_OVER, BF_P_UNDER, BF_SH_Q, BF_SH_T,
-                         BP_AQ, BP_AT, BP_C0, BP_C1, BP_C2, BP_C3, BP_CALC,
-                         BP_COLS, BP_CONTIG, BP_FLAGS, BP_NSTART, BP_READ,
-                         BP_SH_LANE_Q, BP_SH_LANE_T, BP_SH_MAX, BP_SH_MIN,
-                         BP_ST_DES0, BP_ST_ONQ0, BP_WRITE, K_FACTORED, K_NONE,
-                         K_QT, K_QVEC, K_SCALAR, K_TVEC, MAX_STARTS, NEG,
-                         SP_COLS, BandInputs)
+                         BP_AQ, BP_AT, BP_C0, BP_C1, BP_C2, BP_C3, BP_C4,
+                         BP_C5, BP_C6, BP_CALC, BP_COLS, BP_CONTIG, BP_FLAGS,
+                         BP_NSTART, BP_READ, BP_SH_LANE_Q, BP_SH_LANE_T,
+                         BP_SH_MAX, BP_SH_MIN, BP_ST_DES0, BP_ST_SRC0,
+                         BP_WRITE, K_FACTORED, K_NONE, K_QT, K_QVEC,
+                         K_SCALAR, K_SPLIT, K_TVEC, MAX_STARTS, NEG,
+                         SP_COLS, ST_QUERY, ST_TARGET, ST_TVEC, BandInputs)
 
 MAX_SEED_LAYERS = 4
 
-# compile-time maxima of csrc/sdp_band.cu
-MAX_S = 16
+# compile-time maxima of csrc/sdp_band.cu: the kernels are instantiated
+# for up to SMALL_S states (est2genome's 10) and up to MAX_S (cdna2genome's
+# 22), so that the per-thread cell state of the smaller models does not
+# grow with the larger bound
+SMALL_S = 16
+MAX_S = 24
 MAX_SH = 4
-MAX_SPANS = 4
+MAX_SPANS = 6
 MAX_CAND = 64
 
 # device-memory budget of one launch pair: boundary bits, W-axis inputs,
@@ -98,9 +103,10 @@ def count_seed_layers(pair, plan) -> int:
 def prepare_kernel_inputs(model: Model, pair, plan, Qp: int, Wp: int,
                           n_layers: int):
     """Compact host arrays (flat name->array) + static meta, as
-    ``sdp_pallas.prepare_kernel_inputs:108`` builds them (split-codon
-    ``kc`` inputs excepted: kernel K9 is not ported).  ``meta["tnames"]``
-    names the W-axis vectors."""
+    ``sdp_pallas.prepare_kernel_inputs:108`` builds them, the split-codon
+    calcs' ``kc`` inputs included (q-axis rows shifted by the
+    transition's query advance, target rows recompressed through
+    ``plan.abs_t``).  ``meta["tnames"]`` names the W-axis vectors."""
     inputs, kinds = sd.prepare_inputs(model, pair, plan, pad_to=(Qp, Wp))
     kind_map = dict(kinds)
     flat: dict = {}
@@ -135,7 +141,23 @@ def prepare_kernel_inputs(model: Model, pair, plan, Qp: int, Wp: int,
         elif kind == "tvec":
             flat[key] = np.asarray(inputs[key], np.int32)
             tnames.append(key)
-        if f"sh{ci}" in inputs:
+        if c.pallas_fn is not None and c.kernel_inputs_fn is not None:
+            Q = pair.region.query_length
+            tr = next(t for t in model.transitions if t.calc is c)
+            si = np.clip(np.arange(Q + 1) - tr.advance_query, 0, Q)
+            for nm, (kkind, arr) in sorted(c.kernel_inputs_fn(
+                    pair.region, pair.data).items()):
+                kkey = f"kc{ci}:{nm}"
+                arr = np.asarray(arr, np.int32)
+                if kkind == "qvec":
+                    v = np.zeros(Qp + 1, np.int32)
+                    v[:Q + 1] = arr[si]
+                else:
+                    v = np.zeros(Wp + 1, np.int32)
+                    v[:plan.W + 1] = arr[plan.abs_t]
+                    tnames.append(kkey)
+                flat[kkey] = v
+        elif f"sh{ci}" in inputs:
             for n2, v2 in sorted(inputs[f"sh{ci}"].items()):
                 flat[f"sh{ci}/{n2}"] = np.asarray(v2, np.int32).reshape(1)
     for sx in range(len(model.shadows)):
@@ -204,22 +226,25 @@ def unsupported_reason(model: Model, pair=None, plan=None) -> Optional[str]:
     if not model_uses_boundary(model):
         return ("non-boundary model: the start-score attribution scan "
                 "(track_sid) is not ported")
-    for sh in model.shadows:
-        if sh.start_vec_fn is not None:
-            return "K9 not ported (shadow start vectors of split codons)"
     for c in model.calcs:
-        if c.pallas_fn is not None or c.kernel_inputs_fn is not None:
-            return f"K9 not ported (split-codon calc {c.name!r})"
-        if c.shadow_fn is not None and (
-                getattr(c, "native_shadow", None) or (None,))[0] \
-                != "intron_window":
-            return f"K9 not ported (shadow calc {c.name!r})"
+        if c.pallas_fn is not None:
+            if c.kernel_inputs_fn is None:
+                return f"split-codon calc {c.name!r} without kernel inputs"
+            continue
+        kind = (getattr(c, "native_shadow", None) or (None,))[0]
+        if kind == "split_codon":
+            return (f"query-side or joint split codon {c.name!r} "
+                    f"(genome2genome): a shadow calc with array inputs, "
+                    f"off the kernels as in the JAX package")
+        if c.shadow_fn is not None and kind != "intron_window":
+            return f"shadow calc {c.name!r} is not an intron window"
     adv, silent = sd._plan_transitions(model, True)
     for e in adv + silent:
         if len(e["shadow_starts"]) > MAX_STARTS:
             return f"more than {MAX_STARTS} shadow starts"
         c = e["calc"]
-        if c is not None and c.shadow_fn is not None:
+        if c is not None and c.shadow_fn is not None \
+                and c.pallas_fn is None:
             params = c.native_shadow[1]
             for side, prefix in (("on_query", "query intron"),
                                  ("on_target", "target intron")):
@@ -269,7 +294,24 @@ def _plan_table(model: Model, forward: bool, qrow: dict, trow: dict,
             ci = model.calcs.index(c)
             key = f"c{ci}"
             kind = kind_map[key]
-            if kind == "qt":
+            if forward and c.pallas_fn is not None:
+                phase = c.native_shadow[1]["phase"]
+
+                def lane(prefix):
+                    return next(des for name, des in e["dst_shadows"]
+                                if name.startswith(prefix))
+                row[BP_CALC] = K_SPLIT
+                row[BP_C0] = qrow[f"kc{ci}:R0"]
+                row[BP_C1] = trow[f"kc{ci}:E1p0" if phase == 1
+                                  else f"kc{ci}:N4"]
+                row[BP_C2] = phase
+                row[BP_C3] = lane("target intron")
+                if phase == 1:
+                    row[BP_C4] = lane("split c1")
+                else:
+                    row[BP_C4], row[BP_C5], row[BP_C6] = (
+                        lane(f"split p2k{k}") for k in range(3))
+            elif kind == "qt":
                 row[BP_CALC], row[BP_C0], row[BP_C1] = (
                     K_QT, qrow[key + ":q"], trow[key + ":t"])
             elif kind == "factored":
@@ -283,7 +325,7 @@ def _plan_table(model: Model, forward: bool, qrow: dict, trow: dict,
                 row[BP_CALC], row[BP_C0] = K_QVEC, qrow[key]
             else:
                 row[BP_CALC], row[BP_C1] = K_TVEC, trow[key]
-            if forward and c.shadow_fn is not None:
+            if forward and c.shadow_fn is not None and c.pallas_fn is None:
                 params = c.native_shadow[1]
                 if params.get("on_query"):
                     flags |= BF_SH_Q
@@ -297,9 +339,11 @@ def _plan_table(model: Model, forward: bool, qrow: dict, trow: dict,
             row[BP_CALC] = K_NONE
         row[BP_FLAGS] = flags
         row[BP_NSTART] = len(e["shadow_starts"])
-        for k, (des, start_kind, _vec) in enumerate(e["shadow_starts"]):
+        for k, (des, start_kind, shvix) in enumerate(e["shadow_starts"]):
             row[BP_ST_DES0 + 2 * k] = des
-            row[BP_ST_ONQ0 + 2 * k] = start_kind == "query_pos"
+            row[BP_ST_SRC0 + 2 * k] = (
+                ST_TVEC + trow[f"shv{shvix}"] if shvix is not None
+                else ST_QUERY if start_kind == "query_pos" else ST_TARGET)
     return rows, len(adv)
 
 
@@ -326,10 +370,15 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         return np.stack([np.asarray(f.get(name, np.zeros_like(proto)),
                                     np.int32) for f in flats])
 
-    # factored class planes stay consecutive rows (P0, P1, ..., not the
-    # lexicographic P0, P1, P10, P2)
+    # factored class planes and the split codon's query rows stay
+    # consecutive rows (P0, P1, ..., R0, R1, ..., not the lexicographic
+    # P0, P1, P10, P2); its target rows E1p0..2 sort consecutively
+    kc_ci = sorted({int(n[2:n.index(":")]) for n in names
+                    if n.startswith("kc") and n not in tnames})
     qnames, tnames_l, snames = [], [], []
     for n in names:
+        if n.startswith("kc") and n not in tnames:
+            continue
         a = flats[0].get(n)
         if a is None:
             a = next(f[n] for f in flats if n in f)
@@ -342,6 +391,8 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
             qnames.append(n)
     for key in sorted(ncls):
         qnames += [f"{key}:P{c}" for c in range(ncls[key])]
+    for ci in kc_ci:
+        qnames += [f"kc{ci}:R{a}" for a in range(25)]
     qrow = {n: r for r, n in enumerate(qnames)}
     trow = {n: r for r, n in enumerate(tnames_l)}
     srow = {n: r for r, n in enumerate(snames)}
@@ -387,7 +438,8 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         end_id=model.end_state.state.id, dropoff=int(dropoff),
         row_abs_t=trow["_abs_t"], row_edge=trow["_edge"],
         row_seg=trow["_seg"], row_seedq=trow["_seedq0"],
-        row_seedv=trow["_seedv0"], n_layers=n_layers)
+        row_seedv=trow["_seedv0"], n_layers=n_layers,
+        split=bool((fwd_plan[:, BP_CALC] == K_SPLIT).any()))
 
 
 def pair_bytes(model: Model, Qp: int, Wp: int, n_tvec: int) -> int:
@@ -526,6 +578,7 @@ def band_forward(bi: BandInputs, bits: torch.Tensor):
         return sd.plain_band_forward(bi, bits)
     out = _launch(bi, True, bits)
     band_forward.launches += 1
+    K9.launches += bi.split
     return out
 
 
@@ -580,29 +633,37 @@ def band_inputs(model: Model, jobs: list, dropoff: int,
                           [p[2] for p in preps], Qp, Wp, dropoff, device)
 
 
-def run_kernel(model: Model, jobs: list, dropoff: int,
-               device: torch.device) -> list:
-    """jobs: [(pair, plan)], bucketed by (Qp, Wp) and capped by
-    BAND_BYTES.  Runs K6 then K7 per batch on ``device``'s current stream
-    (their plain versions on the CPU).  Returns per-job dicts
-    {"band_end": [n_loci] int64, "live": bool, "xband": bool}."""
-    out: list = [None] * len(jobs)
+def launch_batches(model: Model, jobs: list) -> list:
+    """The K6/K7 launches of ``run_kernel`` over jobs [(pair, plan)]:
+    the job indices of each, bucketed by (Qp, Wp) and capped by
+    BAND_BYTES."""
     buckets: dict = {}
     for ix, job in enumerate(jobs):
         buckets.setdefault(_pads(*job), []).append(ix)
+    out = []
     for (Qp, Wp), ixs in buckets.items():
         cap = max_batch(model, Qp, Wp, 8 + 2 * len(model.calcs))
-        for k in range(0, len(ixs), cap):
-            chunk = ixs[k:k + cap]
-            bi = band_inputs(model, [jobs[ix] for ix in chunk], dropoff,
-                             device)
-            bits, live_r = band_reverse(bi)
-            colbest, live_f, xband = band_forward(bi, bits)
-            del bits
-            colbest = colbest.cpu().numpy()
-            live = (live_r | live_f).cpu().numpy()
-            xband = xband.cpu().numpy()
-            for b, ix in enumerate(chunk):
-                out[ix] = {"band_end": locus_best(colbest[b], jobs[ix][1]),
-                           "live": bool(live[b]), "xband": bool(xband[b])}
+        out += [ixs[k:k + cap] for k in range(0, len(ixs), cap)]
+    return out
+
+
+def run_kernel(model: Model, jobs: list, dropoff: int,
+               device: torch.device) -> list:
+    """jobs: [(pair, plan)], launched as ``launch_batches`` groups them.
+    Runs K6 then K7 per batch on ``device``'s current stream (their plain
+    versions on the CPU).  Returns per-job dicts {"band_end": [n_loci]
+    int64, "live": bool, "xband": bool}."""
+    out: list = [None] * len(jobs)
+    for chunk in launch_batches(model, jobs):
+        bi = band_inputs(model, [jobs[ix] for ix in chunk], dropoff,
+                         device)
+        bits, live_r = band_reverse(bi)
+        colbest, live_f, xband = band_forward(bi, bits)
+        del bits
+        colbest = colbest.cpu().numpy()
+        live = (live_r | live_f).cpu().numpy()
+        xband = xband.cpu().numpy()
+        for b, ix in enumerate(chunk):
+            out[ix] = {"band_end": locus_best(colbest[b], jobs[ix][1]),
+                       "live": bool(live[b]), "xband": bool(xband[b])}
     return out

@@ -9,6 +9,14 @@ kernels, each behind a wrapper with a launch counter:
   mode (``:1147``), which writes each state's winning plan id per cell;
 - ``walkback`` (``csrc/walkback.cu``) replaces ``_build_walkback:1550``.
 
+Kernel K9, the split-codon score of protein2genome, coding2genome and
+cdna2genome (``_make_split_pallas_fn``, ``model/phase.py:305``), is not
+a launch of its own: it is the plan's ``C_SPLIT`` calc kind, evaluated
+inside K1 and K4 (and inside the band kernel K7, ``cuda_sdp``), with the
+shadow start vectors as start lanes read from a target vector.
+``K9.launches`` counts the K1/K4/K7 launches whose plan holds it (the
+reverse band pass K6 scores split codons as 0 and carries no lanes).
+
 The model is not compiled into the kernels: ``to_kernel_inputs``
 flattens ``_build_plan(model)`` into an int32 plan table and the
 per-pair arrays of ``prepare_inputs`` into four packed tensors, and the
@@ -24,25 +32,39 @@ from typing import Optional
 import numpy as np
 import torch
 
-from exonerate_tpu import observe
-from exonerate_tpu.engine.reference import DPResult
-from exonerate_tpu.engine.sdp_native import _lane_for
-from exonerate_tpu.model.ir import Model, Protect, Scope
+from .. import observe
+from .reference import DPResult
+from .sdp_native import _lane_for
+from ..model.ir import Model, Protect, Scope
 
 from .. import _cudabuild
 from .. import device as default_device
 from . import wavefront as wf
-from .wavefront import (C_FACTORED, C_QVEC, C_SCALAR, C_TVEC, F_FROM_START,
-                        F_P_OVER, F_P_UNDER, F_SH_Q, F_SH_T, F_TO_END,
-                        MAX_START_LANES, NEG, P_AQ, P_AT, P_C0, P_C1, P_C2,
-                        P_C3, P_C4, P_CALC, P_FLAGS, P_IN, P_NSTART, P_OUT,
-                        P_SH_LANE_Q, P_SH_LANE_T, P_SH_MAX, P_SH_MIN,
-                        P_ST_DES0, P_ST_ONQ0, PLAN_COLS, KernelInputs)
+from .wavefront import (C_FACTORED, C_QVEC, C_SCALAR, C_SPLIT, C_TVEC,
+                        F_FROM_START, F_P_OVER, F_P_UNDER, F_SH_Q, F_SH_T,
+                        F_TO_END, MAX_START_LANES, NEG, P_AQ, P_AT, P_C0,
+                        P_C1, P_C2, P_C3, P_C4, P_C5, P_C6, P_CALC, P_FLAGS,
+                        P_IN, P_NSTART, P_OUT, P_SH_LANE_Q, P_SH_LANE_T,
+                        P_SH_MAX, P_SH_MIN, P_ST_DES0, P_ST_SRC0, PLAN_COLS,
+                        ST_QUERY, ST_TARGET, ST_TVEC, KernelInputs)
 
-# compile-time maxima of csrc/wavefront.cu
-MAX_S = 16
-MAX_L = 4
+# maxima of csrc/wavefront.cu: lanes per state (MAX_L, compile-time), and
+# the states and plan rows whose per-thread cell state and plan table fit
+# the shared memory of a block (S * (2 + L) + plan, checked per launch)
+MAX_S = 24
+MAX_L = 6
 MAX_PLAN = 64
+THREADS = 256
+SMEM_BYTES = 232_448          # shared memory a block may use on Hopper
+
+
+class _LaunchCount:
+    launches = 0
+
+
+# kernel K9 (the split-codon calc kind): launches of K1/K4 (here) and of
+# K7 (cuda_sdp) whose plan holds a split-codon row
+K9 = _LaunchCount()
 
 # device-memory budgets of one launch: the global carry rings, and in
 # path mode the uint8 traceback cube (D x S x (Qp+1) bytes per pair)
@@ -149,20 +171,26 @@ def unsupported_reason(model: Model, kinds: tuple = ()) -> Optional[str]:
     """Why the kernels cannot run this model (None when they can)."""
     plan_ts = _plan_transitions(model)
     for sh in model.shadows:
-        if sh.start_vec_fn is not None:
-            return "shadow start vectors (split codons, kernel K9)"
+        if sh.start_vec_fn is not None and sh.start != "target_pos":
+            return f"shadow start vector {sh.name!r} on the query axis"
     for t in plan_ts:
         if len(model.src_shadows(t.input)) > MAX_START_LANES:
             return f"more than {MAX_START_LANES} shadow starts"
         c = t.calc
         if c is None:
             continue
-        if c.pallas_fn is not None or c.kernel_inputs_fn is not None:
-            return "split-codon calc (kernel K9)"
+        if c.pallas_fn is not None:
+            if c.kernel_inputs_fn is None:
+                return f"split-codon calc {c.name!r} without kernel inputs"
+            continue
         if c.qt_fn is not None and c.factored_fn is None:
             return f"2-D calc grid {c.name!r}"
         if c.shadow_fn is not None:
             kind, params = c.native_shadow or (None, {})
+            if kind == "split_codon":
+                return (f"query-side or joint split codon {c.name!r} "
+                        f"(genome2genome): a shadow calc with array "
+                        f"inputs, off the kernels as in the JAX package")
             if kind != "intron_window":
                 return f"shadow calc {c.name!r} is not an intron window"
             for side, prefix in (("on_query", "query intron"),
@@ -179,7 +207,18 @@ def unsupported_reason(model: Model, kinds: tuple = ()) -> Optional[str]:
                 f"region lanes > {MAX_L}")
     if len(plan_ts) > MAX_PLAN:
         return f"{len(plan_ts)} transitions > {MAX_PLAN}"
+    if smem_bytes(len(model.states), model.total_shadow_designations + 2,
+                  len(plan_ts), "path") > SMEM_BYTES:
+        return "per-thread cell state over the shared memory of a block"
     return None
+
+
+def smem_bytes(S: int, L: int, n_plan: int, mode: str) -> int:
+    """Shared memory of one K1/K4 block (``launch`` in csrc/wavefront.cu):
+    the plan table, the storage map and S scores, S*L lanes (and S plan
+    ids in path mode) per thread."""
+    cell_vars = max(S + S * L + (S if mode == "path" else 0), 5)
+    return 4 * (n_plan * PLAN_COLS + S + S * max(L, 1) + cell_vars * THREADS)
 
 
 # ---------------------------------------------------------------------------
@@ -208,8 +247,11 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
                      device: torch.device,
                      mode: str = "region") -> KernelInputs:
     """Pack ``prepare_inputs(..., pad_to=(Qp, Tp), for_pallas=True)``
-    dicts (one, or a list for a batch; from this package's prep or the
-    JAX package's) and the plan table of ``model`` onto ``device``."""
+    dicts (one, or a list for a batch) and the plan table of ``model``
+    onto ``device``.  The dicts are plain NumPy, so they may come from
+    this package's prep or from the JAX package's
+    (``exonerate_tpu.engine.wavefront.prepare_inputs``) for the same
+    model: that is how the tests feed one input to both packages."""
     if mode not in ("score", "region", "path"):
         raise ValueError(f"unknown wavefront mode {mode!r}")
     per_pair = [inputs] if isinstance(inputs, dict) else list(inputs)
@@ -230,7 +272,19 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
                               for p in per_pair]))
 
     ntab = 0
+    kind_map = dict(kinds)
+    plan = _build_plan(model)
+    # the split-codon rows: R0..R24 and E1p0..2 consecutive, in that order
+    for ci in sorted({p["pallas_ci"] for p in plan
+                      if p["pallas_ci"] is not None}):
+        for a in range(25):
+            add(qcols, f"kc{ci}:R{a}", lambda p, k=f"kc{ci}:R{a}": p[k])
+        for nm in ("E1p0", "E1p1", "E1p2", "N4"):
+            if f"kc{ci}:{nm}" in kind_map:
+                add(tcols, f"kc{ci}:{nm}", lambda p, k=f"kc{ci}:{nm}": p[k])
     for key, kind in kinds:
+        if key in slot:
+            continue
         if kind == "factored":
             add(qcols, (key, "q_idx_s"), lambda p: p[key]["q_idx_s"])
             add(qcols, (key, "q_override_s"),
@@ -248,12 +302,13 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
         else:
             add(scols, key, lambda p: p[key])
     for key, v in per_pair[0].items():
-        if key.startswith("sh") and isinstance(v, dict):
+        # intron windows' scalars (a split codon's shadow inputs are the
+        # arrays of its host form: the kernels read its kc rows instead)
+        if key.startswith("sh") and isinstance(v, dict) \
+                and model.calcs[int(key[2:])].pallas_fn is None:
             for name in sorted(v):
                 add(scols, (key, name), lambda p: p[key][name])
 
-    plan = _build_plan(model)
-    kind_map = dict(kinds)
     start, end = model.start_state.state, model.end_state.state
     rows = np.zeros((len(plan), PLAN_COLS), np.int32)
     for r, p in enumerate(plan):
@@ -270,7 +325,25 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
                 flags |= F_P_OVER
             key = p["key"]
             kind = kind_map[key]
-            if kind == "factored":
+            if p["pallas_ci"] is not None:
+                ci = p["pallas_ci"]
+                phase = c.native_shadow[1]["phase"]
+
+                def lane(prefix):
+                    return next(des for name, des in p["dst_shadows"]
+                                if name.startswith(prefix))
+                row[P_CALC] = C_SPLIT
+                row[P_C0] = slot[f"kc{ci}:R0"]
+                row[P_C1] = slot[f"kc{ci}:E1p0" if phase == 1
+                                 else f"kc{ci}:N4"]
+                row[P_C2] = phase
+                row[P_C3] = lane("target intron")
+                if phase == 1:
+                    row[P_C4] = lane("split c1")
+                else:
+                    row[P_C4], row[P_C5], row[P_C6] = (
+                        lane(f"split p2k{k}") for k in range(3))
+            elif kind == "factored":
                 row[P_CALC] = C_FACTORED
                 row[P_C0] = slot[(key, "q_idx_s")]
                 row[P_C1] = slot[(key, "t_idx")]
@@ -292,9 +365,11 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
                 row[P_SH_MAX] = slot[(p["shkey"], "max_intron")]
         row[P_FLAGS] = flags
         row[P_NSTART] = len(p["start_lanes"])
-        for k, (des, kind, _vec) in enumerate(p["start_lanes"]):
+        for k, (des, kind, vec) in enumerate(p["start_lanes"]):
             row[P_ST_DES0 + 2 * k] = des
-            row[P_ST_ONQ0 + 2 * k] = kind == "query_pos"
+            row[P_ST_SRC0 + 2 * k] = (
+                ST_TVEC + slot[vec] if vec is not None
+                else ST_QUERY if kind == "query_pos" else ST_TARGET)
 
     n_shadow = model.total_shadow_designations
     S = len(model.states)
@@ -336,7 +411,9 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
         K=_max_advance(model), NR=len(ring_states), NL=len(lane_slots),
         start_id=start.id, end_id=end.id,
         start_scope=_SCOPES[model.start_state.scope],
-        end_scope=_SCOPES[model.end_state.scope], mode=mode)
+        end_scope=_SCOPES[model.end_state.scope], mode=mode,
+        split=bool((rows[:, P_CALC] == C_SPLIT).any()
+                   or (rows[:, P_ST_SRC0::2] >= ST_TVEC).any()))
 
 
 def max_batch(model: Model, Qp: int, Tp: int, mode: str) -> int:
@@ -391,10 +468,14 @@ def _check_inputs(ki: KernelInputs) -> None:
                                        for w, g in zip(want, t.shape)):
             raise ValueError(f"KernelInputs.{name}: shape {tuple(t.shape)}"
                              f" does not match {want}")
-    if ki.S > MAX_S or ki.L > MAX_L or ki.plan.shape[0] > MAX_PLAN:
+    if ki.S > MAX_S or ki.L > MAX_L or ki.plan.shape[0] > MAX_PLAN \
+            or smem_bytes(ki.S, ki.L, ki.plan.shape[0],
+                          ki.mode) > SMEM_BYTES:
         raise ValueError(f"model over the kernel maxima: S={ki.S} "
                          f"(max {MAX_S}), L={ki.L} (max {MAX_L}), plan "
-                         f"{ki.plan.shape[0]} (max {MAX_PLAN})")
+                         f"{ki.plan.shape[0]} (max {MAX_PLAN}), shared "
+                         f"memory {smem_bytes(ki.S, ki.L, ki.plan.shape[0], ki.mode)}"
+                         f" B (max {SMEM_BYTES})")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no wavefront engine for device {dev}")
 
@@ -404,7 +485,7 @@ def _launch(ki: KernelInputs):
     card.  Returns (out (5, B) int32, tb or None)."""
     fn = _lib("wavefront", "wavefront_launch",
               [_I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I,
-               _P, _P, _P, _P] + [_I] * 14 + [_P])
+               _P, _P, _P, _P] + [_I] * 15 + [_P])
     dev = ki.dims.device
     B, W, D, R = ki.batch, ki.Qp + 1, ki.Qp + ki.Tp + 1, ki.K + 1
     out = torch.empty((5, B), dtype=torch.int32, device=dev)
@@ -427,7 +508,8 @@ def _launch(ki: KernelInputs):
                 tb.data_ptr() if tb is not None else None, out.data_ptr(),
                 ki.plan.shape[0], B, ki.Qp, ki.Tp, ki.S, ki.L,
                 max(ki.NR, 1), max(ki.NL, 1), R, ki.n_shadow, ki.start_id,
-                ki.end_id, ki.start_scope, ki.end_scope, stream)
+                ki.end_id, ki.start_scope, ki.end_scope, int(ki.split),
+                stream)
     if rc != 0:
         raise RuntimeError(f"wavefront kernel ({ki.mode}) launch failed: "
                            f"CUDA error {rc}")
@@ -445,6 +527,7 @@ def wavefront_scan(ki: KernelInputs) -> torch.Tensor:
         return wf.plain_wavefront(ki)[0]
     out, _ = _launch(ki)
     wavefront_scan.launches += 1
+    K9.launches += ki.split
     return out
 
 
@@ -462,6 +545,7 @@ def wavefront_path(ki: KernelInputs):
         return wf.plain_wavefront(ki)
     out, tb = _launch(ki)
     wavefront_path.launches += 1
+    K9.launches += ki.split
     return out, tb
 
 

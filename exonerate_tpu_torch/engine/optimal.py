@@ -18,12 +18,12 @@ from typing import Optional
 
 import torch
 
-from exonerate_tpu import observe
-from exonerate_tpu.align.alignment import Alignment
-from exonerate_tpu.engine import reference
-from exonerate_tpu.engine.reference import DPResult
-from exonerate_tpu.engine.region import Region
-from exonerate_tpu.model.ir import Model
+from .. import observe
+from ..align.alignment import Alignment
+from . import reference
+from .reference import DPResult
+from .region import Region
+from ..model.ir import Model
 
 from . import cuda_wavefront
 
@@ -53,7 +53,7 @@ def _native_res(model: Model, region: Region, data, mode, subopt):
     """Dense C++ Viterbi (native/sdplib.cpp), or None to fall back."""
     if os.environ.get("EXONERATE_TPU_SDP") == "python":
         return None
-    from exonerate_tpu.engine import sdp_native
+    from . import sdp_native
     try:
         res = sdp_native.run_viterbi(model, region, data, mode, subopt)
         if res is not None:

@@ -38,9 +38,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from exonerate_tpu.engine.sdp_bands import BandPlan, edge_cols
-from exonerate_tpu.model.ir import (IMPOSSIBLY_HIGH_SCORE,
-                                    IMPOSSIBLY_LOW_SCORE, Model, Protect)
+from .sdp_bands import BandPlan, edge_cols
+from .wavefront import split_codon
+from ..model.ir import (IMPOSSIBLY_HIGH_SCORE, IMPOSSIBLY_LOW_SCORE,
+                        Model, Protect)
 
 NEG = IMPOSSIBLY_LOW_SCORE
 POS = IMPOSSIBLY_HIGH_SCORE
@@ -247,9 +248,16 @@ def _span_plan(model: Model):
 
 (BP_AQ, BP_AT, BP_READ, BP_WRITE, BP_FLAGS, BP_CALC, BP_C0, BP_C1, BP_C2,
  BP_C3, BP_CONTIG, BP_SH_LANE_Q, BP_SH_LANE_T, BP_SH_MIN, BP_SH_MAX,
- BP_NSTART, BP_ST_DES0, BP_ST_ONQ0, BP_ST_DES1, BP_ST_ONQ1) = range(20)
-BP_COLS = 20
-MAX_STARTS = 2
+ BP_C4, BP_C5, BP_C6, BP_NSTART, BP_ST_DES0, BP_ST_SRC0) = range(21)
+MAX_STARTS = 4
+BP_COLS = BP_ST_DES0 + 2 * MAX_STARTS      # start k at BP_ST_DES0 + 2k
+
+# BP_ST_SRC codes of a forward start lane: _abs_t or the query lane of the
+# source cell, or ST_TVEC + r: tvecs[r] at the source column (a shadow
+# start vector, ``Shadow.start_vec_fn``)
+ST_TARGET = 0
+ST_QUERY = 1
+ST_TVEC = 2
 
 # BP_FLAGS bits
 BF_P_UNDER = 1        # Protect.UNDERFLOW: clamp to NEG
@@ -267,6 +275,11 @@ K_FACTORED = 2        # qvecs[C2][qi] if C2 >= 0 and != 0, else
 K_SCALAR = 3          # scalars[C0]
 K_QVEC = 4            # qvecs[C0][qi]
 K_TVEC = 5            # tvecs[C1][tj]
+K_SPLIT = 6           # forward only: the split codon (kernel K9,
+#   model/phase.py:305), as wavefront.C_SPLIT: C0 = qvecs row of R0
+#   (R0..R24 follow, read at lane i), C1 = tvecs row of E1p0 (E1p1, E1p2
+#   follow) or N4, read at tj, C2 = phase, C3 = "target intron" lane, C4 =
+#   "split c1" or "split p2k0" lane, C5 / C6 = "split p2k1" / "p2k2"
 
 # span table columns
 SP_STATE, SP_MAX_T, SP_MAX_Q, SP_POST_THAW = range(4)
@@ -306,6 +319,7 @@ class BandInputs:
     row_seedq: int           # first of n_layers _seedq rows, then _seedv
     row_seedv: int
     n_layers: int
+    split: bool = False      # the forward table holds a split-codon row (K9)
 
     @property
     def batch(self) -> int:
@@ -495,7 +509,18 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None):
                     src_ok = src_ok & (fr.t(row[BP_CONTIG],
                                             0 if forward else at) != 0)
                 masks[(aq, at)] = src_ok
-            tsc = _calc(fr, row, forward)
+            if row[BP_CALC] == K_SPLIT:
+                tj = -at
+                if row[BP_C2] == 1:
+                    sel = s_ln[row[BP_C4]]
+                    cand = [fr.t(row[BP_C1] + k, tj) for k in range(3)]
+                else:
+                    sel = fr.t(row[BP_C1], tj)
+                    cand = [s_ln[row[c]] for c in (BP_C4, BP_C5, BP_C6)]
+                tsc = split_codon(row[BP_C2], s_ln[row[BP_C3]], sel, cand,
+                                  bi.qvecs[:, row[BP_C0]:row[BP_C0] + 25])
+            else:
+                tsc = _calc(fr, row, forward)
             flags = row[BP_FLAGS]
             if flags & (BF_SH_Q | BF_SH_T):
                 lo = bi.scalars[:, row[BP_SH_MIN]:row[BP_SH_MIN] + 1]
@@ -525,9 +550,11 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None):
             if lanes:
                 new_l = list(s_ln)
                 for k in range(row[BP_NSTART]):
+                    src = row[BP_ST_SRC0 + 2 * k]
                     new_l[row[BP_ST_DES0 + 2 * k]] = (
-                        (i - aq).expand(B, W) if row[BP_ST_ONQ0 + 2 * k]
-                        else fr.t(bi.row_abs_t, -at))
+                        fr.t(bi.row_abs_t, -at) if src == ST_TARGET
+                        else (i - aq).expand(B, W) if src == ST_QUERY
+                        else fr.t(src - ST_TVEC, -at))
                 ln[w] = [torch.where(take, a, o)
                          for a, o in zip(new_l, ln[w])]
             if flags & BF_EVENT:

@@ -26,12 +26,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from exonerate_tpu import observe
-from exonerate_tpu.align.alignment import Alignment
-from exonerate_tpu.engine import sdp_bands
-from exonerate_tpu.engine.region import Region
-from exonerate_tpu.engine.sdp import NEG, SDPPair, SdpArgs
-from exonerate_tpu.model.ir import Model
+from .. import observe
+from ..align.alignment import Alignment
+from . import sdp_bands
+from .region import Region
+from .sdp import NEG, SDPPair, SdpArgs
+from ..model.ir import Model
 
 from .. import device as default_device
 from . import cuda_sdp

@@ -27,9 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from exonerate_tpu.engine.region import Region
-from exonerate_tpu.model.ir import (IMPOSSIBLY_HIGH_SCORE,
-                                    IMPOSSIBLY_LOW_SCORE, Model)
+from .region import Region
+from ..model.ir import IMPOSSIBLY_HIGH_SCORE, IMPOSSIBLY_LOW_SCORE, Model
 
 NEG = IMPOSSIBLY_LOW_SCORE
 
@@ -200,10 +199,19 @@ def _bucket(n: int, step: int = 256) -> int:
 # ---------------------------------------------------------------------------
 
 (P_AQ, P_AT, P_IN, P_OUT, P_FLAGS, P_CALC, P_C0, P_C1, P_C2, P_C3, P_C4,
- P_SH_LANE_Q, P_SH_LANE_T, P_SH_MIN, P_SH_MAX, P_NSTART,
- P_ST_DES0, P_ST_ONQ0, P_ST_DES1, P_ST_ONQ1) = range(20)
-PLAN_COLS = 20
-MAX_START_LANES = 2
+ P_SH_LANE_Q, P_SH_LANE_T, P_SH_MIN, P_SH_MAX, P_C5, P_C6, P_NSTART,
+ P_ST_DES0, P_ST_SRC0) = range(20)
+MAX_START_LANES = 4
+# start k at P_ST_DES0 + 2k; the row is padded to a multiple of 4
+# columns, 16 bytes, so that the kernel reads it in aligned vectors
+PLAN_COLS = (P_ST_DES0 + 2 * MAX_START_LANES + 3) // 4 * 4
+
+# P_ST_SRC codes of a start lane: the source cell's target or query
+# position, or ST_TVEC + r: tvecs[r] at the source column (a shadow start
+# vector, ``Shadow.start_vec_fn``)
+ST_TARGET = 0
+ST_QUERY = 1
+ST_TVEC = 2
 
 # P_FLAGS bits
 F_FROM_START = 1      # the input is the START state
@@ -220,6 +228,11 @@ C_QVEC = 2            # qvecs[C0][i] (shifted by aq on the host)
 C_TVEC = 3            # tvecs[C0][j - at]
 C_FACTORED = 4        # qvecs[C4][i] if != 0, else
 #                       tables[C2 + qvecs[C0][i] * C3 + tvecs[C1][j - at]]
+C_SPLIT = 5           # the split codon (kernel K9, model/phase.py:305):
+#   C0 = qvecs row of R0 (R0..R24 follow), C1 = tvecs row of E1p0 (phase
+#   1; E1p1, E1p2 follow) or N4 (phase 2), C2 = phase, C3 = lane of the
+#   "target intron" shadow, C4 = lane of "split c1" (phase 1) or
+#   "split p2k0" (phase 2), C5 / C6 = lanes of "split p2k1" / "p2k2"
 
 # Scope codes of the start/end terminals
 SCOPE_ANYWHERE, SCOPE_EDGE, SCOPE_QUERY, SCOPE_TARGET, SCOPE_CORNER = range(5)
@@ -252,6 +265,8 @@ class KernelInputs:
     start_scope: int
     end_scope: int
     mode: str                # "score" | "region" | "path"
+    split: bool = False      # the plan holds K9: a split-codon row or a
+    #                          start lane read from a tvec
 
     @property
     def batch(self) -> int:
@@ -280,6 +295,27 @@ def _scope_end(scope: int, i, j, qlen, tlen):
     if scope == SCOPE_TARGET:
         return j == tlen
     return (i == qlen) & (j == tlen)
+
+
+def split_codon(phase: int, tin, sel, cand, rows):
+    """Kernel K9's plain version (``_make_split_pallas_fn``,
+    ``exonerate_tpu/model/phase.py:305-327``) on (B, W) int32 planes.
+
+    ``tin`` is the "target intron" lane (the intron's absolute start);
+    ``sel`` selects one of the three ``cand`` planes by ``sel // 6`` and
+    a 5-bit amino-acid index in it by ``sel % 6`` (phase 1: sel is the
+    "split c1" lane, cand the E1p0..2 columns; phase 2: sel is the N4
+    column, cand the "split p2k0..2" lanes); ``rows`` (B, 25, W) are the
+    query rows R0..R24.  The score is R_aa, 0 for aa >= 25 and NEG where
+    ``tin < phase``.  Division and modulo floor, as ``jnp``'s do."""
+    k = torch.div(sel, 6, rounding_mode="floor")
+    sub = torch.zeros_like(sel)
+    for kk in range(3):
+        sub = torch.where(k == kk, cand[kk], sub)
+    aa = (sub >> (5 * (sel - 6 * k))) & 31
+    score = torch.gather(rows, 1, aa.clamp(max=24).long()[:, None])[:, 0]
+    score = torch.where(aa < 25, score, 0)
+    return torch.where(tin >= phase, score, NEG)
 
 
 def plain_wavefront(ki: KernelInputs):
@@ -355,10 +391,21 @@ def plain_wavefront(ki: KernelInputs):
                 if em is not None:
                     ok = ok & em
             kind = row[P_CALC]
+            st = W + ki.Tp - d + at
             ckey = (kind, row[P_C0], row[P_C1], at)
-            calc = calcs.get(ckey)
-            if calc is None:
-                st = W + ki.Tp - d + at
+            calc = calcs.get(ckey) if kind != C_SPLIT else None
+            if kind == C_SPLIT:
+                # reads the source cell's lanes: never shared
+                if row[P_C2] == 1:
+                    sel = src_l[row[P_C4]]
+                    cand = [trev[:, row[P_C1] + k, st:st + W]
+                            for k in range(3)]
+                else:
+                    sel = trev[:, row[P_C1], st:st + W]
+                    cand = [src_l[row[c]] for c in (P_C4, P_C5, P_C6)]
+                calc = split_codon(row[P_C2], src_l[row[P_C3]], sel, cand,
+                                   qv[:, row[P_C0]:row[P_C0] + 25])
+            elif calc is None:
                 if kind == C_NONE:
                     calc = 0
                 elif kind == C_SCALAR:
@@ -407,9 +454,13 @@ def plain_wavefront(ki: KernelInputs):
             if L:
                 new_l = list(src_l)
                 for k in range(row[P_NSTART]):
-                    des = row[P_ST_DES0 + 2 * k]
-                    new_l[des] = (si + qstart if row[P_ST_ONQ0 + 2 * k]
-                                  else sj + tstart)
+                    des, src = row[P_ST_DES0 + 2 * k], row[P_ST_SRC0 + 2 * k]
+                    if src == ST_TARGET:
+                        new_l[des] = sj + tstart
+                    elif src == ST_QUERY:
+                        new_l[des] = si + qstart
+                    else:
+                        new_l[des] = trev[:, src - ST_TVEC, st:st + W]
                 if want_region and flags & F_FROM_START:
                     new_l[rs_q], new_l[rs_t] = si, sj
                 for ln in range(L):

@@ -1,62 +1,257 @@
-"""GAM of the port: the JAX package's GAM with the port's engines.
+"""GAM: the gapped alignment manager / result machinery.
 
-Counterpart of ``exonerate_tpu/hub/gam.py``.  Only the methods that reach
-a JAX engine are overridden:
+Counterpart of ``exonerate_tpu/hub/gam.py`` (ref: src/hub/gam.{h,c}):
+owns the model and engines, converts comparisons into alignments
+(ungapped shortcut, heuristic DP, exhaustive suboptimal enumeration),
+applies score/percent/bestn thresholds and dispatches every enabled
+output format.  The reference's tmpfile-backed bestn machinery
+(gam.c:172-219) is replaced by an in-memory store with identical
+final-set semantics: an alignment is reported iff fewer than best_n
+strictly better alignments exist for the query, ranked 1..N in
+descending score order.
 
-- the exhaustive enumeration and refinement call the port's
-  ``optimal.find_path`` on the GAM's device;
-- the seeded heuristic's device tier (``sdp_device_active``,
-  ``run_sdp_pool``, ``_make_sdp_pair``, ``result_heuristic``) runs the
-  port's SDP hybrid on the GAM's device: the band kernels K6/K7 on a
-  card, their plain PyTorch versions on the CPU when
-  ``EXONERATE_TPU_SDP=device`` forces the tier there.
+The GAM holds the port's device.  The exhaustive enumeration and the
+refinement call the port's ``optimal.find_path`` on it; the seeded
+heuristic's device tier (``sdp_device_active``, ``run_sdp_pool``,
+``_make_sdp_pair``) runs the port's SDP hybrid on it: the band kernels
+K6/K7 on a card, their plain PyTorch versions on the CPU when
+``EXONERATE_TPU_SDP=device`` forces the tier there.  The pooled locus
+heuristic of the JAX package (``EXONERATE_TPU_HEURISTIC=locus``, which
+needs the data-parallel wavefront K5) is refused with a clear error.
 """
 from __future__ import annotations
 
+import enum
 import os
+import sys
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Optional
 
+import numpy as np
 import torch
 
-from exonerate_tpu import observe
-from exonerate_tpu.engine.region import Region
-from exonerate_tpu.engine.sdp import SDPPair, SdpArgs
-from exonerate_tpu.engine.subopt import SubOpt
-from exonerate_tpu.hub import gam as jax_gam
-from exonerate_tpu.hub.gam import Refinement
+from .. import observe
+from ..align.alignment import Alignment, AlignmentArgs
+from ..align import formats
+from ..engine.region import Region
+from ..engine.sdp import SDPPair, SdpArgs
+from ..engine.subopt import SubOpt
+from ..model.ir import Label, Model
+from ..model.registry import ModelType, has_genomic_target
+from ..model.data import AlignData
+from ..seeds.hsp import Comparison, HSP, HspSet
+from ..seqio import Sequence
 
-from ..engine import cuda_sdp, optimal, sdp_hybrid
+LOCUS_REFUSAL = ("exonerate: EXONERATE_TPU_HEURISTIC=locus is not ported "
+                 "to exonerate_tpu_torch yet")
 
 
-class GAM(jax_gam.GAM):
-    def __init__(self, *args, device: torch.device, **kwargs):
-        super().__init__(*args, **kwargs)
+class Refinement(enum.Enum):
+    NONE = "none"
+    FULL = "full"
+    REGION = "region"
+
+
+@dataclass
+class GamArgs:
+    """(ref: GAM_ArgumentSet, gam.c:93-155)."""
+    model_type: ModelType = ModelType.UNGAPPED
+    threshold: int = 100
+    percent_threshold: float = 0.0
+    show_alignment: bool = True
+    show_sugar: bool = False
+    show_cigar: bool = False
+    show_vulgar: bool = True
+    show_query_gff: bool = False
+    show_target_gff: bool = False
+    ryo: Optional[str] = None
+    best_n: int = 0
+    use_subopt: bool = True
+    use_gapped_extension: bool = True
+    refinement: Refinement = Refinement.NONE
+    refinement_boundary: int = 32
+    # SDP options (ref: SDP_ArgumentSet, sdp.c:28-32)
+    extension_threshold: int = 50
+    single_pass: bool = True
+    # Heuristic/BSDP/SAR options (ref: heuristic.c:78-96, bsdp.c:25-26,
+    # sar.c:26-27)
+    terminal_range_internal: int = 12
+    terminal_range_external: int = 12
+    join_range_internal: int = 12
+    join_range_external: int = 12
+    span_range_internal: int = 12
+    span_range_external: int = 12
+    join_filter: int = 0
+    hsp_quality: float = 0.0
+
+
+@dataclass
+class _Stored:
+    score: int
+    text: str
+    order: int
+
+
+class GAM:
+    """(ref: GAM, gam.h:91-154)."""
+
+    def __init__(self, model: Model, gas: GamArgs,
+                 make_data, align_args: Optional[AlignmentArgs] = None,
+                 out=None, *, device: torch.device):
+        self.model = model
+        self.gas = gas
+        self.make_data = make_data      # (query, target) -> AlignData
+        self.align_args = align_args or AlignmentArgs()
+        self.out = out or sys.stdout
         self.device = device
+        # query_id -> list of stored results (bestn mode)
+        self.bestn_store: dict[str, list[_Stored]] = {}
+        self._order = 0
+        self.geneseed_threshold = 0
 
     def _sdp_args(self) -> SdpArgs:
         return SdpArgs(self.gas.extension_threshold, self.gas.single_pass)
 
-    def sdp_device_active(self) -> bool:
-        """True when the heuristic's SDP passes run on the device tier
-        (``gam.py:270-304``): by default when the GAM's device is a CUDA
-        card and the band kernels serve the model;
-        ``EXONERATE_TPU_SDP=device`` forces the tier (the plain scan on
-        the CPU), ``=native`` / ``=python`` force the host engines."""
-        env = os.environ.get("EXONERATE_TPU_SDP", "")
-        if env in ("native", "python"):
-            return False
-        if env != "device" and (
-                self.device.type != "cuda"
-                or cuda_sdp.unsupported_reason(self.model) is not None):
-            return False
-        return sdp_hybrid.eligible(self.model, self._sdp_args(), None)
+    # -- thresholds (ref: GAM_get_query_threshold, gam.c:677-705) ---------
 
-    def result_heuristic(self, comparison):
-        """Heuristic gapped path (``gam.py:228-268``), catching the port's
-        HybridFallback."""
+    # The reference's advance-3 self-score loop overruns the final
+    # window when len % 3 != 0 (gam.c:477-478 steps j by advance while
+    # j < len, reading seq[len]/seq[len+1]); the terminator translates
+    # to '-' and Submat_lookup('-','-') reads past the packed matrix —
+    # a huge heap-dependent garbage term (observed 1,952,539,695 with
+    # blosum62, 1,836,277,605 with pam250 in the shim build).  The
+    # observable contract: the per-query threshold explodes, the gint
+    # *= gfloat conversion overflows to INT_MIN for any realistic
+    # --percent, and the threshold falls back to --score.  We add one
+    # fixed huge term to reproduce that contract (the exact constant
+    # only matters for --percent <= ~1.1, where both sides already
+    # report nothing).
+    _SELF_OVERRUN_GARBAGE = 1952539695
+
+    def _percent_matches(self, data: AlignData) -> list:
+        """Unique matches of the model's MATCH transitions in first-
+        encounter order (ref: GAM_build_match_list, gam.c:369-391),
+        resolved through AlignData so user submats apply."""
+        types = []
+        for t in self.model.transitions:
+            if t.label == Label.MATCH and t.label_data is not None:
+                mt = getattr(t.label_data, "type", None)
+                if mt is not None and mt not in types:
+                    types.append(mt)
+        if not types:
+            return [data.match()]
+        return [data.match(mt) for mt in types]
+
+    def query_threshold(self, query: Sequence, data: AlignData) -> int:
+        if self.gas.best_n:
+            stored = self.bestn_store.get(query.id)
+            if stored and len(stored) >= self.gas.best_n:
+                return min(s.score for s in stored)
+        if self.gas.percent_threshold:
+            import math
+            th = 0
+            for match in self._percent_matches(data):
+                t = match.self_score(query)
+                if match.advance_query == 3 and len(query) % 3:
+                    t += self._SELF_OVERRUN_GARBAGE
+                th = max(th, t)
+            # gint *= gfloat: float32 product, out-of-range conversion
+            # lands on INT_MIN (x86 cvttss2si); then C integer division
+            # truncates toward zero (ref: gam.c:482-485)
+            v = float(np.float32(np.float32(th)
+                                 * np.float32(self.gas.percent_threshold)))
+            th = (-(1 << 31) if not (-(2.0 ** 31) <= v < 2.0 ** 31)
+                  else int(v))
+            th = math.trunc(th / 100)
+            if th < self.gas.threshold:
+                th = self.gas.threshold
+            return th
+        return self.gas.threshold
+
+    # -- result creation ---------------------------------------------------
+
+    def result_ungapped(self, comparison: Comparison
+                        ) -> list[tuple[Alignment, AlignData]]:
+        """(ref: GAM_Result_ungapped_create, gam.c:736-763)."""
+        if not comparison.has_hsps:
+            return []
+        data = self.make_data(comparison.query, comparison.target)
+        subopt = (SubOpt() if self.gas.refinement != Refinement.NONE
+                  else None)
+        out = []
+        for hspset in comparison.hspsets():
+            hspset.filter_ungapped()
+            threshold = self.query_threshold(comparison.query, data)
+            for hsp in hspset.hsps:
+                if hsp.score >= threshold:
+                    alignment = self._hsp_alignment(hspset, hsp)
+                    alignment = self._refine(alignment, data, subopt)
+                    out.append((alignment, data))
+                    if subopt is not None:
+                        subopt.add_alignment(alignment)
+        out.sort(key=lambda ad: -ad[0].score)
+        return out
+
+    def _refine(self, alignment: Alignment, data: AlignData,
+                subopt) -> Alignment:
+        """(ref: GAM_Result_refine_alignment, gam.c:605-655): re-DP over
+        the full rectangle or the boundary-padded alignment region; keep
+        the refined alignment only if it scores at least as well."""
+        from ..engine import optimal
+        if self.gas.refinement == Refinement.NONE:
+            return alignment
+        q, t = data.query, data.target
+        if self.gas.refinement == Refinement.FULL:
+            region = Region(0, 0, len(q), len(t))
+        else:
+            b = self.gas.refinement_boundary
+            qs = max(0, alignment.region.query_start - b)
+            ts = max(0, alignment.region.target_start - b)
+            region = Region(
+                qs, ts,
+                min(len(q), alignment.region.query_end + b) - qs,
+                min(len(t), alignment.region.target_end + b) - ts)
+        refined = optimal.find_path(self.model, region, data, subopt,
+                                    device=self.device)
+        if refined is not None and refined.score >= alignment.score:
+            return refined
+        return alignment
+
+    def _hsp_alignment(self, hspset: HspSet, hsp: HSP) -> Alignment:
+        """(ref: Ungapped_Alignment_create, ungapped.c:168-198)."""
+        model = self.model
+        start2match = match2match = match2end = None
+        for t in model.transitions:
+            if t.input is model.start_state.state:
+                start2match = t
+            elif t.output is model.end_state.state:
+                match2end = t
+            else:
+                match2match = t
+        region = Region(hsp.query_start, hsp.target_start,
+                        hsp.query_end(hspset.qadv) - hsp.query_start,
+                        hsp.target_end(hspset.tadv) - hsp.target_start)
+        a = Alignment(model, region, hsp.score)
+        a.add(start2match, 1)
+        a.add(match2match, hsp.length)
+        a.add(match2end, 1)
+        return a
+
+    def result_heuristic(self, comparison: Comparison
+                         ) -> list[tuple[Alignment, AlignData]]:
+        """Heuristic gapped path (ref: GAM_Result_heuristic_create,
+        gam.c:1107-1180): seeded DP with reference-exact semantics
+        (ref: GAM_Result_SDP_create, gam.c:852-888)."""
+        from ..engine import sdp_hybrid
+        if os.environ.get("EXONERATE_TPU_HEURISTIC") == "locus":
+            raise SystemExit(LOCUS_REFUSAL)
         if not comparison.has_hsps:
             return []
         if self.geneseed_threshold:
+            # (ref: GAM_Result_heuristic_create, gam.c:1112-1121):
+            # geneseed raises the report threshold too, so low-scoring
+            # subopt alignments never emit
             if self.gas.threshold < self.geneseed_threshold:
                 self.gas.threshold = self.geneseed_threshold
             self._geneseed_filter(comparison)
@@ -76,12 +271,28 @@ class GAM(jax_gam.GAM):
                                self._sdp_args())
             return self._run_sdp_loop(sdp_pair, query, data)
 
+    def sdp_device_active(self) -> bool:
+        """True when the heuristic's SDP passes run on the device tier
+        (``exonerate_tpu/hub/gam.py:270-304``): by default when the GAM's
+        device is a CUDA card and the band kernels serve the model;
+        ``EXONERATE_TPU_SDP=device`` forces the tier (the plain scan on
+        the CPU), ``=native`` / ``=python`` force the host engines."""
+        from ..engine import cuda_sdp, sdp_hybrid
+        env = os.environ.get("EXONERATE_TPU_SDP", "")
+        if env in ("native", "python"):
+            return False
+        if env != "device" and (
+                self.device.type != "cuda"
+                or cuda_sdp.unsupported_reason(self.model) is not None):
+            return False
+        return sdp_hybrid.eligible(self.model, self._sdp_args(), None)
+
     def run_sdp_pool(self, comparisons: list):
-        """Pooled device SDP over many deferred comparisons
-        (``gam.py:306-415``): every pass batches into a few K6/K7
-        launches, then each comparison's result loop runs and submits in
-        original order, so the output bytes equal the per-comparison
-        path's."""
+        """Pooled device SDP over many deferred comparisons: every pass
+        batches into a few K6/K7 launches, then each comparison's result
+        loop runs (and submits) in original order, so output bytes match
+        the per-comparison path exactly."""
+        from ..engine import sdp_hybrid
         args = self._sdp_args()
         metas = []
         jobs = []
@@ -139,12 +350,16 @@ class GAM(jax_gam.GAM):
                 pair = SDPPair(self.model, comp, data, SubOpt(), args)
                 return self._run_sdp_loop(pair, comp.query, data)
 
-        # host-route metas first: they overlap the device batch
+        # host-route metas first: they overlap the device batch;
+        # submission order is restored below
         metas = list(enumerate(metas))
         order = sorted(
             range(len(metas)),
             key=lambda mx: 0 if (metas[mx][1] is not None
                                  and metas[mx][1][3] == "host") else 1)
+        # the per-comparison walks are independent and their host locus
+        # resolutions release the GIL in ctypes calls, so a small thread
+        # pool overlaps them; submission stays in original order
         n_workers = int(os.environ.get(
             "EXONERATE_TPU_RESOLVE_THREADS",
             str(min(4, os.cpu_count() or 1))))
@@ -160,9 +375,81 @@ class GAM(jax_gam.GAM):
         for results in all_results:
             self.submit(results)
 
+    def _geneseed_filter(self, comparison):
+        """HSP reachability filter (ref: GAM_Result_geneseed_filter,
+        gam.c:1044-1105): starting from every geneseed HSP (score >=
+        geneseed threshold), flood rectangle searches over the HSP
+        cobs points forward and backward; an HSP survives if marked in
+        EITHER direction.  Search ranges grow with the visited HSP's
+        extent past its cobs plus the global max-cobs HSP's leading
+        extent, padded by the model's span windows (gam.c:444-450).
+        The mark set is search-order independent, so a flat worklist
+        replaces the reference's recursive RangeTree walk; the tree's
+        first-point-wins dedup (same-cobs-point HSPs are unreachable
+        through the tree) is mirrored."""
+        entries = []                    # (hspset, hsp, q_cobs, t_cobs)
+        points: dict = {}
+        max_cobs = None
+        for hs in comparison.hspsets():
+            for h in hs.hsps:
+                qc = h.query_start + h.cobs * hs.qadv
+                tc = h.target_start + h.cobs * hs.tadv
+                hid = len(entries)
+                entries.append((hs, h, qc, tc))
+                if (qc, tc) not in points:
+                    points[(qc, tc)] = hid
+                if max_cobs is None \
+                        or entries[max_cobs][1].cobs < h.cobs:
+                    max_cobs = hid
+        if not entries:
+            return
+        mq = max((sp.max_query for sp in self.model.spans), default=0)
+        mt = max((sp.max_target for sp in self.model.spans), default=0)
+        _mh_hs, mh, mh_qc, mh_tc = entries[max_cobs]
+        mq_off = mh_qc - mh.query_start
+        mt_off = mh_tc - mh.target_start
+        tree_ids = np.array(sorted(points.values()), np.int64)
+        tqc = np.array([entries[i][2] for i in tree_ids], np.int64)
+        ttc = np.array([entries[i][3] for i in tree_ids], np.int64)
+        fwd = [False] * len(entries)
+        rev = [False] * len(entries)
+        work = [(i, d)
+                for i, (hs, h, _q, _t) in enumerate(entries)
+                if h.score >= self.geneseed_threshold
+                for d in (True, False)]
+        while work:
+            hid, is_fwd = work.pop()
+            mark = fwd if is_fwd else rev
+            if mark[hid]:
+                continue
+            mark[hid] = True
+            hs, h, qc, tc = entries[hid]
+            qr = mq + ((h.query_start + h.length * hs.qadv - qc)
+                       + mq_off) * 2
+            tr = mt + ((h.target_start + h.length * hs.tadv - tc)
+                       + mt_off) * 2
+            if is_fwd:
+                sel = ((tqc >= qc) & (tqc < qc + qr)
+                       & (ttc >= tc) & (ttc < tc + tr))
+            else:
+                sel = ((tqc >= qc - qr) & (tqc < qc)
+                       & (ttc >= tc - tr) & (ttc < tc))
+            for j in tree_ids[np.nonzero(sel)[0]]:
+                if not (fwd if is_fwd else rev)[j]:
+                    work.append((int(j), is_fwd))
+        hid = 0
+        for hs in comparison.hspsets():
+            keep = []
+            for h in hs.hsps:
+                if fwd[hid] or rev[hid]:
+                    keep.append(h)
+                hid += 1
+            hs.hsps = keep
+
     def _make_sdp_pair(self, comparison, data):
         """The device-hybrid pair when the device tier is active, else
         the host pair (native C++ scheduler)."""
+        from ..engine import sdp_hybrid
         if self.sdp_device_active():
             return sdp_hybrid.HybridSDPPair(
                 self.model, comparison, data, SubOpt(), self._sdp_args(),
@@ -173,30 +460,105 @@ class GAM(jax_gam.GAM):
         return SDPPair(self.model, comparison, data, SubOpt(),
                        self._sdp_args())
 
-    def _refine(self, alignment, data, subopt):
-        """(ref: GAM_Result_refine_alignment, gam.c:605-655)."""
-        if self.gas.refinement == Refinement.NONE:
-            return alignment
-        q, t = data.query, data.target
-        if self.gas.refinement == Refinement.FULL:
-            region = Region(0, 0, len(q), len(t))
-        else:
-            b = self.gas.refinement_boundary
-            qs = max(0, alignment.region.query_start - b)
-            ts = max(0, alignment.region.target_start - b)
-            region = Region(
-                qs, ts,
-                min(len(q), alignment.region.query_end + b) - qs,
-                min(len(t), alignment.region.target_end + b) - ts)
-        refined = optimal.find_path(self.model, region, data, subopt,
-                                    device=self.device)
-        if refined is not None and refined.score >= alignment.score:
-            return refined
-        return alignment
+    def _run_sdp_loop(self, sdp_pair, query, data):
+        out: list[tuple[Alignment, AlignData]] = []
+        while True:
+            threshold = self.query_threshold(query, data)
+            alignment = sdp_pair.next_path(threshold)
+            if alignment is None:
+                break
+            if self.gas.refinement != Refinement.NONE:
+                refined = self._refine(alignment, data,
+                                       sdp_pair.subopt)
+                if refined is not None and \
+                        refined.score >= alignment.score:
+                    alignment = refined
+            out.append((alignment, data))
+            sdp_pair.subopt.add_alignment(alignment)
+            # (ref: GAM_Result_is_full, gam.c:779-793)
+            if self.gas.best_n and len(out) >= self.gas.best_n \
+                    and len(out) > 1 \
+                    and out[-2][0].score != out[-1][0].score:
+                break
+            if not self.gas.use_subopt:
+                break
+        return out
 
-    def result_exhaustive(self, query, target):
+    def _find_portal(self, hspset):
+        """First portal whose advances match the HSP class
+        (ref: GAM_Pair_find_portal, gam.c:560-581)."""
+        for portal in self.model.portals:
+            if portal.transitions \
+                    and portal.transitions[0].advance_query == hspset.qadv \
+                    and portal.transitions[0].advance_target == hspset.tadv:
+                return portal
+        raise ValueError("No compatible portal found for hspset")
+
+    def _get_heuristic(self, data: AlignData):
+        """Per-model Heuristic (derived sub-models + bound matrices),
+        built once like the reference's GAM-owned Heuristic
+        (ref: gam.c:392-456)."""
+        import threading
+        if getattr(self, "_heuristic_lock", None) is None:
+            self._heuristic_lock = threading.Lock()
+        with self._heuristic_lock:
+            return self._get_heuristic_locked(data)
+
+    def _get_heuristic_locked(self, data: AlignData):
+        if getattr(self, "_heuristic", None) is None:
+            from .bsdp import Heuristic, HeuristicArgs
+            has = HeuristicArgs(
+                terminal_range_internal=self.gas.terminal_range_internal,
+                terminal_range_external=self.gas.terminal_range_external,
+                join_range_internal=self.gas.join_range_internal,
+                join_range_external=self.gas.join_range_external,
+                span_range_internal=self.gas.span_range_internal,
+                span_range_external=self.gas.span_range_external,
+                join_filter=self.gas.join_filter,
+                hsp_quality=self.gas.hsp_quality)
+            self._heuristic = Heuristic(self.model, has, data)
+        return self._heuristic
+
+    def _result_bsdp(self, comparison: Comparison, data: AlignData
+                     ) -> list[tuple[Alignment, AlignData]]:
+        """--gappedextension no: the BSDP HSP-graph heuristic
+        (ref: GAM_Result_BSDP_create, gam.c:797-850)."""
+        from .bsdp import HPair
+        query, target = comparison.query, comparison.target
+        heuristic = self._get_heuristic(data)
+        subopt = SubOpt()
+        hpair = HPair(heuristic, subopt, len(query), len(target), data)
+        for hspset in comparison.hspsets():
+            hpair.add_hspset(self._find_portal(hspset), hspset)
+        threshold = self.query_threshold(query, data)
+        hpair.finalise(threshold)
+        out: list[tuple[Alignment, AlignData]] = []
+        while True:
+            threshold = self.query_threshold(query, data)
+            alignment = hpair.next_path(threshold)
+            if alignment is None:
+                break
+            if self.gas.refinement != Refinement.NONE:
+                refined = self._refine(alignment, data, subopt)
+                if refined is not None and \
+                        refined.score >= alignment.score:
+                    alignment = refined
+            out.append((alignment, data))
+            subopt.add_alignment(alignment)
+            # (ref: GAM_Result_is_full, gam.c:779-793)
+            if self.gas.best_n and len(out) >= self.gas.best_n \
+                    and len(out) > 1 \
+                    and out[-2][0].score != out[-1][0].score:
+                break
+            if not self.gas.use_subopt:
+                break
+        return out
+
+    def result_exhaustive(self, query: Sequence, target: Sequence
+                          ) -> list[tuple[Alignment, AlignData]]:
         """Exhaustive suboptimal enumeration (ref: OPair +
         GAM_Result_exhaustive_create, gam.c:1140-1180)."""
+        from ..engine import optimal
         data = self.make_data(query, target)
         region = Region(0, 0, len(query), len(target))
         threshold = max(self.query_threshold(query, data), 1) \
@@ -215,3 +577,87 @@ class GAM(jax_gam.GAM):
             if self.gas.best_n and len(out) >= max(self.gas.best_n * 4, 16):
                 break
         return out
+
+    # -- submission (ref: GAM_Result_submit, gam.c:1252-1275) -------------
+
+    def submit(self, results: list[tuple[Alignment, AlignData]]):
+        if not results:
+            return
+        # result_id is 1-based within this result batch
+        # (ref: GAM_Result_display, gam.c:1240-1251)
+        if self.gas.best_n:
+            for i, (alignment, data) in enumerate(results, 1):
+                self._bestn_submit(alignment, data, i)
+        else:
+            for i, (alignment, data) in enumerate(results, 1):
+                self.out.write(self._render(alignment, data, rank=-1,
+                                            result_id=i))
+
+    def _bestn_submit(self, alignment: Alignment, data: AlignData,
+                      result_id: int):
+        qid = data.query.id
+        store = self.bestn_store.setdefault(qid, [])
+        n = self.gas.best_n
+        better = sum(1 for s in store if s.score > alignment.score)
+        if better >= n:
+            return
+        self._order += 1
+        # bestn tmpfile path renders with result_id=0 (ref: gam.c:178-181:
+        # GAM_display_alignment(..., 0, -1, ...)), so GFF gene_id /
+        # alignment_id are 0 under --bestn
+        store.append(_Stored(alignment.score,
+                             self._render(alignment, data, rank=None,
+                                          result_id=0),
+                             self._order))
+        # evict: keep only entries with fewer than n strictly better
+        scores = sorted((s.score for s in store), reverse=True)
+        store[:] = [s for s in store
+                    if sum(1 for sc in scores if sc > s.score) < n]
+
+    def report(self):
+        """Final bestn replay (ref: GAM_report, gam.c:550-556): per query
+        in id-sorted order, descending score, ranks 1..N."""
+        if not self.gas.best_n:
+            return
+        for qid in sorted(self.bestn_store):
+            store = self.bestn_store[qid]
+            store.sort(key=lambda s: (-s.score, s.order))
+            for rank, s in enumerate(store, 1):
+                self.out.write(s.text.replace("%_EXONERATE_BESTN_RANK_%",
+                                              str(rank)))
+
+    # -- rendering (ref: GAM_display_alignment, gam.c:1210-1237) ----------
+
+    def _render(self, alignment: Alignment, data: AlignData,
+                rank, result_id: int = 0) -> str:
+        gas = self.gas
+        q, t = data.query, data.target
+        parts = []
+        if gas.show_alignment:
+            parts.append(formats.display_human(alignment, q, t, data,
+                                               self.align_args))
+        if gas.show_sugar:
+            parts.append(formats.display_sugar(alignment, q, t,
+                                               self.align_args))
+        if gas.show_cigar:
+            parts.append(formats.display_cigar(alignment, q, t,
+                                               self.align_args))
+        if gas.show_vulgar:
+            parts.append(formats.display_vulgar(alignment, q, t,
+                                                self.align_args))
+        if gas.show_query_gff or gas.show_target_gff:
+            from ..align import gff
+            if gas.show_query_gff:
+                parts.append(gff.display_gff(alignment, q, t, data, True,
+                                             False, self.align_args,
+                                             result_id=result_id))
+            if gas.show_target_gff:
+                parts.append(gff.display_gff(
+                    alignment, q, t, data, False,
+                    has_genomic_target(gas.model_type), self.align_args,
+                    result_id=result_id))
+        if gas.ryo:
+            from ..align import ryo
+            parts.append(ryo.display_ryo(alignment, q, t, data, gas.ryo,
+                                         rank, self.align_args))
+        return "".join(parts)

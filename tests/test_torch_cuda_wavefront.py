@@ -4,8 +4,9 @@ Tests marked ``gpu`` compare the hand-written kernels with their plain
 PyTorch versions on a CUDA card; they decide inside the test body
 whether a card is present and skip without one.  The other tests run
 anywhere: on the CPU every wrapper runs its plain version and counts no
-launch.  The JAX reference is imported inside the tests that need it, so
-that on a machine without JAX the card tests run with
+launch.  The models come from the port's own host layer; the JAX
+package's planners are imported inside the tests that compare with
+them, so that on a machine without JAX the card tests run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_cuda_wavefront.py``.
 """
 import os
@@ -14,14 +15,16 @@ import re
 import pytest
 import torch
 
-from exonerate_tpu.alphabet import AlphabetType
-from exonerate_tpu.engine.region import Region
-from exonerate_tpu.model.affine import AffineModelType, affine_create
-from exonerate_tpu.model.data import AlignData
-from exonerate_tpu.model.est2genome import est2genome_create
-from exonerate_tpu.model.registry import ModelType, get_model
-from exonerate_tpu.seqio import Sequence, iter_fasta
 import exonerate_tpu_torch
+from exonerate_tpu_torch.alphabet import AlphabetType
+from exonerate_tpu_torch.engine.region import Region
+from exonerate_tpu_torch.model.affine import AffineModelType, affine_create
+from exonerate_tpu_torch.model.data import AlignData
+from exonerate_tpu_torch.model.est2genome import est2genome_create
+from exonerate_tpu_torch.model.registry import (ModelType, get_model,
+                                                translate_both)
+from exonerate_tpu_torch.seqio import Annotation, Sequence, iter_fasta
+import torch_split_cases as sc
 from exonerate_tpu_torch.engine import cuda_wavefront as cw
 from exonerate_tpu_torch.engine import wavefront as twf
 
@@ -36,14 +39,49 @@ def _calm():
     return s
 
 
-def _models():
-    return [est2genome_create(),
-            affine_create(AffineModelType.LOCAL, AlphabetType.PROTEIN,
-                          AlphabetType.PROTEIN),
-            affine_create(AffineModelType.GLOBAL, AlphabetType.DNA,
-                          AlphabetType.DNA),
-            get_model(ModelType.CODING2CODING, AlphabetType.DNA,
-                      AlphabetType.DNA)]
+def _models(pkg="exonerate_tpu_torch"):
+    """The models of the plan-table tests, from package ``pkg``."""
+    import importlib
+    reg = importlib.import_module(f"{pkg}.model.registry")
+    aff = importlib.import_module(f"{pkg}.model.affine")
+    A = importlib.import_module(f"{pkg}.alphabet").AlphabetType
+    e2g = importlib.import_module(f"{pkg}.model.est2genome")
+    return [e2g.est2genome_create(),
+            aff.affine_create(aff.AffineModelType.LOCAL, A.PROTEIN,
+                              A.PROTEIN),
+            aff.affine_create(aff.AffineModelType.GLOBAL, A.DNA, A.DNA),
+            reg.get_model(reg.ModelType.CODING2CODING, A.DNA, A.DNA),
+            reg.get_model(reg.ModelType.PROTEIN2GENOME, A.PROTEIN, A.DNA),
+            reg.get_model(reg.ModelType.CDNA2GENOME, A.DNA, A.DNA)]
+
+
+def _names(ts):
+    return [t.name for t in ts]
+
+
+def _split_inputs(mtname, mode, device=CPU, n_jobs=2):
+    """K1/K4 inputs of ``mtname`` on its small split pair (and a shifted
+    sub-box of it), built from the port's host layer."""
+    kind, cuts = {"PROTEIN2GENOME": ("protein", sc.CUTS),
+                  "CODING2GENOME": ("cdna", sc.C2G_CUTS),
+                  "CDNA2GENOME": ("cdna", sc.CUTS)}[mtname]
+    q, t = sc.small_pair(kind, cuts=cuts)
+    qs, ts = Sequence("q", None, q), Sequence("t", None, t)
+    if mtname == "CDNA2GENOME":
+        qs.annotation = Annotation(0, len(q))
+    mt = ModelType[mtname]
+    model = get_model(mt, AlphabetType.PROTEIN if kind == "protein"
+                      else AlphabetType.DNA, AlphabetType.DNA)
+    data = AlignData(qs, ts, translate_both(mt))
+    boxes = [Region(0, 0, len(q), len(t)),
+             Region(3, 5, len(q) - 3, len(t) - 20)][:n_jobs]
+    pads = (twf._bucket(len(q)), twf._bucket(len(t)))
+    per_pair = []
+    for region in boxes:
+        inputs, kinds = twf.prepare_inputs(model, region, data, pad_to=pads,
+                                           for_pallas=True)
+        per_pair.append(inputs)
+    return model, cw.to_kernel_inputs(model, per_pair, kinds, device, mode)
 
 
 def _e2g_inputs(mode, jobs=((0, 0, 100, 160),), device=CPU):
@@ -59,19 +97,29 @@ def _e2g_inputs(mode, jobs=((0, 0, 100, 160),), device=CPU):
     return model, cw.to_kernel_inputs(model, per_pair, kinds, device, mode)
 
 
-@pytest.mark.parametrize("k", range(4))
+@pytest.mark.parametrize("k", range(6))
 def test_plan_table_follows_build_plan(k):
     from exonerate_tpu.engine import pallas_wavefront
     model = _models()[k]
-    plan = pallas_wavefront._build_plan(model)
-    assert [p["t"] for p in cw._build_plan(model)] == [p["t"] for p in plan]
-    assert cw._plan_transitions(model) == \
-        pallas_wavefront._plan_transitions(model)
+    jmodel = _models("exonerate_tpu")[k]
+    jplan = pallas_wavefront._build_plan(jmodel)
+    plan = cw._build_plan(model)
+    assert _names(p["t"] for p in plan) == _names(p["t"] for p in jplan)
+    for p, jp in zip(plan, jplan):
+        assert (p["key"], p["shkey"], p["pallas_ci"], p["dst_shadows"]) \
+            == (jp["key"], jp["shkey"], jp["pallas_ci"], jp["dst_shadows"])
+        assert p["start_lanes"] == jp["start_lanes"]
+    assert _names(cw._plan_transitions(model)) == \
+        _names(pallas_wavefront._plan_transitions(jmodel))
+    n = model.total_shadow_designations
+    assert cw._storage_plan(model, plan, (n, n + 1)) == \
+        pallas_wavefront._storage_plan(jmodel, jplan, (n, n + 1))
     calm = _calm()
-    q = Sequence("q", None, "MKVLAAGICAGW") \
-        if model.name.startswith("affine:local:protein") else calm
+    protein = model.name.startswith(("affine:local:protein",
+                                     "protein2genome"))
+    q = Sequence("q", None, "MKVLAAGICAGW") if protein else calm
     region = Region(0, 0, 10, 12)
-    inputs, kinds = twf.prepare_inputs(model, region, AlignData(q, q),
+    inputs, kinds = twf.prepare_inputs(model, region, AlignData(q, calm),
                                        pad_to=(256, 256), for_pallas=True)
     ki = cw.to_kernel_inputs(model, inputs, kinds, CPU, "region")
     rows = ki.plan.tolist()
@@ -93,12 +141,12 @@ def test_plan_table_follows_build_plan(k):
 @pytest.mark.parametrize("mode", ["score", "region"])
 def test_storage_plan_matches_pallas(mode):
     from exonerate_tpu.engine import pallas_wavefront
-    model = est2genome_create()
+    model, jmodel = _models()[0], _models("exonerate_tpu")[0]
     n = model.total_shadow_designations
     lanes = (n, n + 1) if mode == "region" else ()
     got = cw._storage_plan(model, cw._build_plan(model), lanes)
     want = pallas_wavefront._storage_plan(
-        model, pallas_wavefront._build_plan(model), lanes)
+        jmodel, pallas_wavefront._build_plan(jmodel), lanes)
     assert got == want
     _, ki = _e2g_inputs(mode)
     assert ki.NR == len(got[0]) and ki.NL == len(got[1])
@@ -110,8 +158,9 @@ def test_cuda_source_declares_the_python_constants():
         src = fh.read()
     consts = dict(re.findall(
         r"constexpr (?:int|int32_t) (\w+) = (-?\d+);", src))
-    names = [n for n in consts if n.startswith(("P_", "F_", "C_", "SCOPE_"))]
-    assert len(names) >= 30
+    names = [n for n in consts
+             if n.startswith(("P_", "F_", "C_", "SCOPE_", "ST_"))]
+    assert len(names) >= 36
     for name in names:
         assert int(consts[name]) == getattr(twf, name), name
     assert int(consts["PLAN_COLS"]) == twf.PLAN_COLS
@@ -149,10 +198,19 @@ def test_wrappers_check_their_inputs():
 
 
 def test_unsupported_models_name_the_missing_kernel():
+    """The split-codon models run on the kernels (K9 is the C_SPLIT calc
+    kind); genome2genome's query-side and joint split codons are shadow
+    calcs with array inputs, off the kernels as in the JAX package."""
     assert cw.unsupported_reason(est2genome_create()) is None
     p2g = get_model(ModelType.PROTEIN2GENOME, AlphabetType.PROTEIN,
                     AlphabetType.DNA)
-    assert "K9" in cw.unsupported_reason(p2g)
+    assert cw.unsupported_reason(p2g) is None
+    for mt in ("CODING2GENOME", "CDNA2GENOME"):
+        assert cw.unsupported_reason(get_model(
+            ModelType[mt], AlphabetType.DNA, AlphabetType.DNA)) is None
+    g2g = get_model(ModelType.GENOME2GENOME, AlphabetType.DNA,
+                    AlphabetType.DNA)
+    assert "query-side or joint split codon" in cw.unsupported_reason(g2g)
     with pytest.raises(ValueError):
         calm = _calm()
         inputs, kinds = twf.prepare_inputs(
@@ -233,3 +291,29 @@ def test_k4_and_walkback_equal_plain():
     for b in range(ki.batch):
         k = int(res[0, b])
         assert torch.equal(ops[b, :k], p_ops[b, :k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mtname", ["PROTEIN2GENOME", "CODING2GENOME",
+                                    "CDNA2GENOME"])
+def test_k1_k4_split_codon_equal_plain(mtname):
+    """K9 inside K1 and K4: the split-codon plans on the card equal the
+    plain version in region and path modes, and count as K9 launches."""
+    dev = _need_card()
+    _, ki = _split_inputs(mtname, "region", dev)
+    n9 = cw.K9.launches
+    assert torch.equal(cw.wavefront_scan(ki), twf.plain_wavefront(ki)[0])
+    _, ki = _split_inputs(mtname, "path", dev)
+    stats, tb = cw.wavefront_path(ki)
+    p_stats, p_tb = twf.plain_wavefront(ki)
+    torch.cuda.synchronize()
+    # the cube's cells inside each pair's DP (the kernel leaves the others
+    # unwritten): cell (i, d - i) with i <= qlen and d - i <= tlen
+    qlen, tlen = (ki.dims[:, k].long()[:, None, None] for k in (2, 3))
+    d = torch.arange(tb.shape[1], device=tb.device)[None, :, None]
+    i = torch.arange(tb.shape[3], device=tb.device)[None, None, :]
+    valid = ((d - i >= 0) & (d - i <= tlen) & (i <= qlen))[:, :, None, :]
+    valid = valid.expand_as(tb)
+    assert torch.equal(stats, p_stats)
+    assert torch.equal(tb[valid], p_tb.to(tb.device)[valid])
+    assert cw.K9.launches == n9 + 2

@@ -4,8 +4,12 @@ The plain PyTorch band scan (``exonerate_tpu_torch.engine.sdp_device``)
 must equal, exactly, the JAX package's XLA scan (``sdp_device.get_fn``),
 its Pallas kernel in interpret mode (``sdp_pallas.run_kernel``) and the
 oracle scheduler's per-locus best end score, on the synthetic pairs of
-``tests/test_sdp_pallas.py``.  Tests marked ``gpu`` hold the CUDA kernels
-K6/K7 to the plain version on a card and skip without one.
+``tests/test_sdp_pallas.py`` and on protein2genome, coding2genome and
+cdna2genome pairs whose exons split codons of both phases (kernel K9,
+the split-codon calc, inside K7).  Each case is built twice, from the
+port's host layer and from the JAX package's (``torch_sdp_cases``).
+Tests marked ``gpu`` hold the CUDA kernels K6/K7 to the plain version on
+a card and skip without one.
 """
 import os
 import re
@@ -14,13 +18,15 @@ import numpy as np
 import pytest
 import torch
 
-from exonerate_tpu.alphabet import AlphabetType
-from exonerate_tpu.model.registry import ModelType, get_model
+from exonerate_tpu_torch.alphabet import AlphabetType
+from exonerate_tpu_torch.model.registry import ModelType, get_model
 from exonerate_tpu_torch.engine import cuda_sdp
 from exonerate_tpu_torch.engine import sdp_device as tsd
 from exonerate_tpu_torch.engine import sdp_hybrid as thy
-from torch_sdp_cases import CASES, DD
+from torch_sdp_cases import CASES, SPLIT_CASES
 from torch_sdp_cases import case as _case
+
+DD = (AlphabetType.DNA, AlphabetType.DNA)
 
 CPU = torch.device("cpu")
 CSRC = os.path.join(os.path.dirname(cuda_sdp.__file__), os.pardir, "csrc")
@@ -34,7 +40,11 @@ def _python_sdp(monkeypatch):
 # -- host prep: copies of the JAX functions ------------------------------
 
 def _eq(a, b):
-    if isinstance(a, dict):
+    """Deep equality across the two packages: model objects (transitions,
+    calcs, states) compare by name."""
+    if hasattr(a, "name") and not isinstance(a, np.ndarray):
+        assert a.name == b.name
+    elif isinstance(a, dict):
         assert sorted(a) == sorted(b)
         for k in a:
             _eq(a[k], b[k])
@@ -50,31 +60,33 @@ def _eq(a, b):
 
 
 @pytest.mark.parametrize("name", ["two_exons_intron", "ner_joint_span",
-                                  "affine_local"])
+                                  "affine_local", "p2g_split"])
 def test_host_prep_equals_jax(name):
     from exonerate_tpu.engine import sdp_device, sdp_pallas
     model, pair, plan = _case(name)
-    assert tsd.supported(model) == sdp_device.supported(model)
+    jmodel, jpair, jplan = _case(name, pkg="exonerate_tpu")
+    assert tsd.supported(model) == sdp_device.supported(jmodel)
     for fwd in (False, True):
         _eq(tsd._plan_transitions(model, fwd),
-            sdp_device._plan_transitions(model, fwd))
+            sdp_device._plan_transitions(jmodel, fwd))
         assert cuda_sdp._ring_plan(model, fwd) == \
-            sdp_pallas._ring_plan(model, fwd)
-    _eq(tsd._span_plan(model), sdp_device._span_plan(model))
+            sdp_pallas._ring_plan(jmodel, fwd)
+    _eq(tsd._span_plan(model), sdp_device._span_plan(jmodel))
     for pad in (None, (256, 1024)):
         _eq(tsd.prepare_inputs(model, pair, plan, pad_to=pad),
-            sdp_device.prepare_inputs(model, pair, plan, pad_to=pad))
+            sdp_device.prepare_inputs(jmodel, jpair, jplan, pad_to=pad))
     _eq(tsd.prepare_seeds(pair, plan, 8),
-        sdp_device.prepare_seeds(pair, plan, 8))
+        sdp_device.prepare_seeds(jpair, jplan, 8))
     n = cuda_sdp.count_seed_layers(pair, plan)
-    assert n == sdp_pallas.count_seed_layers(pair, plan)
+    assert n == sdp_pallas.count_seed_layers(jpair, jplan)
     for layers in (1, 5):
         assert cuda_sdp.kernel_supported(model, pair.use_boundary, layers,
                                          pair) == \
-            sdp_pallas.kernel_supported(model, pair.use_boundary, layers,
-                                        pair)
+            sdp_pallas.kernel_supported(jmodel, jpair.use_boundary, layers,
+                                        jpair)
     _eq(cuda_sdp.prepare_kernel_inputs(model, pair, plan, 256, 1024, n),
-        sdp_pallas.prepare_kernel_inputs(model, pair, plan, 256, 1024, n))
+        sdp_pallas.prepare_kernel_inputs(jmodel, jpair, jplan, 256, 1024,
+                                         n))
 
 
 # -- the plain scan against the XLA scan, the Pallas kernel, the oracle --
@@ -112,12 +124,14 @@ def _single(name):
 def _check(name):
     from exonerate_tpu.engine import sdp_pallas
     model, pair, plan = _case(name)
+    jmodel, jpair, jplan = _case(name, pkg="exonerate_tpu")
     assert cuda_sdp.unsupported_reason(model, pair, plan) is None
     got = _single(name)
     n = len(plan.loci)
-    for want in (_xla(model, pair, plan),
-                 sdp_pallas.run_kernel(model, [(pair, plan)],
-                                       pair.args.dropoff, interpret=True)[0]):
+    for want in (_xla(jmodel, jpair, jplan),
+                 sdp_pallas.run_kernel(jmodel, [(jpair, jplan)],
+                                       jpair.args.dropoff,
+                                       interpret=True)[0]):
         assert got["live"] == bool(want["live"])
         assert got["xband"] == bool(want["xband"])
         np.testing.assert_array_equal(
@@ -128,9 +142,17 @@ def _check(name):
     return model, pair, plan, got
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(SPLIT_CASES))
 def test_plain_scan_equals_xla_pallas_and_oracle(name):
-    _check(name)
+    model, pair, plan, got = _check(name)
+    if name in SPLIT_CASES:
+        # K9 ran: the forward table holds a split-codon row of each phase
+        bi = cuda_sdp.band_inputs(model, [(pair, plan)], pair.args.dropoff,
+                                  CPU)
+        rows = bi.fwd_plan.tolist()
+        assert bi.split and sorted(r[tsd.BP_C2] for r in rows
+                                   if r[tsd.BP_CALC] == tsd.K_SPLIT) == [1, 2]
+        assert not got["live"]
 
 
 @pytest.mark.slow
@@ -177,10 +199,13 @@ def test_ragged_batch_equals_single_runs():
 def test_unsupported_reason_names_the_missing_kernel():
     p2g = get_model(ModelType.PROTEIN2GENOME, AlphabetType.PROTEIN,
                     AlphabetType.DNA)
-    assert "K9 not ported" in cuda_sdp.unsupported_reason(p2g)
+    assert cuda_sdp.unsupported_reason(p2g) is None
     for mt in ("CODING2GENOME", "CDNA2GENOME"):
         m = get_model(ModelType[mt], *DD)
-        assert "K9 not ported" in cuda_sdp.unsupported_reason(m)
+        assert cuda_sdp.unsupported_reason(m) is None
+    g2g = get_model(ModelType.GENOME2GENOME, *DD)
+    assert "query-side or joint split codon" in \
+        cuda_sdp.unsupported_reason(g2g)
     assert cuda_sdp.unsupported_reason(
         get_model(ModelType.EST2GENOME, *DD)) is None
     assert "non-boundary" in cuda_sdp.unsupported_reason(
@@ -212,14 +237,15 @@ def test_cuda_source_declares_the_python_constants():
         src = fh.read()
     consts = dict(re.findall(
         r"constexpr (?:int|int32_t) (\w+) = (-?\d+);", src))
-    names = [n for n in consts if n.startswith(("BP_", "BF_", "K_", "SP_"))]
-    assert len(names) >= 30
+    names = [n for n in consts
+             if n.startswith(("BP_", "BF_", "K_", "SP_", "ST_"))]
+    assert len(names) >= 40
     for name in names:
         assert int(consts[name]) == getattr(tsd, name), name
     assert int(consts["NEG"]) == tsd.NEG
     assert int(consts["POS"]) == tsd.POS
     assert int(consts["MAX_STARTS"]) == tsd.MAX_STARTS
-    for name in ("MAX_S", "MAX_SH", "MAX_SPANS", "MAX_CAND",
+    for name in ("SMALL_S", "MAX_S", "MAX_SH", "MAX_SPANS", "MAX_CAND",
                  "MAX_SEED_LAYERS"):
         assert int(consts[name]) == getattr(cuda_sdp, name), name
     assert 'extern "C" int sdp_band_reverse(' in src
@@ -271,10 +297,11 @@ def _need_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(SPLIT_CASES))
 def test_k6_k7_equal_plain(name):
     dev = _need_card()
-    bi = _band_inputs(name, dev)
+    model, pair, plan = _case(name)
+    bi = cuda_sdp.band_inputs(model, [(pair, plan)], pair.args.dropoff, dev)
     n6, n7 = cuda_sdp.band_reverse.launches, cuda_sdp.band_forward.launches
     bits, live_r = cuda_sdp.band_reverse(bi)
     colbest, live_f, xband = cuda_sdp.band_forward(bi, bits)

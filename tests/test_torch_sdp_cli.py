@@ -3,7 +3,9 @@
 With EXONERATE_TPU_TORCH_DEVICE=cpu and EXONERATE_TPU_SDP=device, the
 seeded heuristic's SDP passes run the port's band scan (the plain
 PyTorch version of K6/K7 on the CPU).  Every in-repo est2genome heuristic
-golden must be byte-equal, with ``torch-sdp`` counted and no fallback.
+golden, and every in-repo split-codon golden (coding2genome and
+cdna2genome, kernel K9 inside K7), must be byte-equal, with
+``torch-sdp`` counted and no fallback.
 """
 import io
 import os
@@ -12,12 +14,13 @@ import sys
 
 import pytest
 
-from exonerate_tpu import observe
 import exonerate_tpu_torch
+from exonerate_tpu_torch import observe
 from exonerate_tpu_torch.cli.exonerate import main
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "golden"))
 import cases  # noqa: E402
+import torch_split_cases as sc  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GENOME_SMALL = os.path.join(cases.FIXDIR, "genome_small.fa")
@@ -43,6 +46,10 @@ def _heuristic_cases():
 
 CASES = _heuristic_cases()
 TIER1 = {"est2genome_genomic"}
+SPLIT_GOLDENS = ("coding2genome", "ryo_coding", "cdna2genome_annot",
+                 "annotation_minus", "cd2g_gff_annot_bestn2")
+SPLIT_CASES = {n: a for n, p, a in cases.CASES if n in SPLIT_GOLDENS}
+SPLIT_TIER1 = {"coding2genome"}
 
 
 @pytest.fixture
@@ -76,32 +83,66 @@ def test_forced_route_matches_golden(forced, name):
     assert not observe.fallback_counts, dict(observe.fallback_counts)
 
 
-def test_forced_route_without_jax_equals_native_route(monkeypatch):
-    """cdna_mut x genome_small: the forced device route, in a process
-    where jax cannot be imported, prints what the host native route
-    prints."""
+@pytest.mark.parametrize("name", [
+    pytest.param(n, marks=() if n in SPLIT_TIER1 else pytest.mark.slow)
+    for n in SPLIT_GOLDENS])
+def test_forced_split_codon_route_matches_golden(forced, name):
+    out = _cli(SPLIT_CASES[name])
+    with open(os.path.join(cases.OUTDIR, name + ".txt")) as fh:
+        assert cases.normalize(out) == fh.read()
+    assert observe.engine_counts["torch-sdp"] >= 1, dict(
+        observe.engine_counts)
+    assert not observe.fallback_counts, dict(observe.fallback_counts)
+
+
+def _c2g_split_argv(tmp_path):
+    """coding2genome on the small split cDNA pair."""
+    q, t = sc.small_pair("cdna", cuts=sc.C2G_CUTS)
+    return ["-m", "coding2genome", "--bestn", "1",
+            sc.write_fasta(str(tmp_path / "q.fa"), [("calm_181_481", q)]),
+            sc.write_fasta(str(tmp_path / "t.fa"), [("split", t)]),
+            "--showvulgar", "yes", "--showalignment", "no"]
+
+
+def test_forced_route_without_jax_equals_native_route(monkeypatch,
+                                                      tmp_path):
+    """cdna_mut x genome_small (est2genome) and coding2genome on the
+    small split pair: the forced device route, in a process where
+    neither jax nor the JAX package can be imported, prints what the
+    host native route prints."""
+    argvs = [SMALL_ARGV, _c2g_split_argv(tmp_path)]
     monkeypatch.setenv(exonerate_tpu_torch.DEVICE_ENV, "cpu")
     monkeypatch.setenv("EXONERATE_TPU_SDP", "native")
-    native = _cli(SMALL_ARGV)
-    assert "vulgar:" in native and "torch-sdp" not in observe.engine_counts
+    native = []
+    for argv in argvs:
+        observe.reset()
+        native.append(_cli(argv))
+        assert "vulgar:" in native[-1]
+        assert "torch-sdp" not in observe.engine_counts
     code = (
         "import io, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['exonerate_tpu'] = None\n"
         "from exonerate_tpu_torch.cli.exonerate import main\n"
-        "from exonerate_tpu import observe\n"
-        "buf = io.StringIO()\n"
-        f"assert main({SMALL_ARGV!r}, out=buf) == 0\n"
-        "sys.stdout.write(buf.getvalue())\n"
-        "assert observe.engine_counts['torch-sdp'] >= 1, "
+        "from exonerate_tpu_torch import observe\n"
+        f"for argv in {argvs!r}:\n"
+        "    observe.reset()\n"
+        "    buf = io.StringIO()\n"
+        "    assert main(argv, out=buf) == 0\n"
+        "    sys.stdout.write(buf.getvalue() + chr(0))\n"
+        "    assert observe.engine_counts['torch-sdp'] >= 1, "
         "observe.engine_counts\n"
-        "assert not observe.fallback_counts, observe.fallback_counts\n")
+        "    assert not observe.fallback_counts, observe.fallback_counts\n")
     env = dict(os.environ, EXONERATE_TPU_TORCH_DEVICE="cpu",
                EXONERATE_TPU_SDP="device")
     env.pop("EXONERATE_TPU_PLATFORM", None)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr
-    assert cases.normalize(proc.stdout) == cases.normalize(native)
+    outs = proc.stdout.split(chr(0))
+    for got, want in zip(outs, native):
+        assert cases.normalize(got) == cases.normalize(want)
+    assert " S " in outs[1]
 
 
 @pytest.mark.parametrize("knob", [("EXONERATE_TPU_SDP_ROWS", "1"),
@@ -110,3 +151,39 @@ def test_unported_tiers_are_refused(forced, monkeypatch, knob):
     monkeypatch.setenv(*knob)
     with pytest.raises(SystemExit, match="not ported"):
         main(list(SMALL_ARGV), out=io.StringIO())
+
+
+@pytest.mark.slow
+def test_c2g_scan_crosscheck_disagrees_as_in_the_jax_package(forced,
+                                                            monkeypatch,
+                                                            tmp_path):
+    """Query 9 of chip_smoke.py's coding2genome scan (the 1 Mb genome of
+    ``scan_genome(CUTS)``) on the forced device route, in both packages
+    (the port's plain band scan, the JAX package's XLA scan): the host's
+    re-run of one locus alone scores 2008 where the band scan of the whole
+    comparison scores 2007, so the hybrid's cross-check sends the
+    comparison to the host in both, with the same fallback and the host
+    route's bytes."""
+    from exonerate_tpu import observe as jobserve
+    from exonerate_tpu.cli.exonerate import main as jax_main
+    from exonerate_tpu.engine import sdp_hybrid as jhy
+    from exonerate_tpu_torch.engine import sdp_hybrid as thy
+    queries, genome = sc.scan_genome(sc.CUTS)
+    argv = ["-m", "coding2genome", "--bestn", "1", "--maxintron", "20000",
+            sc.write_fasta(str(tmp_path / "q.fa"), [("q9", queries[9])]),
+            sc.write_fasta(str(tmp_path / "t.fa"),
+                           [("split_genome", genome)]),
+            "--showvulgar", "yes", "--showalignment", "no"]
+    for mod in (jhy, thy):
+        monkeypatch.setattr(mod, "SCAN_DIAG_CAP", 10 ** 6)
+    want = {"sdp device->host: locus score mismatch (2008 != 2007)": 1}
+    observe.reset()
+    got = _cli(argv)
+    assert dict(observe.fallback_counts) == want
+    jobserve.reset()
+    buf = io.StringIO()
+    assert jax_main(list(argv), out=buf) == 0
+    assert dict(jobserve.fallback_counts) == want
+    assert got == buf.getvalue()
+    monkeypatch.setenv("EXONERATE_TPU_SDP", "native")
+    assert _cli(argv) == got
