@@ -53,36 +53,58 @@ script then exits non-zero and prints no result line):
       the same three exons; the region scan and the path DP run on K1
       and K4 (optimal's native cut-over set to 100,000 cells for this
       run), against the native dense DP; S operations at both introns.
-      The run's K1/K4 inputs are captured; all but the first widest
-      region scan are launched again and their plain versions (with the
-      walk-back's) start in one more worker process.
-6. K1 vs plain: est2genome, calm (tests/golden/data/all4.fa record 1)
+      The run's K1/K4 inputs are captured; each launch is made again and
+      its plain version (with the walk-back's) starts in one more worker
+      process.
+6. The SubOpt mask (kernel K3, the MASKED instantiation of K1/K4), each
+   run through the port's CLI with no fallback:
+   a. est2genome -E yes --bestn 2 --score 2000: calm (2175 bp) against a
+      30 kb window holding two spliced copies of it, interleaved
+      (tests/torch_split_cases.py two_copy_locus: exons at thirds, ~1%
+      mutated, GT..AG gaps of 1200 bp, so each copy spans 8,425 bp and
+      its box holds cells of the other's path).  The whole pair (65 M
+      cells) and each copy's box (over 16 M) take the kernel route, so
+      the second iteration runs K3 inside K1 and K4; byte-equal to the
+      native dense DP route in the same process, both copies spliced.
+      The widest masked region scan is timed (kernel K3's row) and, with
+      the first masked K4 launch and its walk-back, held to the plain
+      version in two more worker processes.
+   b. The pooled locus heuristic (EXONERATE_TPU_HEURISTIC=locus) on
+      phase 4's 16 cDNAs x 1 Mb genome with --bestn 10: at least one
+      masked generation, K3 launched, 16/16 queries spliced, its time
+      beside phase 4's SDP route.  The first masked region batch and its
+      path batch are launched again on a sub-batch of their two widest
+      pairs, held to the full batch's results for those pairs and, in two
+      more worker processes, to the plain versions.
+7. K1 vs plain: est2genome, calm (tests/golden/data/all4.fa record 1)
    against itself, 2175x2175, B=64, score and region modes, plus a ragged
    batch and the model zoo; the split-codon plans: the calm protein
    against 8 windows of the 12 kb locus (score, region, path), the
-   coding2genome and cdna2genome split pairs, and the protein2genome -E
+   coding2genome and cdna2genome split pairs; the protein2genome -E
    run's first widest region scan on its own inputs (B=1, Qp 256 x Tp
-   12288), timed for kernel K9's row.  Times with CUDA events.
-7. K4 + walk-back vs plain and vs the native dense DP, calm 2175^2 path.
-8. CLI end to end: the port's CLI must reproduce the exhaustive_est2genome
+   12288), timed for kernel K9's row (its plain check runs in phase 5c's
+   worker process).  Times with CUDA events.
+8. K4 + walk-back vs plain and vs the native dense DP, calm 2175^2 path.
+9. CLI end to end: the port's CLI must reproduce the exhaustive_est2genome
    golden byte for byte and give vulgar score 10875 on calm x calm, with
    the kernels' launch counters above 0 and no engine fallback.
-9. K6/K7 against the plain passes, exactly, on the est2genome_genomic
-   comparison of phase 3, timed kernel vs plain with CUDA events.
-10. The plain checks of the worker processes: every slice's plain pass
+10. K6/K7 against the plain passes, exactly, on the est2genome_genomic
+    comparison of phase 3, timed kernel vs plain with CUDA events.
+11. The plain checks of the worker processes: every slice's plain pass
     must equal the kernels' outputs exactly (bits, live; column best,
-    live, xband), and every other K1/K4 launch of the -E run its plain
+    live, xband), and every K1/K4 launch handed to them its plain
     version (scores, ends, starts; traceback cube, walk-back).
 
-Phases 5-9 run on the card while the plain checks run on the host's
+Phases 5-10 run on the card while the plain checks run on the host's
 cores, so their host-clock and plain times share the host with them.
 
 The last three lines are nvidia-smi's name and power limit of the card,
 a JSON object of the kernels (route, source, the TPU kernel each
 replaces, main-path launches, max |kernel - plain|, kernel and plain
-milliseconds, the bound: the larger of the bytes moved over 3.35 TB/s
-and the int32 operations over the int32 peak, and the library call:
-none computes these DPs), and the result object.
+milliseconds (the plain version on the card, but for K9 and K3 on one
+host core in a worker process), the bound: the larger of the bytes moved
+over 3.35 TB/s and the int32 operations over the int32 peak, and the
+library call: none computes these DPs), and the result object.
 """
 from __future__ import annotations
 
@@ -120,6 +142,14 @@ C2G_ARGV = ["-m", "coding2genome", "--bestn", "1", "--maxintron", "20000",
 P2G_ARGV = ["-m", "protein2genome", "--bestn", "1", "--maxintron", "20000",
             "--showvulgar", "yes", "--showalignment", "no"]
 P2G_E_CUTOVER = 100_000      # optimal.NATIVE_TPU_CELLS for the p2g -E run
+# the -E yes Waterman-Eggert window: calm's two copies interleaved from
+# WE_START, GT..AG gaps of WE_GAP (each copy spans 8,425 bp), WE_LEN bp in
+# all; --score WE_SCORE ends the run after both copies (calm's internal
+# repeats give local alignments of a few hundred, each one more masked
+# iteration of the whole window)
+WE_GAP, WE_LEN, WE_START, WE_SCORE = 1200, 30_000, 9000, 2000
+LOCUS_ARGV = ["-m", "est2genome", "--bestn", "10", "--maxintron", "20000",
+              "--showvulgar", "yes", "--showalignment", "no"]
 CROSSCHECK = "sdp device->host: locus score mismatch"
 # the one comparison of the coding2genome scan whose locus cross-check
 # disagrees (query 9, 2008 != 2007), as in the JAX package's device tier
@@ -203,7 +233,7 @@ def _wave_work(ki, out_bytes: int):
     dims = ki.dims.long()
     cells = int(((dims[:, 2] + 1) * (dims[:, 3] + 1)).sum())
     n_in = _nbytes(ki.plan, ki.ring_row, ki.lane_row, ki.dims, ki.qvecs,
-                   ki.tvecs, ki.tables, ki.scalars)
+                   ki.tvecs, ki.tables, ki.scalars, ki.blocked)
     return n_in + out_bytes, 2 * cells * ki.plan.shape[0]
 
 
@@ -347,6 +377,96 @@ def _plain_wave_check(path: str):
     return ok, err, secs, int((ki.dims[:, 2] + ki.dims[:, 3]).max()) + 1
 
 
+def _wave_outputs(cw, ki) -> dict:
+    """K1 on ``ki`` (K4 and the walk-back in path mode): the outputs that
+    ``_plain_wave_check`` holds to the plain version."""
+    if ki.mode != "path":
+        return {"out": cw.wavefront_scan(ki)}
+    stats, tb = cw.wavefront_path(ki)
+    cap = ki.Qp + ki.Tp + 1 + cw.WALK_SLACK
+    ops, res = cw.walkback(tb, stats, ki.walk, ki.end_id, cap)
+    return {"out": stats, "tb": tb, "ops": ops, "res": res, "cap": cap}
+
+
+def _save_wave(path: str, ki, outs: dict) -> str:
+    """Save K1/K4 inputs and the kernels' outputs for a worker process."""
+    torch.save({"ki": _cpu_fields(ki),
+                **{k: v.cpu() if torch.is_tensor(v) else v
+                   for k, v in outs.items()}}, path)
+    return path
+
+
+def _sub_batch(ki, idx: list):
+    """The pairs ``idx`` of a K1/K4 batch, at the batch's (Qp, Tp)."""
+    import dataclasses
+    ix = torch.tensor(idx, device=ki.dims.device)
+    fields = {f: getattr(ki, f)[ix]
+              for f in ("dims", "qvecs", "tvecs", "tables", "scalars")}
+    if ki.masked:
+        fields["blocked"] = ki.blocked[ix]
+    return dataclasses.replace(ki, **fields)
+
+
+def _widest(ki, n: int = 2) -> list:
+    """The ``n`` pairs of a batch with the most cells, widest first."""
+    cells = ((ki.dims[:, 2].long() + 1) * (ki.dims[:, 3].long() + 1)).tolist()
+    return sorted(range(ki.batch), key=lambda b: -cells[b])[:n]
+
+
+@contextlib.contextmanager
+def _timed(mod, keys: dict, acc: dict):
+    """While active, each function ``mod.<name>`` of ``keys`` adds its
+    host seconds, ended by a device sync, to ``acc[keys[name](*args)]``."""
+    real = {n: getattr(mod, n) for n in keys}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            key = keys[name](*args, **kwargs)
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    for n, fn in real.items():
+        setattr(mod, n, wrap(n, fn))
+    try:
+        yield acc
+    finally:
+        for n, fn in real.items():
+            setattr(mod, n, fn)
+
+
+# where the wavefront routes spend their host clock: host prep (the pairs'
+# arrays and SubOpt mask grids; packing and copies), and K1 and K4 with
+# and without the mask plane, timed around the uncounted launcher
+# ``_launch`` (the counted wrappers keep their launch counters)
+WAVE_CLOCKS = {
+    "_buckets": lambda *a, **k: "prep: prepare_inputs (masks)",
+    "to_kernel_inputs": lambda *a, **k: "prep: to_kernel_inputs (copies)",
+    "_launch": lambda ki: ("K4" if ki.mode == "path" else "K1")
+    + (" masked" if ki.masked else "")}
+
+
+def _k2_mb(kis: list) -> list:
+    """(B, Qp, Tp, MB) of each K1 batch by the JAX package's streaming test
+    (``pallas_wavefront.py:1437-1443``; kernel K2 takes a batch over
+    ``STREAM_VMEM_BYTES``, 24 MB): one reversed int32 vector of 2*QV + 128
+    + Tp + 265 per target-indexed row (the port's ``tvecs`` rows) per
+    pair, QV = Qp + 128 at the bucket ladder's sizes."""
+    return [(k.batch, k.Qp, k.Tp, round(k.tvecs.shape[1] * k.batch * (
+        2 * (k.Qp + 128) + 128 + k.Tp + 265) * 4 / 2**20, 2))
+        for k in kis if k.mode != "path"]
+
+
+def _breakdown(acc: dict, total: float) -> str:
+    parts = [f"{k} {v:.2f} s" for k, v in sorted(acc.items())]
+    return (", ".join(parts) + f", the rest (seeding, walk-backs, "
+            f"alignments, masks' points, output) "
+            f"{total - sum(acc.values()):.2f} s")
+
+
 def _write_fasta(path: str, records) -> str:
     with open(path, "w") as fh:
         for name, seq in records:
@@ -449,7 +569,7 @@ def main() -> int:
     # the counters set to 0 just before it and read just after
     counters = {"K1": cw.wavefront_scan, "K4": cw.wavefront_path,
                 "walkback": cw.walkback, "K6": cs.band_reverse,
-                "K7": cs.band_forward, "K9": cw.K9}
+                "K7": cs.band_forward, "K9": cw.K9, "K3": cw.K3}
     main_launches = dict.fromkeys(counters, 0)
 
     def zero_counts():
@@ -531,6 +651,7 @@ def main() -> int:
         return real_pass(*args, **kwargs)
 
     real_resolve = hy.HybridSDPPair._resolve
+    route_secs = {}     # scan label -> (route's host s, native route's)
 
     def scan(label, argv, mode, want_kernels, force=None, max_crossed=0):
         """The CLI over ``argv`` on the route ``force`` (None: default)
@@ -579,6 +700,7 @@ def main() -> int:
             sd._run_pass = real_pass
             hy.run_device_batch = real_batch
             hy.HybridSDPPair._resolve = real_resolve
+        route_secs[label] = (secs_dev, secs_nat)
         crossed = [(bx, jx) for bx, (_m, jobs_, _s) in enumerate(batches)
                    for jx, (_p, pl) in enumerate(jobs_)
                    if any(pl is q for q in mismatched)]
@@ -607,8 +729,9 @@ def main() -> int:
     qf = _write_fasta(os.path.join(tmp_dir, "q.fa"),
                       [(f"q{k}", q) for k, q in enumerate(queries)])
     tf = _write_fasta(os.path.join(tmp_dir, "t.fa"), [("genome", genome)])
+    scan_label = f"scan {SCAN_QUERIES} x {SCAN_LEN / 1e6:.0f} Mb est2genome"
     out_dev, scan_eng, batches, _ = scan(
-        f"scan {SCAN_QUERIES} x {SCAN_LEN / 1e6:.0f} Mb est2genome",
+        scan_label,
         SCAN_ARGV + [qf, tf], "default routing", ("K6", "K7"))
     spliced = {v[1] for v in (ln.split() for ln in out_dev.splitlines()
                               if ln.startswith("vulgar:"))
@@ -782,36 +905,220 @@ def main() -> int:
         raise RuntimeError("protein2genome -E yes: want split codons (S) "
                            "at both introns")
     # every K1/K4 launch of the run is held to the plain version on its
-    # own inputs: the first widest region scan on the card in phase 6
-    # (timed, kernel K9's row), the others here, their plain versions in
-    # a worker process
+    # own inputs, in a worker process; the first widest region scan is
+    # kernel K9's row (timed in phase 7)
     e_main = max((k for k in e_kis if k.mode == "region"),
                  key=lambda k: k.batch * (k.Qp + 1) * (k.Tp + 1))
-    e_pool = None
+    e_pool = _pool(1)
+    pools.append(e_pool)
     for n, ki in enumerate(e_kis):
+        path = _save_wave(os.path.join(tmp_dir, f"p2g_e_{n}.pt"), ki,
+                          _wave_outputs(cw, ki))
+        res = e_pool.apply_async(_plain_wave_check, (path,))
         if ki is e_main:
-            continue
-        if ki.mode == "path":
-            stats, tb = cw.wavefront_path(ki)
-            cap = ki.Qp + ki.Tp + 1 + cw.WALK_SLACK
-            ops, res = cw.walkback(tb, stats, ki.walk, ki.end_id, cap)
-            outs = {"out": stats, "tb": tb, "ops": ops, "res": res,
-                    "cap": cap}
-        else:
-            outs = {"out": cw.wavefront_scan(ki)}
-        path = os.path.join(tmp_dir, f"p2g_e_{n}.pt")
-        torch.save({"ki": _cpu_fields(ki),
-                    **{k: v.cpu() if torch.is_tensor(v) else v
-                       for k, v in outs.items()}}, path)
-        if e_pool is None:
-            e_pool = _pool(1)
-            pools.append(e_pool)
+            e_pending = res
         pending.append((f"protein2genome -E launch {n} ({ki.mode}, Qp "
                         f"{ki.Qp} x Tp {ki.Tp})", list(range(ki.batch)),
-                        e_pool.apply_async(_plain_wave_check, (path,))))
-        del outs
+                        res))
 
-    # -- 6. K1 vs plain --------------------------------------------------
+    # -- 6. the SubOpt mask (kernel K3) ----------------------------------
+    # a. est2genome -E yes Waterman-Eggert: calm against two interleaved
+    # spliced copies of itself in a 30 kb window
+    calm_s = sc.calm()
+    we_locus = sc.two_copy_locus(calm_s, WE_GAP, WE_LEN, WE_START)
+    wqf = _write_fasta(os.path.join(tmp_dir, "calm.fa"), [("calm", calm_s)])
+    wtf = _write_fasta(os.path.join(tmp_dir, "we.fa"), [("two_copies",
+                                                          we_locus)])
+    argv_we = ["-m", "est2genome", "-E", "yes", "--bestn", "2", "--score",
+               str(WE_SCORE), wqf, wtf, "--showvulgar", "yes",
+               "--showalignment", "no"]
+    we_cells = (len(calm_s) + 1) * (len(we_locus) + 1)
+    we_kis, iters = [], [0]
+    real_fp = optimal.find_path
+
+    def count_fp(model_, region, *args, **kwargs):
+        # the Waterman-Eggert iterations: find_path on the whole pair
+        if (region.query_length, region.target_length) == (
+                len(calm_s), len(we_locus)):
+            iters[0] += 1
+        return real_fp(model_, region, *args, **kwargs)
+
+    def capture_we(*args, **kwargs):
+        we_kis.append(real_tki(*args, **kwargs))
+        return we_kis[-1]
+
+    saved_budget = optimal.NATIVE_TB_BUDGET
+    we_time = {}
+    observe.reset()
+    zero_counts()
+    try:
+        cw.to_kernel_inputs = capture_we
+        optimal.find_path = count_fp
+        with _timed(cw, WAVE_CLOCKS, we_time):
+            out_we, secs_we = run_cli(argv_we)
+        cw.to_kernel_inputs = real_tki
+        optimal.find_path = real_fp
+        we_launches = read_counts("est2genome -E yes Waterman-Eggert",
+                                  ("K1", "K4", "walkback", "K3"))
+        we_eng = dict(observe.engine_counts)
+        optimal.NATIVE_TPU_CELLS = we_cells + 1
+        optimal.NATIVE_TB_BUDGET = we_cells * len(model.states) * 2
+        observe.reset()
+        nat_we, nat_secs_we = run_cli(argv_we)
+    finally:
+        optimal.NATIVE_TPU_CELLS = saved_cut
+        optimal.NATIVE_TB_BUDGET = saved_budget
+        cw.to_kernel_inputs = real_tki
+        optimal.find_path = real_fp
+    we_shapes = [(k.mode, k.batch, k.Qp, k.Tp, "masked" if k.masked
+                  else "mask-free") for k in we_kis]
+    print(f"est2genome -E yes Waterman-Eggert calm {len(calm_s)} x "
+          f"{len(we_locus)} bp, two interleaved spliced copies [{card}]: "
+          f"{iters[0]} iterations; kernels {secs_we:.2f} s, native "
+          f"{nat_secs_we:.2f} s (host clock); engines {we_eng}; launches "
+          f"{we_launches}; K1/K4 launches {we_shapes}")
+    print(f"  where the kernel route's {secs_we:.2f} s go (host clock): "
+          f"{_breakdown(we_time, secs_we)}; K1 batches by the JAX package's "
+          f"K2 test (B, Qp, Tp, MB of 24): {_k2_mb(we_kis)}")
+    if out_we != nat_we:
+        raise RuntimeError("est2genome -E yes: the kernels' output differs "
+                           "from the native route's")
+    ops_we = _vulgar_ops(out_we)
+    if len(ops_we) != 2 or any(o.count("I") != 2 for o in ops_we):
+        raise RuntimeError(f"est2genome -E yes: want both copies with two "
+                           f"introns each, got {ops_we}")
+    n_masked = sum(k.masked for k in we_kis)
+    if not any(k.masked and k.mode == "region" for k in we_kis) \
+            or not any(k.masked and k.mode == "path" for k in we_kis) \
+            or we_launches["K3"] != n_masked:
+        raise RuntimeError(f"est2genome -E yes: K3 must run inside K1 and "
+                           f"K4 ({we_shapes}; K3 launches "
+                           f"{we_launches['K3']})")
+    # the widest masked region scan (kernel K3's row, timed here) and the
+    # first masked path DP are held to their plain versions in worker
+    # processes
+    we_main = max((k for k in we_kis if k.masked and k.mode == "region"),
+                  key=lambda k: k.batch * (k.Qp + 1) * (k.Tp + 1))
+    we_path = next(k for k in we_kis if k.masked and k.mode == "path")
+    we_free = next(k for k in we_kis if not k.masked and k.mode == "region"
+                   and (k.Qp, k.Tp) == (we_main.Qp, we_main.Tp))
+    del we_kis
+    we_pool = _pool(2)
+    pools.append(we_pool)
+    we_pending = {}
+    for tag, ki in (("K1", we_main), ("K4", we_path)):
+        outs = _wave_outputs(cw, ki)
+        if tag == "K1":
+            k3_ms = _cuda_ms(lambda: cw.wavefront_scan(we_main), 2)
+            free_ms = _cuda_ms(lambda: cw.wavefront_scan(we_free), 1)
+        path = _save_wave(os.path.join(tmp_dir, f"we_{tag}.pt"), ki, outs)
+        del outs
+        we_pending[tag] = we_pool.apply_async(_plain_wave_check, (path,))
+        pending.append((f"est2genome -E yes masked {tag} ({ki.mode}, Qp "
+                        f"{ki.Qp} x Tp {ki.Tp} x{ki.batch})",
+                        list(range(ki.batch)), we_pending[tag]))
+    k3_shape = (f"Qp {we_main.Qp} x Tp {we_main.Tp} x{we_main.batch}, "
+                f"{len(calm_s)} x {len(we_locus)}")
+    print(f"K1 region with K3, the -E run's widest masked scan ({k3_shape})"
+          f" [{card}]: kernel {k3_ms:.3f} ms, the same pair mask-free "
+          f"{free_ms:.3f} ms (CUDA events); its plain check"
+          f" and the first masked K4's (Qp {we_path.Qp} x Tp {we_path.Tp}) "
+          f"started")
+    k3_work = _wave_work(we_main, 5 * we_main.batch * 4)
+
+    # b. the pooled locus heuristic at the flagship's shape: phase 4's
+    # scan with EXONERATE_TPU_HEURISTIC=locus and --bestn 10, so that no
+    # comparison is full after the first generation
+    lo_kis, lo_gens = [], []
+    real_fb = cw.find_batched
+
+    def capture_lo(*args, **kwargs):
+        lo_kis.append(real_tki(*args, **kwargs))
+        return lo_kis[-1]
+
+    def count_gen(model_, jobs_, mode="region", device=None, subopt=None):
+        lo_gens.append((len(jobs_), any(
+            x is not None and x.points for x in subopt or [])))
+        return real_fb(model_, jobs_, mode, device=device, subopt=subopt)
+
+    argv_lo = LOCUS_ARGV + [qf, tf]
+    lo_time = {}
+    observe.reset()
+    zero_counts()
+    os.environ["EXONERATE_TPU_HEURISTIC"] = "locus"
+    try:
+        cw.to_kernel_inputs = capture_lo
+        cw.find_batched = count_gen
+        with _timed(cw, WAVE_CLOCKS, lo_time):
+            out_lo, secs_lo = run_cli(argv_lo)
+    finally:
+        os.environ.pop("EXONERATE_TPU_HEURISTIC")
+        cw.to_kernel_inputs = real_tki
+        cw.find_batched = real_fb
+    lo_launches = read_counts("locus pool", ("K1", "K4", "walkback", "K3"))
+    lo_eng = dict(observe.engine_counts)
+    spliced_lo = {v[1] for v in (ln.split() for ln in out_lo.splitlines()
+                                 if ln.startswith("vulgar:"))
+                  if "I" in v[10::3]}
+    print(f"locus pool {SCAN_QUERIES} x {SCAN_LEN / 1e6:.0f} Mb est2genome "
+          f"(EXONERATE_TPU_HEURISTIC=locus, --bestn 10) [{card}]: "
+          f"{secs_lo:.2f} s host clock (phase 4's default SDP route "
+          f"{route_secs[scan_label][0]:.2f} s); {len(lo_gens)} generations "
+          f"(jobs, masked) {lo_gens}; engines {lo_eng}; launches "
+          f"{lo_launches}; {len(spliced_lo)}/{SCAN_QUERIES} queries spliced;"
+          f" K1/K4 launches (mode, B, Qp, Tp, masked) "
+          f"{[(k.mode, k.batch, k.Qp, k.Tp, k.masked) for k in lo_kis]}")
+    print(f"  where the locus pool's {secs_lo:.2f} s go (host clock): "
+          f"{_breakdown(lo_time, secs_lo)}; the largest K1 batches by the "
+          f"JAX package's K2 test (B, Qp, Tp, MB of 24): "
+          f"{sorted(_k2_mb(lo_kis), key=lambda x: -x[3])[:4]}")
+    if not any(m for _, m in lo_gens) or not lo_launches.get("K3"):
+        raise RuntimeError("locus pool: no masked generation ran on K3")
+    if len(spliced_lo) != SCAN_QUERIES:
+        raise RuntimeError(f"locus pool: {len(spliced_lo)}/{SCAN_QUERIES} "
+                           f"queries with a spliced alignment")
+    # the first masked region batch and its path batch, again on a
+    # sub-batch of their two widest pairs: equal to the full batch's
+    # results for those pairs, and to the plain versions (worker processes)
+    lo_reg = next(n for n, k in enumerate(lo_kis)
+                  if k.masked and k.mode == "region")
+    lo_path = next((n for n, k in enumerate(lo_kis)
+                    if n > lo_reg and k.masked and k.mode == "path"),
+                   next(n for n, k in enumerate(lo_kis)
+                        if n > lo_reg and k.mode == "path"))
+    lo_pool = _pool(2)
+    pools.append(lo_pool)
+    lo_checked = []
+    for n in (lo_reg, lo_path):
+        ki = lo_kis[n]
+        idx = _widest(ki)
+        whole = _wave_outputs(cw, ki)
+        sub = _sub_batch(ki, idx)
+        outs = _wave_outputs(cw, sub)
+        ix = torch.tensor(idx, device=dev)
+        same = torch.equal(outs["out"], whole["out"][:, ix])
+        if ki.mode == "path":
+            same = same and torch.equal(outs["res"], whole["res"][:, ix])
+            same = same and all(
+                torch.equal(outs["ops"][k, :int(outs["res"][0, k])],
+                            whole["ops"][b, :int(outs["res"][0, k])])
+                for k, b in enumerate(idx))
+        del whole
+        if not same:
+            raise RuntimeError(f"locus pool launch {n} ({ki.mode}): pairs "
+                               f"{idx} differ from the full batch's")
+        path = _save_wave(os.path.join(tmp_dir, f"locus_{n}.pt"), sub, outs)
+        del outs
+        pending.append((f"locus pool launch {n} ({ki.mode}, masked "
+                        f"{ki.masked}, Qp {ki.Qp} x Tp {ki.Tp}, pairs {idx} "
+                        f"of B={ki.batch})", idx,
+                        lo_pool.apply_async(_plain_wave_check, (path,))))
+        lo_checked.append((n, ki.mode, ki.batch, ki.Qp, ki.Tp, idx))
+    del lo_kis
+    print(f"  locus pool: launches {lo_checked} (launch, mode, B, Qp, Tp, "
+          f"pairs) equal the full batch's results; plain checks started")
+
+    # -- 7. K1 vs plain --------------------------------------------------
     for mode in ("score", "region"):
         ki = cw.to_kernel_inputs(model, [inputs] * BATCH, kinds, dev, mode)
         got, want, ms, plain_ms = _turns(lambda: wf.plain_wavefront(ki)[0],
@@ -916,23 +1223,16 @@ def main() -> int:
               f"2000 bp (split codons, K9) [{card}]: kernel == plain; "
               f"kernel {ms:.3f} ms, plain {p_ms:.3f} ms")
     # K1 on the p2g -E yes run's own inputs (its first widest region scan,
-    # B=1), timed: kernel K9's row
-    got, want, e_ms, e_plain_ms = _turns(
-        lambda: wf.plain_wavefront(e_main)[0],
-        lambda: cw.wavefront_scan(e_main))
-    err = _max_err(got, want)
-    if err or not torch.equal(got, want):
-        raise RuntimeError(f"K1 region protein2genome -E yes: kernel != "
-                           f"plain (max err {err})")
+    # B=1), timed: kernel K9's row (its plain check runs in a worker
+    # process since phase 5c)
+    e_ms = _cuda_ms(lambda: cw.wavefront_scan(e_main), 3)
     e_shape = (f"Qp {e_main.Qp} x Tp {e_main.Tp} x{e_main.batch}, "
                f"{len(prot)} x {len(locus)}")
     print(f"K1 region protein2genome -E yes run's scan ({e_shape}; split "
-          f"codons, K9) [{card}]: kernel == plain; kernel {e_ms:.3f} ms, "
-          f"plain {e_plain_ms:.3f} ms")
-    report["K9"] = (err, e_ms, e_plain_ms,
-                    _wave_work(e_main, 5 * e_main.batch * 4))
+          f"codons, K9) [{card}]: kernel {e_ms:.3f} ms")
+    k9_work = _wave_work(e_main, 5 * e_main.batch * 4)
 
-    # -- 7. K4 + walk-back vs plain and the native dense DP --------------
+    # -- 8. K4 + walk-back vs plain and the native dense DP --------------
     ki = cw.to_kernel_inputs(model, [inputs], kinds, dev, "path")
     (stats, tb), (p_stats, p_tb), path_ms, path_plain_ms = _turns(
         lambda: wf.plain_wavefront(ki), lambda: cw.wavefront_path(ki), 2)
@@ -977,7 +1277,7 @@ def main() -> int:
     report["walkback"] = (walk_err, walk_ms, walk_plain_ms,
                           (k * (1 + 16 + 4) + _nbytes(stats) + 12, 6 * k))
 
-    # -- 8. the port's CLI, end to end (the exhaustive main path) -------
+    # -- 9. the port's CLI, end to end (the exhaustive main path) -------
     golden = dict((n, argv) for n, _prog, argv in cases.CASES)[
         "exhaustive_est2genome"]
     engines.clear()
@@ -1010,7 +1310,7 @@ def main() -> int:
     if cw.engine_name(dev) not in engines:
         raise RuntimeError(f"the CLI did not use {cw.engine_name(dev)}")
 
-    # -- 9. K6/K7 vs plain on est2genome_genomic's comparison, timed ----
+    # -- 10. K6/K7 vs plain on est2genome_genomic's comparison, timed ---
     pair_g, plan_g = max(gjobs, key=lambda j: (j[0].region.query_length + 1)
                          * (j[1].W + 1))
     q_g, w_g = pair_g.region.query_length, plan_g.W
@@ -1037,7 +1337,7 @@ def main() -> int:
           f"protein2genome {pk_rev:.3f} / {pk_fwd:.3f} ms (summed over "
           f"{len(p_shapes)} launches)")
 
-    # -- 10. the scans' plain checks (started in phases 4 and 5) ---------
+    # -- 11. the plain checks (started in phases 4 to 6) -----------------
     wait_t0 = time.perf_counter()
     for pname, idx, res in pending:
         left = DEADLINE_S - (time.perf_counter() - t_start)
@@ -1056,11 +1356,19 @@ def main() -> int:
           f"of the est2genome scan, comparisons {c_check} of the "
           f"coding2genome scan and {p_check} of the protein2genome scan "
           f"(bits, live; column best, live, xband) and on the protein2genome"
-          f" -E run's other K1/K4 launches (scores, ends, starts; cube, "
-          f"walk-back), {time.perf_counter() - check_t0:.1f} s after they "
-          f"started, {time.perf_counter() - wait_t0:.1f} s of it waited for")
+          f" -E run's other K1/K4 launches, the est2genome -E run's widest "
+          f"masked K1 and first masked K4 and the locus pool's sampled pairs"
+          f" (scores, ends, starts; cube, walk-back), "
+          f"{time.perf_counter() - check_t0:.1f} s after they started, "
+          f"{time.perf_counter() - wait_t0:.1f} s of it waited for")
     report["K6"] = (band_err, k_rev, p_rev, genomic_work[0])
     report["K7"] = (band_err, k_fwd, p_fwd, genomic_work[1])
+    # K9's and K3's plain times: the plain version on one host core (worker
+    # processes)
+    _, k9_err, k9_plain_s, _ = e_pending.get()
+    report["K9"] = (k9_err, e_ms, k9_plain_s * 1e3, k9_work)
+    _, k3_err, k3_plain_s, _ = we_pending["K1"].get()
+    report["K3"] = (k3_err, k3_ms, k3_plain_s * 1e3, k3_work)
 
     src = "exonerate_tpu_torch/csrc/"
     pw = "exonerate_tpu/engine/pallas_wavefront.py"
@@ -1077,8 +1385,13 @@ def main() -> int:
         (f"K7 band_forward ({name_g}, Q {q_g} x W {w_g})", "K7", "K7",
          src + "sdp_band.cu", sp + ":996"),
         (f"K9 split codon: C_SPLIT inside K1 (region, the protein2genome "
-         f"-E yes run's scan, {e_shape})", "K9", "K9",
+         f"-E yes run's scan, {e_shape}; plain ms on one host core)", "K9",
+         "K9",
          src + "wavefront.cu", "exonerate_tpu/model/phase.py:305"),
+        (f"K3 SubOpt mask: the MASKED instantiation of K1 (region, the "
+         f"est2genome -E yes run's widest masked scan, {k3_shape}; plain ms "
+         f"on one host core)", "K3", "K3", src + "wavefront.cu",
+         pw + ":1129"),
     ]
     rows = []
     for kname, lkey, rkey, source, replaces in kernels:

@@ -3,10 +3,13 @@
 Counterpart of ``exonerate_tpu/cli/exonerate.py``: the same flags
 (defaults table: SURVEY.md §8.4) and the same output, with the port's
 Analysis, GAM and optimal, which run the exhaustive DP on the CUDA
-wavefront kernels and the default heuristic's SDP band scan on the band
-kernels.  Run it as ``python -m exonerate_tpu_torch.cli.exonerate
-<query> <target> [flags]``; ``EXONERATE_TPU_TORCH_DEVICE`` picks the
-device (``cuda`` by default, ``cpu`` for the plain PyTorch engines).
+wavefront kernels (its ``-E yes`` Waterman-Eggert re-runs with the
+SubOpt mask, kernel K3), the default heuristic's SDP band scan on the
+band kernels and, under ``EXONERATE_TPU_HEURISTIC=locus``, the pooled
+locus heuristic on the wavefront kernels.  Run it as ``python -m
+exonerate_tpu_torch.cli.exonerate <query> <target> [flags]``;
+``EXONERATE_TPU_TORCH_DEVICE`` picks the device (``cuda`` by default,
+``cpu`` for the plain PyTorch engines).
 ``--multihost`` is not ported and is refused.
 """
 from __future__ import annotations

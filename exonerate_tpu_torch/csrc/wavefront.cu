@@ -34,6 +34,16 @@
 // NEG the output starts from, so the kernel skips it: the same result
 // as the masked evaluation of the Pallas body.
 //
+// Kernel K3, the SubOpt mask of Waterman-Eggert re-runs (the `_blocked`
+// input of build_pallas_wavefront: _skew_blocked :1129, applied at
+// :909-910 and :991-992), is the MASKED instantiation: each cell reads
+// its bit of the packed (B, Qp+1, ceil((Tp+1)/8)) plane once, addressed
+// by the destination cell in np.packbits order, and a plan row flagged
+// F_MATCH is skipped at a blocked cell like a dead source.  The TPU's
+// skewed (D, B, QV) int32 plane is a lane layout and is not copied; the
+// reads here are strided by the plane's row across the threads of a
+// diagonal (one sector per thread per cell).
+//
 // What bounds it on the H100.  Not arithmetic: the carry ring.  A
 // (K+1)-diagonal ring of every state read across diagonals, plus the
 // live shadow/region lanes, is about 0.5 MB per 2175^2 pair, far over
@@ -96,6 +106,7 @@ constexpr int F_P_UNDER = 4;
 constexpr int F_P_OVER = 8;
 constexpr int F_SH_Q = 16;
 constexpr int F_SH_T = 32;
+constexpr int F_MATCH = 64;
 
 // P_CALC kinds
 constexpr int C_NONE = 0;
@@ -128,6 +139,7 @@ struct Params {
     int32_t* ring;              // (B, R, NR, Qp+1)
     int32_t* lring;             // (B, R, NL, Qp+1)
     uint8_t* tb;                // (B, Qp+Tp+1, S, Qp+1), path mode
+    const uint8_t* blocked;     // (B, Qp+1, ceil((Tp+1)/8)), MASKED
     int32_t* out;               // (5, B)
     int nq, nt, ntab, nsc;
     int n_plan, B, Qp, Tp, S, L, NR, NL, R, n_shadow;
@@ -215,8 +227,10 @@ __device__ __forceinline__ int32_t split_codon(
 // lane read from a tvec) and up to MAX_L lanes per state.  The lean
 // instantiation (!FULL) serves the other plans, up to LEAN_L lanes, with
 // the split-codon body and the vector start decode compiled out, so that
-// the models served before K9 keep the code they had.
-template <int MODE, bool FULL>
+// the models served before K9 keep the code they had.  MASKED: the batch
+// carries a SubOpt mask plane (K3); the mask-free launches keep the code
+// they had.
+template <int MODE, bool FULL, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 wavefront_kernel(const Params p) {
     extern __shared__ __align__(16) int32_t smem[];
@@ -249,6 +263,9 @@ wavefront_kernel(const Params p) {
     int32_t* ring = p.ring + (size_t)b * R * NR * W;
     int32_t* lring = p.lring + (size_t)b * R * NL * W;
     const int rs_q = p.n_shadow, rs_t = p.n_shadow + 1;
+    const int TB = (p.Tp + 8) >> 3;   // bytes per mask row
+    const uint8_t* blk_rows = MASKED ? p.blocked + (size_t)b * W * TB
+                                     : nullptr;
 
     int32_t best_s = NEG, best_j = INT32_MAX, best_i = INT32_MAX;
     int32_t best_qs = 0, best_ts = 0;
@@ -260,6 +277,9 @@ wavefront_kernel(const Params p) {
         const int slot = d % R;
         for (int i = lo + tid; i <= hi; i += THREADS) {
             const int j = d - i;
+            const bool blk = MASKED
+                && ((blk_rows[(size_t)i * TB + (j >> 3)] >> (7 - (j & 7)))
+                    & 1);
             for (int s = 0; s < S; ++s) {
                 CV(s) = NEG;
                 for (int l = 0; l < L; ++l) CV(V_LN + s * L + l) = 0;
@@ -271,6 +291,7 @@ wavefront_kernel(const Params p) {
                 const int si = i - aq, sj = j - at;
                 if (si < 0 || sj < 0) continue;
                 const int flags = row[P_FLAGS];
+                if (MASKED && blk && (flags & F_MATCH)) continue;
                 const int in = row[P_IN], out = row[P_OUT];
                 const int adv = aq + at;
                 // source: START (0), this diagonal (silent), or the ring
@@ -419,7 +440,7 @@ wavefront_kernel(const Params p) {
     }
 }
 
-template <int MODE, bool FULL>
+template <int MODE, bool FULL, bool MASKED>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
     const int lanes = p.L > 0 ? p.L : 1;
     int cell_vars = p.S + p.S * p.L + (MODE == MODE_PATH ? p.S : 0);
@@ -428,17 +449,21 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
         * ((size_t)p.n_plan * PLAN_COLS + p.S + (size_t)p.S * lanes
            + (size_t)cell_vars * THREADS);
     cudaError_t err = cudaFuncSetAttribute(
-        wavefront_kernel<MODE, FULL>,
+        wavefront_kernel<MODE, FULL, MASKED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    wavefront_kernel<MODE, FULL><<<p.B, THREADS, smem, stream>>>(p);
+    wavefront_kernel<MODE, FULL, MASKED><<<p.B, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
 template <int MODE>
-cudaError_t launch(const Params& p, bool full, cudaStream_t stream) {
-    return full ? launch<MODE, true>(p, stream)
-                : launch<MODE, false>(p, stream);
+cudaError_t launch(const Params& p, bool full, bool masked,
+                   cudaStream_t stream) {
+    if (masked)
+        return full ? launch<MODE, true, true>(p, stream)
+                    : launch<MODE, false, true>(p, stream);
+    return full ? launch<MODE, true, false>(p, stream)
+                : launch<MODE, false, false>(p, stream);
 }
 
 }  // namespace
@@ -450,20 +475,24 @@ extern "C" int wavefront_launch(
     const int32_t* scalars, int nsc, int32_t* ring, int32_t* lring,
     uint8_t* tb, int32_t* out, int n_plan, int B, int Qp, int Tp, int S,
     int L, int NR, int NL, int R, int n_shadow, int start_id, int end_id,
-    int start_scope, int end_scope, int split, void* stream) {
+    int start_scope, int end_scope, int split, const uint8_t* blocked,
+    void* stream) {
     if (B <= 0) return 0;
     if (L > MAX_L) return (int)cudaErrorInvalidValue;
     Params p{plan, ring_row, lane_row, dims, qvecs, tvecs, tables, scalars,
-             ring, lring, tb, out, nq, nt, ntab, nsc, n_plan, B, Qp, Tp, S,
-             L, NR, NL, R, n_shadow, start_id, end_id, start_scope,
+             ring, lring, tb, blocked, out, nq, nt, ntab, nsc, n_plan, B, Qp,
+             Tp, S, L, NR, NL, R, n_shadow, start_id, end_id, start_scope,
              end_scope};
     cudaStream_t s = (cudaStream_t)stream;
     const bool full = split || L > LEAN_L;
+    const bool masked = blocked != nullptr;
     cudaError_t err;
     switch (mode) {
-        case MODE_SCORE: err = launch<MODE_SCORE>(p, full, s); break;
-        case MODE_REGION: err = launch<MODE_REGION>(p, full, s); break;
-        case MODE_PATH: err = launch<MODE_PATH>(p, full, s); break;
+        case MODE_SCORE: err = launch<MODE_SCORE>(p, full, masked, s); break;
+        case MODE_REGION:
+            err = launch<MODE_REGION>(p, full, masked, s);
+            break;
+        case MODE_PATH: err = launch<MODE_PATH>(p, full, masked, s); break;
         default: err = cudaErrorInvalidValue;
     }
     return (int)err;

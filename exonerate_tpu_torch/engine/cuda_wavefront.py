@@ -17,6 +17,16 @@ shadow start vectors as start lanes read from a target vector.
 ``K9.launches`` counts the K1/K4/K7 launches whose plan holds it (the
 reverse band pass K6 scores split codons as 0 and carries no lanes).
 
+Kernel K3, the SubOpt mask of Waterman-Eggert re-runs (``_blocked``,
+``pallas_wavefront.py:1129``), is not a launch of its own either: a
+batch whose pairs carry a mask ships it as packed bits by destination
+cell (``KernelInputs.blocked``) and runs the masked instantiation of
+K1/K4, which bars the plan's match rows (``F_MATCH``) at blocked cells.
+``find_batched`` and ``find_path_batched`` take ``subopt`` as one mask
+or a per-job list, like the JAX package's; masked and mask-free jobs
+fall into different buckets.  ``K3.launches`` counts the K1/K4 launches
+that carry a mask plane.
+
 The model is not compiled into the kernels: ``to_kernel_inputs``
 flattens ``_build_plan(model)`` into an int32 plan table and the
 per-pair arrays of ``prepare_inputs`` into four packed tensors, and the
@@ -41,10 +51,11 @@ from .. import _cudabuild
 from .. import device as default_device
 from . import wavefront as wf
 from .wavefront import (C_FACTORED, C_QVEC, C_SCALAR, C_SPLIT, C_TVEC,
-                        F_FROM_START, F_P_OVER, F_P_UNDER, F_SH_Q, F_SH_T,
-                        F_TO_END, MAX_START_LANES, NEG, P_AQ, P_AT, P_C0,
-                        P_C1, P_C2, P_C3, P_C4, P_C5, P_C6, P_CALC, P_FLAGS,
-                        P_IN, P_NSTART, P_OUT, P_SH_LANE_Q, P_SH_LANE_T,
+                        F_FROM_START, F_MATCH, F_P_OVER, F_P_UNDER, F_SH_Q,
+                        F_SH_T, F_TO_END, MAX_START_LANES, NEG, P_AQ, P_AT,
+                        P_C0, P_C1, P_C2, P_C3, P_C4, P_C5, P_C6, P_CALC,
+                        P_FLAGS, P_IN, P_NSTART, P_OUT, P_SH_LANE_Q,
+                        P_SH_LANE_T,
                         P_SH_MAX, P_SH_MIN, P_ST_DES0, P_ST_SRC0, PLAN_COLS,
                         ST_QUERY, ST_TARGET, ST_TVEC, KernelInputs)
 
@@ -66,6 +77,9 @@ class _LaunchCount:
 # K7 (cuda_sdp) whose plan holds a split-codon row
 K9 = _LaunchCount()
 
+# kernel K3 (the SubOpt mask): launches of K1/K4 with a mask plane
+K3 = _LaunchCount()
+
 # device-memory budgets of one launch: the global carry rings, and in
 # path mode the uint8 traceback cube (D x S x (Qp+1) bytes per pair)
 RING_BYTES = 2 << 30
@@ -77,7 +91,7 @@ WALK_SLACK = 256
 _SCOPES = {Scope.ANYWHERE: wf.SCOPE_ANYWHERE, Scope.EDGE: wf.SCOPE_EDGE,
            Scope.QUERY: wf.SCOPE_QUERY, Scope.TARGET: wf.SCOPE_TARGET,
            Scope.CORNER: wf.SCOPE_CORNER}
-_KERNEL_KINDS = ("factored", "qvec", "tvec", "scalar")
+_KERNEL_KINDS = ("factored", "qvec", "tvec", "scalar", "blocked")
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +297,7 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
             if f"kc{ci}:{nm}" in kind_map:
                 add(tcols, f"kc{ci}:{nm}", lambda p, k=f"kc{ci}:{nm}": p[k])
     for key, kind in kinds:
-        if key in slot:
+        if key in slot or kind == "blocked":
             continue
         if kind == "factored":
             add(qcols, (key, "q_idx_s"), lambda p: p[key]["q_idx_s"])
@@ -316,7 +330,8 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
         row[P_AQ], row[P_AT] = t.advance_query, t.advance_target
         row[P_IN], row[P_OUT] = t.input.id, t.output.id
         flags = ((F_FROM_START if t.input is start else 0)
-                 | (F_TO_END if t.output is end else 0))
+                 | (F_TO_END if t.output is end else 0)
+                 | (F_MATCH if p["is_match"] else 0))
         c = t.calc
         if c is not None:
             if c.protect & Protect.UNDERFLOW:
@@ -395,8 +410,13 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
     dims = np.asarray([[p["_qstart"], p["_tstart"], p["_qlen"], p["_tlen"]]
                        for p in per_pair], np.int32)
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    def put(a, dtype=np.int32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    # the SubOpt mask bits, (Qp+1, ceil((Tp+1)/8)) per pair after
+    # _pad_inputs; a bucket is masked in all its pairs or in none
+    blocked = (np.stack([p["_blocked"] for p in per_pair])
+               if "_blocked" in kind_map else np.zeros(0, np.uint8))
 
     return KernelInputs(
         plan=put(rows), ring_row=put(ring_row), lane_row=put(lane_row),
@@ -407,7 +427,8 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
                    else np.zeros((B, 1), np.int32)),
         scalars=put(np.stack(scols, axis=1) if scols
                     else np.zeros((B, 1), np.int32)),
-        walk=put(walk), Qp=Qp, Tp=Tp, S=S, L=L, n_shadow=n_shadow,
+        walk=put(walk), blocked=put(blocked, np.uint8), Qp=Qp, Tp=Tp, S=S,
+        L=L, n_shadow=n_shadow,
         K=_max_advance(model), NR=len(ring_states), NL=len(lane_slots),
         start_id=start.id, end_id=end.id,
         start_scope=_SCOPES[model.start_state.scope],
@@ -416,17 +437,20 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
                    or (rows[:, P_ST_SRC0::2] >= ST_TVEC).any()))
 
 
-def max_batch(model: Model, Qp: int, Tp: int, mode: str) -> int:
+def max_batch(model: Model, Qp: int, Tp: int, mode: str,
+              masked: bool = False) -> int:
     """Largest batch whose carry rings (and, in path mode, traceback
-    cubes) fit the device-memory budgets; 0 when one pair's cube does
-    not fit."""
+    cubes), each with a pair's SubOpt mask plane when ``masked``, fit the
+    device-memory budgets; 0 when one pair's cube does not fit."""
     ring_states, lane_slots, _ = _storage(model, mode)
     W = Qp + 1
+    plane = W * ((Tp + 8) // 8) if masked else 0
     ring = ((_max_advance(model) + 1)
             * (max(len(ring_states), 1) + max(len(lane_slots), 1)) * W * 4)
-    n = RING_BYTES // ring
+    n = RING_BYTES // (ring + plane)
     if mode == "path":
-        n = min(n, PATH_TB_BYTES // ((Qp + Tp + 1) * len(model.states) * W))
+        n = min(n, PATH_TB_BYTES // ((Qp + Tp + 1) * len(model.states) * W
+                                     + plane))
     return n
 
 
@@ -468,6 +492,14 @@ def _check_inputs(ki: KernelInputs) -> None:
                                        for w, g in zip(want, t.shape)):
             raise ValueError(f"KernelInputs.{name}: shape {tuple(t.shape)}"
                              f" does not match {want}")
+    if ki.masked and (ki.blocked.dtype != torch.uint8
+                      or ki.blocked.device != dev
+                      or not ki.blocked.is_contiguous()
+                      or tuple(ki.blocked.shape) != (B, W, (WT + 7) // 8)):
+        raise ValueError(f"KernelInputs.blocked: want contiguous uint8 "
+                         f"{(B, W, (WT + 7) // 8)} on {dev}, got "
+                         f"{ki.blocked.dtype} {tuple(ki.blocked.shape)} on "
+                         f"{ki.blocked.device}")
     if ki.S > MAX_S or ki.L > MAX_L or ki.plan.shape[0] > MAX_PLAN \
             or smem_bytes(ki.S, ki.L, ki.plan.shape[0],
                           ki.mode) > SMEM_BYTES:
@@ -485,7 +517,7 @@ def _launch(ki: KernelInputs):
     card.  Returns (out (5, B) int32, tb or None)."""
     fn = _lib("wavefront", "wavefront_launch",
               [_I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I,
-               _P, _P, _P, _P] + [_I] * 15 + [_P])
+               _P, _P, _P, _P] + [_I] * 15 + [_P, _P])
     dev = ki.dims.device
     B, W, D, R = ki.batch, ki.Qp + 1, ki.Qp + ki.Tp + 1, ki.K + 1
     out = torch.empty((5, B), dtype=torch.int32, device=dev)
@@ -509,7 +541,7 @@ def _launch(ki: KernelInputs):
                 ki.plan.shape[0], B, ki.Qp, ki.Tp, ki.S, ki.L,
                 max(ki.NR, 1), max(ki.NL, 1), R, ki.n_shadow, ki.start_id,
                 ki.end_id, ki.start_scope, ki.end_scope, int(ki.split),
-                stream)
+                ki.blocked.data_ptr() if ki.masked else None, stream)
     if rc != 0:
         raise RuntimeError(f"wavefront kernel ({ki.mode}) launch failed: "
                            f"CUDA error {rc}")
@@ -528,6 +560,7 @@ def wavefront_scan(ki: KernelInputs) -> torch.Tensor:
     out, _ = _launch(ki)
     wavefront_scan.launches += 1
     K9.launches += ki.split
+    K3.launches += ki.masked
     return out
 
 
@@ -546,6 +579,7 @@ def wavefront_path(ki: KernelInputs):
     out, tb = _launch(ki)
     wavefront_path.launches += 1
     K9.launches += ki.split
+    K3.launches += ki.masked
     return out, tb
 
 
@@ -599,25 +633,35 @@ def engine_name(dev: torch.device) -> str:
     return "cuda-wavefront" if dev.type == "cuda" else "torch-wavefront"
 
 
-def _buckets(model: Model, jobs: list) -> dict:
+def _buckets(model: Model, jobs: list, subopt=None) -> dict:
+    """Jobs by (Qp, Tp, kinds); ``subopt`` is one SubOpt for every job or
+    a per-job list.  A job whose mask blocks no cell of its region has no
+    ``_blocked`` kind, so it shares the mask-free buckets."""
     out: dict = {}
     for n, (region, data) in enumerate(jobs):
+        sub = subopt[n] if isinstance(subopt, (list, tuple)) else subopt
         Qp = wf._bucket(region.query_length)
         Tp = wf._bucket(region.target_length)
-        inputs, kinds = wf.prepare_inputs(model, region, data,
+        inputs, kinds = wf.prepare_inputs(model, region, data, subopt=sub,
                                           pad_to=(Qp, Tp), for_pallas=True)
         out.setdefault((Qp, Tp, kinds), []).append((n, inputs))
     return out
 
 
+def _masked(kinds: tuple) -> bool:
+    return ("_blocked", "blocked") in kinds
+
+
 def find_batched(model: Model, jobs: list, mode: str = "region",
-                 device: Optional[torch.device] = None) -> list:
-    """Score or region DP of (region, data) jobs on K1.  Returns one
-    DPResult per job (starts are 0 in score mode)."""
+                 device: Optional[torch.device] = None,
+                 subopt=None) -> list:
+    """Score or region DP of (region, data) jobs on K1, under ``subopt``
+    (one SubOpt mask or a per-job list) when given.  Returns one DPResult
+    per job (starts are 0 in score mode)."""
     dev = device if device is not None else default_device()
     out: list = [None] * len(jobs)
-    for (Qp, Tp, kinds), items in _buckets(model, jobs).items():
-        cap = max(1, max_batch(model, Qp, Tp, mode))
+    for (Qp, Tp, kinds), items in _buckets(model, jobs, subopt).items():
+        cap = max(1, max_batch(model, Qp, Tp, mode, _masked(kinds)))
         for lo in range(0, len(items), cap):
             chunk = items[lo:lo + cap]
             ki = to_kernel_inputs(model, [inp for _, inp in chunk], kinds,
@@ -632,17 +676,18 @@ def find_batched(model: Model, jobs: list, mode: str = "region",
     return out
 
 
-def find_path_batched(model: Model, jobs: list,
+def find_path_batched(model: Model, jobs: list, subopt=None,
                       device: Optional[torch.device] = None) -> list:
-    """Full-path DP on K4 plus the walk-back.  Returns DPResults with
-    ``.path``; an entry is None when the job's traceback cube is over the
-    budget or its path is longer than the walk cap (the caller then runs
-    it on the host)."""
+    """Full-path DP on K4 plus the walk-back, under ``subopt`` (one SubOpt
+    mask or a per-job list) when given.  Returns DPResults with ``.path``;
+    an entry is None when the job's traceback cube is over the budget or
+    its path is longer than the walk cap (the caller then runs it on the
+    host)."""
     dev = device if device is not None else default_device()
     out: list = [None] * len(jobs)
     plan_ts = _plan_transitions(model)
-    for (Qp, Tp, kinds), items in _buckets(model, jobs).items():
-        cap_b = max_batch(model, Qp, Tp, "path")
+    for (Qp, Tp, kinds), items in _buckets(model, jobs, subopt).items():
+        cap_b = max_batch(model, Qp, Tp, "path", _masked(kinds))
         if cap_b < 1:
             observe.count_fallback(
                 f"{engine_name(dev)}->host: traceback cube over "

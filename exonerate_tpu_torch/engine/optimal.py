@@ -3,13 +3,20 @@
 Counterpart of ``exonerate_tpu/engine/optimal.py`` (ref:
 src/c4/optimal.{h,c}): reduced-space FIND_REGION over the full rectangle,
 then a traceback DP restricted to the discovered alignment's box.  The
-thresholds are the JAX package's.  Routing is by cell count alone, on
-whatever device the caller passes: a mask-free DP over
-``NATIVE_TPU_CELLS`` cells whose model the kernels serve runs the region
-scan on K1 and the path on K4 + walk-back (``cuda_wavefront``), so the
-CPU tests walk the same route as the card; everything else runs on the
-shared host engines (the dense C++ Viterbi, or the NumPy oracle for
-small regions).  SubOpt-masked jobs stay on the host until K3 is ported.
+thresholds and the control flow are the JAX package's with its Pallas
+prescan always on: the port's kernels are the prescan on any device, so
+the CPU tests walk the same route as the card.  Routing is by cell count
+and mask alone, on whatever device the caller passes:
+
+- the native dense C++ Viterbi first for a DP of at most
+  ``NATIVE_TPU_CELLS`` cells, or of at most ``NATIVE_DIRECT_CELLS``
+  under a SubOpt mask (a Waterman-Eggert re-run), when its traceback
+  plane fits ``_native_tb_budget()``;
+- then, for a model the kernels serve, the region scan on K1 and the
+  path on K4 + walk-back (``cuda_wavefront``), each with the SubOpt mask
+  plane (kernel K3) when the job is masked;
+- then the native DP within its budget; past it, only
+  ``find_path_checkpointed`` could run the DP, and it is not ported.
 """
 from __future__ import annotations
 
@@ -71,6 +78,14 @@ def _cells(region: Region) -> int:
     return (region.query_length + 1) * (region.target_length + 1)
 
 
+def _prefer_native(region: Region, masked: bool = False) -> bool:
+    """(``exonerate_tpu/engine/optimal.py:73-87`` with the prescan on)."""
+    cells = _cells(region)
+    if cells <= NATIVE_TPU_CELLS:
+        return True
+    return masked and cells <= NATIVE_DIRECT_CELLS
+
+
 def _kernels_run(model: Model) -> bool:
     reason = cuda_wavefront.unsupported_reason(model)
     if reason is not None:
@@ -86,23 +101,22 @@ def find_path(model: Model, region: Region, data, subopt=None,
     masked = subopt is not None and bool(subopt.points)
     cells = _cells(region)
     tb_bytes = cells * len(model.states) * 2
-    kernels = cells > NATIVE_TPU_CELLS and not masked \
-        and _kernels_run(model)
-    if cells <= NATIVE_TPU_CELLS \
-            or (not kernels and cells <= NATIVE_DIRECT_CELLS):
-        if tb_bytes <= _native_tb_budget():
-            res = _native_res(model, region, data, "path", subopt)
-            if res is not None:
-                return _thresholded(model, region, res, threshold)
+    if _prefer_native(region, masked) and tb_bytes <= _native_tb_budget():
+        res = _native_res(model, region, data, "path", subopt)
+        if res is not None:
+            return _thresholded(model, region, res, threshold)
     if _is_small(region):
         observe.count_engine("oracle")
         res = reference.viterbi(model, region, data, "path", subopt)
         return _to_alignment(model, region, res)
-    if kernels:
+    if cells > NATIVE_TPU_CELLS and _kernels_run(model):
         # reduced-space FIND_REGION on K1, then the traceback DP only on
-        # the discovered alignment's bounding box
+        # the discovered alignment's bounding box.  The SubOpt mask rides
+        # along as a plane (K3): without it the scan would keep finding
+        # the masked best alignment's box and miss the next best
         scan = cuda_wavefront.find_batched(model, [(region, data)],
-                                           "region", device=device)[0]
+                                           "region", device=device,
+                                           subopt=subopt)[0]
         if threshold is not None and scan.score < threshold:
             return None
         sub = Region(region.query_start + scan.query_start,
@@ -116,7 +130,7 @@ def find_path(model: Model, region: Region, data, subopt=None,
         # traceback DP on K4 with the walk-back on the card; None when
         # the cube is over budget or the path over the walk cap
         res = cuda_wavefront.find_path_batched(
-            model, [(region, data)], device=device)[0]
+            model, [(region, data)], subopt=subopt, device=device)[0]
         if res is not None:
             return _thresholded(model, region, res, threshold)
     if tb_bytes <= _native_tb_budget():

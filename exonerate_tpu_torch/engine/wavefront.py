@@ -14,7 +14,10 @@ Counterpart of ``exonerate_tpu/engine/wavefront.py``.  Two parts:
   (``pallas_wavefront.py:832-1040``): per-transition source masks,
   silent transitions in plan order, start/end scope masks, shadow lanes,
   strict ``>`` replacement (first max wins) and one lexicographic
-  (score desc, j asc, i asc) reduce of per-lane best planes.  On CPU
+  (score desc, j asc, i asc) reduce of per-lane best planes.  With a
+  SubOpt mask (kernel K3) a match transition into a blocked cell is
+  dropped, as in the Pallas body (``pallas_wavefront.py:909-910``,
+  ``:991-992``) and the XLA engine (``wavefront.py:311-312``).  On CPU
   tensors it is the port's engine; on the card it is what the kernels
   are held against.
 """
@@ -220,6 +223,7 @@ F_P_UNDER = 4         # Protect.UNDERFLOW: clamp to NEG
 F_P_OVER = 8          # Protect.OVERFLOW: clamp to IMPOSSIBLY_HIGH_SCORE
 F_SH_Q = 16           # intron window on the query lane P_SH_LANE_Q
 F_SH_T = 32           # intron window on the target lane P_SH_LANE_T
+F_MATCH = 64          # a match transition: barred at SubOpt-blocked cells
 
 # P_CALC kinds and their operands
 C_NONE = 0            # calc 0
@@ -252,6 +256,9 @@ class KernelInputs:
     tables: torch.Tensor     # (B, NTAB) int32, flattened factored tables
     scalars: torch.Tensor    # (B, NSC) int32
     walk: torch.Tensor       # (4, P+1) int32: AQ, AT, IN, FROM_START per id
+    blocked: torch.Tensor    # (B, Qp+1, ceil((Tp+1)/8)) uint8: the SubOpt
+    #                          mask's bits (np.packbits order) by destination
+    #                          cell; empty when no pair of the batch is masked
     Qp: int
     Tp: int
     S: int                   # states
@@ -271,6 +278,11 @@ class KernelInputs:
     @property
     def batch(self) -> int:
         return int(self.dims.shape[0])
+
+    @property
+    def masked(self) -> bool:
+        """The batch carries a SubOpt mask plane (kernel K3)."""
+        return self.blocked.numel() > 0
 
 
 def _scope_start(scope: int, si, sj):
@@ -346,6 +358,13 @@ def plain_wavefront(ki: KernelInputs):
           if want_path else None)
     blank = ([neg] * S, [[zero] * L for _ in range(S)])
     prev = [blank] * K                # prev[k]: diagonal d-1-k
+    grid = None
+    if ki.masked:
+        # unpack the mask bits to a (B, W, Tp+1) bool grid
+        shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
+        grid = ((ki.blocked[..., None] >> shifts) & 1).reshape(
+            B, W, -1)[:, :, :ki.Tp + 1].bool()
+        i_long = i.long()
 
     def shift(x, aq, fill):
         return F.pad(x[:, :W - aq], (aq, 0), value=fill) if aq else x
@@ -359,6 +378,11 @@ def plain_wavefront(ki: KernelInputs):
         scores: list = [None] * S
         lanes: list = [[None] * L for _ in range(S)]
         tbv: list = [None] * S
+        if grid is not None:
+            # the blocked destination cells (i, d - i) of this diagonal
+            jd = d - i_long
+            blk = grid[:, i_long, jd.clamp(0, ki.Tp)] & (jd >= 0) \
+                & (jd <= ki.Tp)
         for pid, row in enumerate(plan):
             aq, at = row[P_AQ], row[P_AT]
             inp, out, flags = row[P_IN], row[P_OUT], row[P_FLAGS]
@@ -444,6 +468,8 @@ def plain_wavefront(ki: KernelInputs):
                 val = torch.clamp(val, max=IMPOSSIBLY_HIGH_SCORE)
             val = torch.clamp(val, min=NEG)
             keep = ok if flags & F_FROM_START else ok & (base > NEG)
+            if grid is not None and flags & F_MATCH:
+                keep = keep & ~blk
             val = torch.where(keep, val, NEG)
             cur = scores[out] if scores[out] is not None else neg
             take = val > cur             # strict: first max wins

@@ -8,9 +8,11 @@ passes, ref: fastapipe.c:41-51) and normalizes comparisons before handing
 them to the GAM (ref: analysis.c:102-138).
 
 The Analysis takes the port's device and hands it to the port's GAM.
-The routes of the JAX package that are not ported yet are refused with
-a clear error: ``--cores N`` with N > 1 (one device per worker thread),
-the pooled locus heuristic ``EXONERATE_TPU_HEURISTIC=locus`` and the SDP
+Under ``EXONERATE_TPU_HEURISTIC=locus`` it defers every gapped
+comparison to the GAM's pooled locus heuristic and flushes them at the
+end of the scan, on the card and on the CPU alike.  The routes of the
+JAX package that are not ported yet are refused with a clear error:
+``--cores N`` with N > 1 (one device per worker thread) and the SDP
 row-scan and cross-chip tiers (``sdp_hybrid.unported_tier``).
 """
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..model.match import Match, MatchType, match_type_find
 from ..seeds.hsp import HspArgs, HspParam
 from ..seeds.seeder import Seeder, SeederArgs
 from ..seeds.wordhood import WordHood
-from .gam import GAM, LOCUS_REFUSAL, GamArgs
+from .gam import GAM, GamArgs
 
 
 @dataclass
@@ -71,8 +73,6 @@ class Analysis:
         if aas is not None and aas.cores > 1:
             raise SystemExit("exonerate: --cores > 1 is not ported to "
                              "exonerate_tpu_torch yet")
-        if os.environ.get("EXONERATE_TPU_HEURISTIC") == "locus":
-            raise SystemExit(LOCUS_REFUSAL)
         tier = sdp_hybrid.unported_tier()
         if tier is not None:
             raise SystemExit(tier)
@@ -128,6 +128,7 @@ class Analysis:
                        device=self.device)
         self.gam.geneseed_threshold = self.hsp_args.geneseed_threshold
         self._sdp_pending: list = []
+        self._locus_pending: list = []
 
     # -- data -------------------------------------------------------------
 
@@ -206,6 +207,7 @@ class Analysis:
             self._process_bigseq()
         else:
             self._process_seeded()
+        self._flush_locus_pool()
         self._flush_sdp_pool()
         self.gam.report()
 
@@ -421,6 +423,14 @@ class Analysis:
             self._comparison_revcomp(comparison)
         gapped = registry.is_gapped(self.gas.model_type)
         if gapped and self.gas.use_gapped_extension \
+                and os.environ.get("EXONERATE_TPU_HEURISTIC") == "locus":
+            # pooled locus mode: defer so every comparison's loci share
+            # each generation's kernel batches; flushed by
+            # _flush_locus_pool at the end of the scan (same comparison
+            # completion order -> same output bytes)
+            self._locus_pending.append(comparison)
+            return
+        if gapped and self.gas.use_gapped_extension \
                 and not self.aas.use_bigseq \
                 and self.gam.sdp_device_active():
             # device SDP mode: defer so every comparison's passes share
@@ -433,6 +443,13 @@ class Analysis:
         fn = (self.gam.result_heuristic if gapped
               else self.gam.result_ungapped)
         self.gam.submit(fn(comparison))
+
+    def _flush_locus_pool(self):
+        if not self._locus_pending:
+            return
+        pending, self._locus_pending = self._locus_pending, []
+        for results in self.gam.result_heuristic_pooled(pending):
+            self.gam.submit(results)
 
     def _flush_sdp_pool(self):
         if not self._sdp_pending:

@@ -16,8 +16,13 @@ heuristic's device tier (``sdp_device_active``, ``run_sdp_pool``,
 ``_make_sdp_pair``) runs the port's SDP hybrid on it: the band kernels
 K6/K7 on a card, their plain PyTorch versions on the CPU when
 ``EXONERATE_TPU_SDP=device`` forces the tier there.  The pooled locus
-heuristic of the JAX package (``EXONERATE_TPU_HEURISTIC=locus``, which
-needs the data-parallel wavefront K5) is refused with a clear error.
+heuristic (``EXONERATE_TPU_HEURISTIC=locus``, ``result_heuristic_pooled``)
+runs its generation-batched Waterman-Eggert on the wavefront kernels on
+the GAM's device: each generation one SubOpt-masked region batch (K1
+with K3) and one masked path batch (K4 with K3), on the plain versions
+on the CPU.  It runs on one device, as the JAX package's does when its
+``_scan_mesh`` is None: the data-parallel first scan over several
+devices (``find_batched_sharded``, K5) is not ported.
 """
 from __future__ import annotations
 
@@ -42,9 +47,6 @@ from ..model.registry import ModelType, has_genomic_target
 from ..model.data import AlignData
 from ..seeds.hsp import Comparison, HSP, HspSet
 from ..seqio import Sequence
-
-LOCUS_REFUSAL = ("exonerate: EXONERATE_TPU_HEURISTIC=locus is not ported "
-                 "to exonerate_tpu_torch yet")
 
 
 class Refinement(enum.Enum):
@@ -244,8 +246,6 @@ class GAM:
         gam.c:1107-1180): seeded DP with reference-exact semantics
         (ref: GAM_Result_SDP_create, gam.c:852-888)."""
         from ..engine import sdp_hybrid
-        if os.environ.get("EXONERATE_TPU_HEURISTIC") == "locus":
-            raise SystemExit(LOCUS_REFUSAL)
         if not comparison.has_hsps:
             return []
         if self.geneseed_threshold:
@@ -261,6 +261,8 @@ class GAM:
         data = self.make_data(query, target)
         if not self.gas.use_gapped_extension:
             return self._result_bsdp(comparison, data)
+        if os.environ.get("EXONERATE_TPU_HEURISTIC") == "locus":
+            return self._result_heuristic_locus(comparison, data)
         sdp_pair = self._make_sdp_pair(comparison, data)
         try:
             return self._run_sdp_loop(sdp_pair, query, data)
@@ -553,6 +555,143 @@ class GAM:
             if not self.gas.use_subopt:
                 break
         return out
+
+    def _result_heuristic_locus(self, comparison: Comparison,
+                                data: AlignData
+                                ) -> list[tuple[Alignment, AlignData]]:
+        """Batched locus-region fallback (dense kernel Waterman-Eggert;
+        not byte-parity with the reference SDP).  The port's kernels are
+        the prescan on any device, so every comparison takes the JAX
+        package's pooled route (``_locus_pool_run``)."""
+        grp = self._locus_regions(comparison, data)
+        if grp is None:
+            return []
+        return self._locus_pool_run([grp])[0]
+
+    def _locus_regions(self, comparison: Comparison,
+                       data: AlignData) -> Optional[dict]:
+        """Clustered + geneseed-filtered cluster regions of one
+        comparison, with a fresh SubOpt and the data bundle; None without
+        regions."""
+        from .heuristic import cluster_hsps, cluster_regions
+        genomic = has_genomic_target(self.gas.model_type)
+        t_join = (data.intron.max_intron if genomic
+                  else max(data.ner.max_ner, 10000))
+        clusters = cluster_hsps(comparison, t_join, 10000)
+        # geneseed gating (ref: GAM geneseed reachability filter,
+        # gam.c:1044-1105): only loci anchored by a strong seed survive
+        if self.geneseed_threshold:
+            clusters = [c for c in clusters
+                        if c.score >= self.geneseed_threshold]
+        regions = cluster_regions(comparison, clusters,
+                                  target_margin=1000, query_margin=1000)
+        if not regions:
+            return None
+        return dict(data=data, query=comparison.query, regions=regions,
+                    subopt=SubOpt() if self.gas.use_subopt else None)
+
+    def _locus_group(self, comparison: Comparison) -> Optional[dict]:
+        """Locus jobs for one comparison (the prologue of the locus
+        heuristic)."""
+        if not comparison.has_hsps:
+            return None
+        data = self.make_data(comparison.query, comparison.target)
+        return self._locus_regions(comparison, data)
+
+    def result_heuristic_pooled(self, comparisons: list
+                                ) -> list[list]:
+        """Locus heuristic over MANY comparisons at once: all loci of
+        all pending comparisons share each generation's kernel batches
+        (the analysis layer defers locus-mode comparisons and flushes
+        them through here so batch sizes reflect the whole scan, not
+        one query)."""
+        outs_all: list[list] = [[] for _ in comparisons]
+        groups, idx = [], []
+        for ci, comparison in enumerate(comparisons):
+            grp = self._locus_group(comparison)
+            if grp is not None:
+                groups.append(grp)
+                idx.append(ci)
+        if groups:
+            for ci, o in zip(idx, self._locus_pool_run(groups)):
+                outs_all[ci] = o
+        return outs_all
+
+    def _locus_pool_run(self, groups: list) -> list[list]:
+        """Generation-based batched Waterman-Eggert over every locus of
+        every group: each generation runs ONE masked region-scan batch
+        (K1) and ONE masked path-DP batch (K4) on the GAM's device.
+        Masks are per-pair DATA (packed bit planes, kernel K3), so one
+        kernel instantiation serves all loci, comparisons and
+        generations.  Each comparison keeps its own SubOpt; a comparison
+        stops (reference stop rule, ref: GAM_Result_is_full,
+        gam.c:779-793) when bestn is reached and the score strictly
+        dropped."""
+        from ..engine import cuda_wavefront, optimal
+        outs: list[list] = [[] for _ in groups]
+
+        def full(g: int) -> bool:
+            o = outs[g]
+            return bool(self.gas.best_n and len(o) >= self.gas.best_n
+                        and len(o) > 1
+                        and o[-2][0].score != o[-1][0].score)
+
+        def thr(g: int) -> int:
+            t = self.query_threshold(groups[g]["query"],
+                                     groups[g]["data"])
+            return max(t, 1) if self.model.is_local else t
+
+        live = [(g, r) for g, grp in enumerate(groups)
+                for r in grp["regions"]]
+        gen = 0
+        while live and gen < 256:       # runaway guard
+            jobs = [(r, groups[g]["data"]) for g, r in live]
+            subs = [groups[g]["subopt"] for g, _r in live]
+            scans = cuda_wavefront.find_batched(
+                self.model, jobs, "region", device=self.device,
+                subopt=subs)
+            kept, boxes = [], []
+            for (g, r), scan in zip(live, scans):
+                if full(g) or scan.score < thr(g):
+                    continue
+                kept.append((g, r))
+                boxes.append(Region(r.query_start + scan.query_start,
+                                    r.target_start + scan.target_start,
+                                    scan.query_end - scan.query_start,
+                                    scan.target_end - scan.target_start))
+            if not kept:
+                break
+            paths = cuda_wavefront.find_path_batched(
+                self.model,
+                [(b, groups[g]["data"]) for (g, _r), b in zip(kept,
+                                                              boxes)],
+                subopt=[groups[g]["subopt"] for g, _r in kept],
+                device=self.device)
+            live = []
+            for (g, r), box, res in zip(kept, boxes, paths):
+                if full(g):
+                    continue
+                grp = groups[g]
+                if res is not None:
+                    alignment = optimal._to_alignment(self.model, box,
+                                                      res)
+                else:   # kernel couldn't serve the job: lone fallback
+                    alignment = optimal.find_path(self.model, r,
+                                                  grp["data"],
+                                                  subopt=grp["subopt"],
+                                                  device=self.device)
+                if alignment is None or alignment.score < thr(g):
+                    continue
+                outs[g].append((alignment, grp["data"]))
+                if grp["subopt"] is None or not self.model.is_local:
+                    continue
+                grp["subopt"].add_alignment(alignment)
+                if not full(g):
+                    live.append((g, r))
+            gen += 1
+        for o in outs:
+            o.sort(key=lambda ad: -ad[0].score)
+        return outs
 
     def result_exhaustive(self, query: Sequence, target: Sequence
                           ) -> list[tuple[Alignment, AlignData]]:

@@ -155,7 +155,8 @@ def test_p2g_exhaustive_split_pair_matches_jax_cli(cpu_device, monkeypatch,
     buf = io.StringIO()
     assert main(list(argv), out=buf) == 0
     # the region scan and the path DP; the SubOpt-masked re-run that
-    # looks for a next alignment stays on the host (kernel K3)
+    # looks for a next alignment is under NATIVE_DIRECT_CELLS and runs
+    # on the native dense DP, as in the JAX package
     assert observe.engine_counts["torch-wavefront"] >= 2
     assert not observe.fallback_counts
     want = io.StringIO()

@@ -24,6 +24,7 @@ from exonerate_tpu_torch.model.est2genome import est2genome_create
 from exonerate_tpu_torch.model.registry import (ModelType, get_model,
                                                 translate_both)
 from exonerate_tpu_torch.seqio import Annotation, Sequence, iter_fasta
+from exonerate_tpu_torch.engine.subopt import SubOpt
 import torch_split_cases as sc
 from exonerate_tpu_torch.engine import cuda_wavefront as cw
 from exonerate_tpu_torch.engine import wavefront as twf
@@ -171,7 +172,7 @@ def test_cuda_source_declares_the_python_constants():
 
 def test_launch_counters_stay_zero_on_cpu():
     before = (cw.wavefront_scan.launches, cw.wavefront_path.launches,
-              cw.walkback.launches)
+              cw.walkback.launches, cw.K3.launches)
     model, ki = _e2g_inputs("region")
     cw.wavefront_scan(ki)
     _, ki = _e2g_inputs("path")
@@ -180,8 +181,13 @@ def test_launch_counters_stay_zero_on_cpu():
     calm = _calm()
     cw.find_path_batched(model, [(Region(5, 5, 60, 70),
                                   AlignData(calm, calm))], device=CPU)
+    sub = SubOpt()
+    sub.points.add((10, 12))
+    sub.by_row[12] = {10}
+    cw.find_batched(model, [(Region(0, 0, 60, 70), AlignData(calm, calm))],
+                    device=CPU, subopt=sub)
     assert (cw.wavefront_scan.launches, cw.wavefront_path.launches,
-            cw.walkback.launches) == before == (0, 0, 0)
+            cw.walkback.launches, cw.K3.launches) == before == (0, 0, 0, 0)
 
 
 def test_wrappers_check_their_inputs():
@@ -211,12 +217,16 @@ def test_unsupported_models_name_the_missing_kernel():
     g2g = get_model(ModelType.GENOME2GENOME, AlphabetType.DNA,
                     AlphabetType.DNA)
     assert "query-side or joint split codon" in cw.unsupported_reason(g2g)
+    # a 2-D calc grid is off the kernels; the SubOpt mask plane (K3) is
+    # not any more
+    assert cw.unsupported_reason(
+        est2genome_create(), (("_blocked", "blocked"),)) is None
     with pytest.raises(ValueError):
         calm = _calm()
         inputs, kinds = twf.prepare_inputs(
             est2genome_create(), Region(0, 0, 5, 5), AlignData(calm, calm))
         cw.to_kernel_inputs(est2genome_create(), inputs,
-                            kinds + (("_blocked", "blocked"),), CPU)
+                            kinds + (("g9", "grid2d"),), CPU)
 
 
 def test_lib_types_every_entry_point_of_a_library(monkeypatch):
@@ -317,3 +327,85 @@ def test_k1_k4_split_codon_equal_plain(mtname):
     assert torch.equal(stats, p_stats)
     assert torch.equal(tb[valid], p_tb.to(tb.device)[valid])
     assert cw.K9.launches == n9 + 2
+
+
+def _masked_inputs(mode, device, mtname=None):
+    """A ragged masked batch: the first alignment of each job blocked
+    (so the re-run must find another), est2genome on calm boxes or the
+    split pair of ``mtname`` (a phase-1 and a phase-2 split codon); plus
+    the same jobs mask-free."""
+    from exonerate_tpu_torch.engine.optimal import _to_alignment
+    if mtname is None:
+        model = est2genome_create()
+        calm = _calm()
+        data = AlignData(calm, calm)
+        boxes = [Region(0, 0, 100, 160), Region(40, 10, 80, 150),
+                 Region(10, 30, 120, 90)]
+        pads = (256, 256)
+    else:
+        q, t = sc.small_pair("protein")
+        mt = ModelType[mtname]
+        model = get_model(mt, AlphabetType.PROTEIN, AlphabetType.DNA)
+        data = AlignData(Sequence("q", None, q), Sequence("t", None, t),
+                         translate_both(mt))
+        boxes = [Region(0, 0, len(q), len(t)),
+                 Region(3, 5, len(q) - 3, len(t) - 20)]
+        pads = (twf._bucket(len(q)), twf._bucket(len(t)))
+    per_pair, free = [], []
+    for region in boxes:
+        sub = SubOpt()
+        path = cw.find_path_batched(model, [(region, data)], device=CPU)[0]
+        sub.add_alignment(_to_alignment(model, region, path))
+        inputs, kinds = twf.prepare_inputs(model, region, data, subopt=sub,
+                                           pad_to=pads, for_pallas=True)
+        per_pair.append(inputs)
+        f_inputs, f_kinds = twf.prepare_inputs(model, region, data,
+                                               pad_to=pads, for_pallas=True)
+        free.append(f_inputs)
+    return (cw.to_kernel_inputs(model, per_pair, kinds, device, mode),
+            cw.to_kernel_inputs(model, free, f_kinds, device, mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mtname", [None, "PROTEIN2GENOME"])
+def test_k3_in_k1_and_k4_equal_plain(mtname):
+    """K3 inside K1 (score, region) and K4 (path + walk-back) on ragged
+    masked batches, beside the same jobs mask-free: each equals the plain
+    version, the masked scores differ from the mask-free ones, and only
+    the masked launches count as K3."""
+    dev = _need_card()
+    for mode in ("score", "region", "path"):
+        ki, free = _masked_inputs(mode, dev, mtname)
+        assert ki.masked and not free.masked
+        n3 = cw.K3.launches
+        if mode == "path":
+            stats, tb = cw.wavefront_path(ki)
+            f_stats, _ = cw.wavefront_path(free)
+            p_stats, p_tb = twf.plain_wavefront(ki)
+            torch.cuda.synchronize()
+            valid = _tb_valid(ki, tb)
+            assert torch.equal(stats, p_stats)
+            assert torch.equal(tb[valid], p_tb.to(tb.device)[valid])
+            cap = ki.Qp + ki.Tp + 1 + cw.WALK_SLACK
+            ops, res = cw.walkback(tb, stats, ki.walk, ki.end_id, cap)
+            p_ops, p_res = twf.plain_walkback(p_tb, p_stats, ki.walk,
+                                              ki.end_id, cap)
+            assert torch.equal(res, p_res)
+            for b in range(ki.batch):
+                k = int(res[0, b])
+                assert torch.equal(ops[b, :k], p_ops[b, :k])
+        else:
+            stats = cw.wavefront_scan(ki)
+            f_stats = cw.wavefront_scan(free)
+            assert torch.equal(stats, twf.plain_wavefront(ki)[0])
+        assert torch.equal(f_stats, twf.plain_wavefront(free)[0])
+        assert (stats[0] < f_stats[0]).all()
+        assert cw.K3.launches == n3 + 1
+
+
+def _tb_valid(ki, tb):
+    qlen, tlen = (ki.dims[:, k].long()[:, None, None] for k in (2, 3))
+    d = torch.arange(tb.shape[1], device=tb.device)[None, :, None]
+    i = torch.arange(tb.shape[3], device=tb.device)[None, None, :]
+    return ((d - i >= 0) & (d - i <= tlen)
+            & (i <= qlen))[:, :, None, :].expand_as(tb)

@@ -32,10 +32,8 @@ SMALL_ARGV = ["-m", "est2genome", CDNA_MUT, GENOME_SMALL,
 def _heuristic_cases():
     out = {}
     for name, prog, argv in cases.CASES:
-        # --refine full re-runs a 1200 x 12000 path DP, which needs the
-        # checkpointed traceback (not ported yet, ROADMAP Queue 2)
         if prog != "exonerate" or "est2genome" not in argv or "-E" in argv \
-                or "--gappedextension" in argv or "full" in argv:
+                or "--gappedextension" in argv:
             continue
         files = [a for a in argv if a.startswith(os.sep)]
         if all(os.path.exists(f) for f in files) and os.path.exists(
@@ -68,7 +66,10 @@ def test_case_list_is_the_in_repo_est2genome_heuristic_set():
     assert sorted(CASES) == sorted([
         "est2genome_genomic", "querygff", "refine_region", "subopt_no",
         "ryo_sections", "intron_penalty_opts", "forcegtag", "geneseed",
-        "geneseed_120", "e2g_gff_bestn_refine"])
+        "geneseed_120", "e2g_gff_bestn_refine",
+        # --refine full re-runs a 1200 x 12000 path DP under the SubOpt
+        # mask: on K1/K4 with K3 since the masked route was ported
+        "e2g_gff_refine_full_bestn2"])
 
 
 @pytest.mark.parametrize("name", [

@@ -110,6 +110,34 @@ def scan_genome(cuts, n_genes: int = 8, n_queries: int = 16,
     return queries, "".join(genome)
 
 
+def two_copy_locus(query: str, gap: int, length: int, start: int,
+                   seed: int = 11) -> str:
+    """A genomic window of ``length`` random bases holding two spliced
+    copies of ``query``, for Waterman-Eggert re-runs: each copy cut into
+    three exons at thirds, about 1% of each exon's bases redrawn, the
+    six exons interleaved from ``start`` on (copy 1 exon 1, copy 2 exon
+    1, copy 1 exon 2, ...) ``gap`` bases apart, each gap GT..AG.  So each
+    copy's introns hold the other copy's exon, and each copy's box holds
+    cells of the other's path."""
+    rng = np.random.default_rng(seed)
+    genome = rng.choice(list("acgt"), length).tolist()
+    third = len(query) // 3
+    exons = [query[:third], query[third:2 * third], query[2 * third:]]
+    pos = start
+    for k in range(6):
+        ex = list(exons[k // 2])
+        for _ in range(max(1, len(ex) // 100)):
+            ex[rng.integers(0, len(ex))] = rng.choice(list("ACGT"))
+        genome[pos:pos + len(ex)] = ex
+        pos += len(ex)
+        if k < 5:
+            genome[pos:pos + gap] = (["g", "t"] + rng.choice(
+                list("acgt"), gap - 4).tolist() + ["a", "g"])
+            pos += gap
+    assert pos <= length
+    return "".join(genome)
+
+
 def mutated_proteins(n: int = 8, seed: int = 13) -> list:
     """tools/refbuild/bench_baseline.py's p2g queries: copies of
     CALM_HUMAN with one residue in 20 redrawn."""
