@@ -64,8 +64,10 @@ script then exits non-zero and prints no result line):
       mutated, GT..AG gaps of 1200 bp, so each copy spans 8,425 bp and
       its box holds cells of the other's path).  The whole pair (65 M
       cells) and each copy's box (over 16 M) take the kernel route, so
-      the second iteration runs K3 inside K1 and K4; byte-equal to the
-      native dense DP route in the same process, both copies spliced.
+      the second iteration runs K3 inside K1 and K4; both copies spliced.
+      The native dense DP route of the same CLI (cut-overs raised) runs
+      in a worker process on a host core beside the card's phases, and
+      its bytes are compared in phase 12.
       The widest masked region scan is timed (kernel K3's row) and, with
       the first masked K4 launch and its walk-back, held to the plain
       version in two more worker processes.
@@ -85,25 +87,74 @@ script then exits non-zero and prints no result line):
    12288), timed for kernel K9's row (its plain check runs in phase 5c's
    worker process).  Times with CUDA events.
 8. K4 + walk-back vs plain and vs the native dense DP, calm 2175^2 path.
-9. CLI end to end: the port's CLI must reproduce the exhaustive_est2genome
-   golden byte for byte and give vulgar score 10875 on calm x calm, with
-   the kernels' launch counters above 0 and no engine fallback.
-10. K6/K7 against the plain passes, exactly, on the est2genome_genomic
+9. Chromosome-scale -E yes (kernel K2, the cluster instantiation of K1):
+   a. K2 through find_batched(stream=True) on forced batches: a ragged
+      est2genome B=3 at Qp 2304 (C = 9), a Qp 256 pair (C = 1), a Qp 768
+      pair of 601 rows (a part-filled last CTA), the protein2genome split
+      pair (FULL, K9) and a small masked pair (K3); each launch is held to
+      the plain version in a worker process.
+   b. est2genome -E yes --bestn 2 --score 5000 through the CLI: calm
+      against a 1.2 Mb random genome holding two spliced copies of it at
+      300 kb and 800 kb (tests/torch_split_cases.py chromosome_locus:
+      exons at thirds, ~1% mutated, GT..AG introns of 3,125 bp, so each
+      copy spans 8,425 bp and its box stays over 16 M cells).  Every
+      whole-target region scan (Qp 2304 x Tp 1,356,288, B=1, 26 MB by the
+      JAX package's streaming test) must run on K2 with C > 1, masked
+      after the first of its strand (K3 inside K2); the copies' boxes on
+      K1 and K4; two spliced vulgar lines; no fallback.  Per scan: K2 ms
+      (CUDA events), C, the footprint, the host seconds of input and mask
+      prep, and a host-clock breakdown.  The first scan's inputs go to K1
+      on a side stream of their own (one CTA on one SM, beside the rest of
+      the phase and phases 10-11; the script syncs streams, not the
+      device, for this), held to K2's output in phase 12.
+      --score 5000, not 2000, bounds the run's length: past both copies
+      the loop would keep chains of random short exons across the target,
+      each a whole-target scan plus a checkpointed traceback.
+   c. K2 on a 6 kb window around the first copy under the mask of the
+      run's first alignment, held to the plain version in a worker.
+   d. The third forward iteration's path DP at --score 2000: the best
+      alignment left under both copies' masks (a 2306-point chain across
+      1.145 Mb) through optimal.find_path on its box.  Its cube is over
+      the card's budget and its native traceback over the host's, so it
+      runs the checkpointed traceback: forward segments on K2, the walk
+      back re-running segments from saved carry rings on K4 on a cluster.
+      Its score and box must equal the third scan's and no match step may
+      enter a masked cell; the first 1,200 diagonals of the walk's first
+      segment are held to the plain version from the same rings in a
+      worker.
+   e. K2 (region, masked) at the main path's shape against the plain
+      version: the first masked whole-target scan's inputs over 1,200
+      diagonals through the first copy's cells, continuing the carry
+      rings of a launch over the diagonals before them; the plain version
+      runs the same span from the same rings in a worker.
+   Each copy's vulgar line must equal the native route's (the same CLI
+   with the cut-overs raised, in worker processes started in phase 6a)
+   on a 20 kb window around it, target coordinates shifted.
+10. CLI end to end: the port's CLI must reproduce the exhaustive_est2genome
+    golden byte for byte and give vulgar score 10875 on calm x calm, with
+    the kernels' launch counters above 0 and no engine fallback.
+11. K6/K7 against the plain passes, exactly, on the est2genome_genomic
     comparison of phase 3, timed kernel vs plain with CUDA events.
-11. The plain checks of the worker processes: every slice's plain pass
+12. The plain checks of the worker processes: every slice's plain pass
     must equal the kernels' outputs exactly (bits, live; column best,
-    live, xband), and every K1/K4 launch handed to them its plain
-    version (scores, ends, starts; traceback cube, walk-back).
+    live, xband), and every K1/K2/K4 launch handed to them its plain
+    version (scores, ends, starts; traceback cube, walk-back); the native
+    routes' bytes (phases 6a and 9); K1 at the full shape against K2;
+    the span launches of phases 9d-e.
 
-Phases 5-10 run on the card while the plain checks run on the host's
-cores, so their host-clock and plain times share the host with them.
+Phases 5-11 run on the card while the plain checks and the native routes
+run on the host's cores, so their host-clock and plain times share the
+host with them.
 
 The last three lines are nvidia-smi's name and power limit of the card,
 a JSON object of the kernels (route, source, the TPU kernel each
 replaces, main-path launches, max |kernel - plain|, kernel and plain
-milliseconds (the plain version on the card, but for K9 and K3 on one
-host core in a worker process), the bound: the larger of the bytes moved
-over 3.35 TB/s and the int32 operations over the int32 peak, and the
+milliseconds (the plain version on the card, but for K9, K3 and K2 on one
+host core in a worker process; K2's over phase 9e's span of the
+chromosome's diagonals, as the plain loop would take hours over all of
+them), the bound: the larger of
+the bytes moved over 3.35 TB/s and the int32 operations over the int32
+peak, and the
 library call: none computes these DPs), and the result object.
 """
 from __future__ import annotations
@@ -148,6 +199,28 @@ P2G_E_CUTOVER = 100_000      # optimal.NATIVE_TPU_CELLS for the p2g -E run
 # repeats give local alignments of a few hundred, each one more masked
 # iteration of the whole window)
 WE_GAP, WE_LEN, WE_START, WE_SCORE = 1200, 30_000, 9000, 2000
+# phase 9, chromosome-scale -E yes (kernel K2): calm against CH_LEN bp
+# holding a spliced copy of it at each of CH_STARTS (introns of CH_INTRON
+# bp, so each copy spans CH_SPAN bp and its box, 18.3 M cells, stays over
+# the 16 M cells up to which a masked path DP runs on the host); each
+# copy's alignment is held to the native route on a CH_WIN window of it.
+# --score CH_SCORE bounds the run's length, not a fault: once both copies
+# are masked, the best local alignment left is a chain of short exons
+# joined by introns of up to 200 kb across the random sequence, 2306 over
+# 1.145 Mb.  At --score CH_PATH_SCORE the loop would keep
+# that chain and go on to the next ones (how many score over 2000 is not
+# measured), each a whole-target scan plus a checkpointed traceback
+# across the target (~110 s here), up to 16 per strand.  Step 9d runs
+# that third iteration's path DP at CH_PATH_SCORE instead: the one that
+# raised NotImplementedError before the checkpointed traceback was
+# ported.  The copies score 10,664-10,685.
+CH_LEN, CH_STARTS, CH_INTRON = 1_200_000, (300_000, 800_000), 3125
+CH_WIN, CH_SCORE, CH_PATH_SCORE = 20_000, 5000, 2000
+# step 9e: K2 (region, masked) over CH_SPAN_DIAGS diagonals from
+# CH_SPAN_AT, continuing the rings of a launch over [0, CH_SPAN_AT): the
+# first copy's cells under its own mask, held to the plain version
+CH_SPAN_AT, CH_SPAN_DIAGS = 302_000, 1200
+CH_SPAN = CALM_LEN + 2 * CH_INTRON
 LOCUS_ARGV = ["-m", "est2genome", "--bestn", "10", "--maxintron", "20000",
               "--showvulgar", "yes", "--showalignment", "no"]
 CROSSCHECK = "sdp device->host: locus score mismatch"
@@ -164,6 +237,12 @@ def _card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def _sync():
+    """Wait for the current stream, not the device: phase 9 runs K1 on a
+    side stream of its own beside the rest of the phase."""
+    torch.cuda.current_stream().synchronize()
+
+
 def _cuda_ms(fn, reps: int = 1) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -171,7 +250,7 @@ def _cuda_ms(fn, reps: int = 1) -> float:
     for _ in range(reps):
         fn()
     end.record()
-    torch.cuda.synchronize()
+    _sync()
     return start.elapsed_time(end) / reps
 
 
@@ -182,7 +261,7 @@ def _cuda_call(fn):
     start.record()
     out = fn()
     end.record()
-    torch.cuda.synchronize()
+    _sync()
     return out, start.elapsed_time(end)
 
 
@@ -192,7 +271,7 @@ def _turns(plain, kernel, kernel_reps: int = 3):
     output is returned for the caller's check: (kernel output, plain
     output, kernel ms, plain ms)."""
     got = kernel()
-    torch.cuda.synchronize()
+    _sync()
     k1 = _cuda_ms(kernel, kernel_reps)
     want, p = _cuda_call(plain)
     k2 = _cuda_ms(kernel, kernel_reps)
@@ -210,13 +289,14 @@ def _bound(n_bytes: float, n_ops: float):
                                        else "operations")
 
 
-def _tb_valid(ki, tb: torch.Tensor) -> torch.Tensor:
-    """The cells of K4's traceback cube (B, D, S, W) that lie inside each
-    pair's DP (cell (i, d - i) with i <= qlen and d - i <= tlen): the
-    kernel leaves the others unwritten."""
+def _tb_valid(ki, tb: torch.Tensor, d0: int = 0) -> torch.Tensor:
+    """The cells of K4's traceback cube (B, D, S, W), or of a segment's
+    planes from diagonal ``d0``, that lie inside each pair's DP (cell
+    (i, d - i) with i <= qlen and d - i <= tlen): the kernel leaves the
+    others unwritten."""
     qlen = ki.dims[:, 2].long()[:, None, None]
     tlen = ki.dims[:, 3].long()[:, None, None]
-    d = torch.arange(tb.shape[1], device=tb.device)[None, :, None]
+    d = d0 + torch.arange(tb.shape[1], device=tb.device)[None, :, None]
     i = torch.arange(tb.shape[3], device=tb.device)[None, None, :]
     ok = (d - i >= 0) & (d - i <= tlen) & (i <= qlen)
     return ok[:, :, None, :].expand_as(tb)
@@ -226,14 +306,29 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def _wave_work(ki, out_bytes: int):
+def _wave_work(ki, out_bytes: int, span=None):
     """Bytes (inputs read once, outputs written once) and int32 operations
     (an add and a compare per plan row per valid cell) of one K1/K4
-    launch on ``ki``."""
+    launch on ``ki``; over the diagonals ``span`` = (d0, d1) only, the
+    columns of the target vectors and mask rows they read and the carry
+    rings read and written, when given."""
     dims = ki.dims.long()
-    cells = int(((dims[:, 2] + 1) * (dims[:, 3] + 1)).sum())
-    n_in = _nbytes(ki.plan, ki.ring_row, ki.lane_row, ki.dims, ki.qvecs,
-                   ki.tvecs, ki.tables, ki.scalars, ki.blocked)
+    if span is None:
+        cells = int(((dims[:, 2] + 1) * (dims[:, 3] + 1)).sum())
+        n_in = _nbytes(ki.plan, ki.ring_row, ki.lane_row, ki.dims, ki.qvecs,
+                       ki.tvecs, ki.tables, ki.scalars, ki.blocked)
+        return n_in + out_bytes, 2 * cells * ki.plan.shape[0]
+    d = torch.arange(*span, device=dims.device)[None, :]
+    lo = (d - dims[:, 3:4]).clamp(min=0)
+    hi = torch.minimum(d, dims[:, 2:3])
+    cells = int((hi - lo + 1).clamp(min=0).sum())
+    cols = span[1] - span[0] + ki.Qp + 1
+    frac = min(1.0, cols / (ki.Tp + 1))
+    n_in = (_nbytes(ki.plan, ki.ring_row, ki.lane_row, ki.dims, ki.qvecs,
+                    ki.tables, ki.scalars)
+            + frac * _nbytes(ki.tvecs, ki.blocked)
+            + 2 * 4 * ki.batch * (ki.K + 1) * (max(ki.NR, 1)
+                                               + max(ki.NL, 1)) * (ki.Qp + 1))
     return n_in + out_bytes, 2 * cells * ki.plan.shape[0]
 
 
@@ -349,6 +444,28 @@ def _pool(n: int):
     return pool
 
 
+def _native_cli(argv: list, cells: int, n_states: int):
+    """Worker process, CPU only: the port's CLI over ``argv`` on the native
+    route, the kernels' cut-overs raised over ``cells`` and the traceback
+    budget raised to hold their planes, as phase 6a's reference.  Returns
+    (output, host seconds, engine counts, fallback counts)."""
+    os.environ["EXONERATE_TPU_TORCH_DEVICE"] = "cpu"
+    sys.path.insert(0, ROOT)
+    from exonerate_tpu_torch import observe
+    from exonerate_tpu_torch.cli.exonerate import main as cli_main
+    from exonerate_tpu_torch.engine import optimal
+    torch.set_num_threads(1)
+    optimal.NATIVE_TPU_CELLS = cells + 1
+    optimal.NATIVE_TB_BUDGET = cells * n_states * 2
+    observe.reset()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    if cli_main(argv, out=buf) != 0:
+        raise RuntimeError(f"CLI exit status for {argv}")
+    return (buf.getvalue(), time.perf_counter() - t0,
+            dict(observe.engine_counts), dict(observe.fallback_counts))
+
+
 def _plain_wave_check(path: str):
     """Worker process, CPU only: the plain wavefront over the K1/K4
     inputs saved at ``path``, held against the kernel's outputs saved
@@ -375,6 +492,40 @@ def _plain_wave_check(path: str):
                         saved["ops"][b, :int(res[0, b])])
             for b in range(ki.batch))
     return ok, err, secs, int((ki.dims[:, 2] + ki.dims[:, 3]).max()) + 1
+
+
+def _save_span(path: str, ki, ring: tuple, span: tuple, out, tb) -> str:
+    """Save a span launch of the cluster kernel for ``_plain_span_check``:
+    its inputs, the carry rings it started from, and its outputs."""
+    torch.save({"ki": _cpu_fields(ki), "ring": [t.cpu() for t in ring],
+                "span": list(span),
+                "out": out.cpu() if out is not None else None,
+                "tb": tb.cpu() if tb is not None else None}, path)
+    return path
+
+
+def _plain_span_check(path: str):
+    """Worker process, CPU only: the plain wavefront over the saved span of
+    diagonals from the saved carry rings, held against the cluster
+    kernel's outputs: the span's best end cell (score, ends, starts),
+    when saved, and in path mode its planes' valid cells.  Returns
+    (equal, max |kernel - plain|, seconds, diagonals)."""
+    from exonerate_tpu_torch.engine import wavefront as wf
+    torch.set_num_threads(1)
+    saved = torch.load(path, weights_only=True)
+    ki = wf.KernelInputs(**saved["ki"])
+    span = tuple(saved["span"])
+    t0 = time.perf_counter()
+    out, tb = wf.plain_wavefront(ki, span, tuple(saved["ring"]))
+    secs = time.perf_counter() - t0
+    ok, err = True, 0
+    if saved["out"] is not None:
+        err = _max_err(out, saved["out"])
+        ok = torch.equal(out, saved["out"])
+    if tb is not None:
+        valid = _tb_valid(ki, tb, span[0])
+        err = max(err, _max_err(tb[valid], saved["tb"][valid]))
+    return ok and not err, err, secs, span[1] - span[0]
 
 
 def _wave_outputs(cw, ki) -> dict:
@@ -423,7 +574,7 @@ def _timed(mod, keys: dict, acc: dict):
         def timed(*args, **kwargs):
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
+            _sync()
             key = keys[name](*args, **kwargs)
             acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
             return out
@@ -439,14 +590,15 @@ def _timed(mod, keys: dict, acc: dict):
 
 
 # where the wavefront routes spend their host clock: host prep (the pairs'
-# arrays and SubOpt mask grids; packing and copies), and K1 and K4 with
-# and without the mask plane, timed around the uncounted launcher
+# arrays and SubOpt mask planes; packing and copies), and K1, K2 and K4
+# with and without the mask plane, timed around the uncounted launcher
 # ``_launch`` (the counted wrappers keep their launch counters)
 WAVE_CLOCKS = {
     "_buckets": lambda *a, **k: "prep: prepare_inputs (masks)",
     "to_kernel_inputs": lambda *a, **k: "prep: to_kernel_inputs (copies)",
-    "_launch": lambda ki: ("K4" if ki.mode == "path" else "K1")
-    + (" masked" if ki.masked else "")}
+    "_launch": lambda ki, cluster=None, span=None, ring=None: (
+        "K4" if ki.mode == "path" else "K2" if cluster is not None
+        else "K1") + (" masked" if ki.masked else "")}
 
 
 def _k2_mb(kis: list) -> list:
@@ -507,6 +659,7 @@ def main() -> int:
     from exonerate_tpu_torch.engine import sdp_native
     from exonerate_tpu_torch.engine import wavefront as wf
     from exonerate_tpu_torch.engine.region import Region
+    from exonerate_tpu_torch.engine.subopt import SubOpt
     from exonerate_tpu_torch.model import registry
     from exonerate_tpu_torch.model.affine import (AffineModelType,
                                                   affine_create)
@@ -556,7 +709,7 @@ def main() -> int:
         t0 = time.perf_counter()
         if cli_main(argv, out=buf) != 0:
             raise RuntimeError(f"CLI exit status for {argv}")
-        torch.cuda.synchronize()
+        _sync()
         secs = time.perf_counter() - t0
         bad = {k: v for k, v in observe.fallback_counts.items()
                if not (allow_crosscheck and k.startswith(CROSSCHECK))}
@@ -569,7 +722,8 @@ def main() -> int:
     # the counters set to 0 just before it and read just after
     counters = {"K1": cw.wavefront_scan, "K4": cw.wavefront_path,
                 "walkback": cw.walkback, "K6": cs.band_reverse,
-                "K7": cs.band_forward, "K9": cw.K9, "K3": cw.K3}
+                "K7": cs.band_forward, "K9": cw.K9, "K3": cw.K3,
+                "K2": cw.K2}
     main_launches = dict.fromkeys(counters, 0)
 
     def zero_counts():
@@ -933,6 +1087,34 @@ def main() -> int:
                str(WE_SCORE), wqf, wtf, "--showvulgar", "yes",
                "--showalignment", "no"]
     we_cells = (len(calm_s) + 1) * (len(we_locus) + 1)
+    # the native routes of this phase and of phase 9 run in worker
+    # processes on host cores (the native dense DP needs no card), beside
+    # the card's phases; their outputs are compared in phase 12
+    nat_pool = _pool(1 + len(CH_STARTS))
+    pools.append(nat_pool)
+    nat_we_res = nat_pool.apply_async(
+        _native_cli, (argv_we, we_cells, len(model.states)))
+    chrom = sc.chromosome_locus(calm_s, CH_LEN, CH_STARTS, CH_INTRON)
+    ctf = _write_fasta(os.path.join(tmp_dir, "chrom.fa"),
+                       [("chromosome", chrom)])
+    cqf = _write_fasta(os.path.join(tmp_dir, "chrom_calm.fa"),
+                       [("calm", calm_s)])
+
+    def argv_ch(target):
+        return ["-m", "est2genome", "-E", "yes", "--bestn", "2", "--score",
+                str(CH_SCORE), cqf, target, "--showvulgar", "yes",
+                "--showalignment", "no"]
+
+    ch_windows = []
+    for k, start in enumerate(CH_STARTS):
+        # a CH_WIN window centred on the copy (its span is CH_SPAN), its
+        # record named as the whole target's
+        w0 = start + CH_SPAN // 2 - CH_WIN // 2
+        wf_k = _write_fasta(os.path.join(tmp_dir, f"chrom_win{k}.fa"),
+                            [("chromosome", chrom[w0:w0 + CH_WIN])])
+        ch_windows.append((w0, nat_pool.apply_async(_native_cli, (
+            argv_ch(wf_k), (len(calm_s) + 1) * (CH_WIN + 1),
+            len(model.states)))))
     we_kis, iters = [], [0]
     real_fp = optimal.find_path
 
@@ -947,7 +1129,6 @@ def main() -> int:
         we_kis.append(real_tki(*args, **kwargs))
         return we_kis[-1]
 
-    saved_budget = optimal.NATIVE_TB_BUDGET
     we_time = {}
     observe.reset()
     zero_counts()
@@ -956,33 +1137,23 @@ def main() -> int:
         optimal.find_path = count_fp
         with _timed(cw, WAVE_CLOCKS, we_time):
             out_we, secs_we = run_cli(argv_we)
-        cw.to_kernel_inputs = real_tki
-        optimal.find_path = real_fp
-        we_launches = read_counts("est2genome -E yes Waterman-Eggert",
-                                  ("K1", "K4", "walkback", "K3"))
-        we_eng = dict(observe.engine_counts)
-        optimal.NATIVE_TPU_CELLS = we_cells + 1
-        optimal.NATIVE_TB_BUDGET = we_cells * len(model.states) * 2
-        observe.reset()
-        nat_we, nat_secs_we = run_cli(argv_we)
     finally:
-        optimal.NATIVE_TPU_CELLS = saved_cut
-        optimal.NATIVE_TB_BUDGET = saved_budget
         cw.to_kernel_inputs = real_tki
         optimal.find_path = real_fp
+    we_launches = read_counts("est2genome -E yes Waterman-Eggert",
+                              ("K1", "K4", "walkback", "K3"))
+    we_eng = dict(observe.engine_counts)
     we_shapes = [(k.mode, k.batch, k.Qp, k.Tp, "masked" if k.masked
                   else "mask-free") for k in we_kis]
     print(f"est2genome -E yes Waterman-Eggert calm {len(calm_s)} x "
           f"{len(we_locus)} bp, two interleaved spliced copies [{card}]: "
-          f"{iters[0]} iterations; kernels {secs_we:.2f} s, native "
-          f"{nat_secs_we:.2f} s (host clock); engines {we_eng}; launches "
-          f"{we_launches}; K1/K4 launches {we_shapes}")
+          f"{iters[0]} iterations; kernels {secs_we:.2f} s (host clock; "
+          f"the native route runs in a worker process, compared in phase "
+          f"12); engines {we_eng}; launches {we_launches}; K1/K4 launches "
+          f"{we_shapes}")
     print(f"  where the kernel route's {secs_we:.2f} s go (host clock): "
           f"{_breakdown(we_time, secs_we)}; K1 batches by the JAX package's "
           f"K2 test (B, Qp, Tp, MB of 24): {_k2_mb(we_kis)}")
-    if out_we != nat_we:
-        raise RuntimeError("est2genome -E yes: the kernels' output differs "
-                           "from the native route's")
     ops_we = _vulgar_ops(out_we)
     if len(ops_we) != 2 or any(o.count("I") != 2 for o in ops_we):
         raise RuntimeError(f"est2genome -E yes: want both copies with two "
@@ -1277,7 +1448,339 @@ def main() -> int:
     report["walkback"] = (walk_err, walk_ms, walk_plain_ms,
                           (k * (1 + 16 + 4) + _nbytes(stats) + 12, 6 * k))
 
-    # -- 9. the port's CLI, end to end (the exhaustive main path) -------
+    # -- 9. chromosome-scale -E yes (kernel K2) ----------------------------
+    # a. K2 against the plain version on forced stream=True batches (the
+    # plain checks run in worker processes on one host core each); these
+    # launches also load every K2 instantiation the -E run uses before K1
+    # starts beside it on a stream of its own
+    cdata = AlignData(calm, calm)
+    sp_q, sp_t = sc.small_pair("protein")
+    k2_batches = [
+        ("ragged est2genome x3, Qp 2304", model,
+         [(Region(0, 0, 2175, 200), cdata),
+          (Region(100, 40, 2000, 180), cdata),
+          (Region(300, 10, 1800, 150), cdata)], None),
+        ("est2genome Qp 256", model, [(Region(0, 0, 200, 300), cdata)], None),
+        ("est2genome Qp 768, qlen 600", model,
+         [(Region(50, 20, 600, 240), cdata)], None),
+        ("protein2genome split pair (FULL)", p2g, [
+            (Region(0, 0, len(sp_q), len(sp_t)),
+             AlignData(Sequence("q", None, sp_q), Sequence("t", None, sp_t),
+                       registry.translate_both(
+                           registry.ModelType.PROTEIN2GENOME)))], None),
+    ]
+    small = Region(0, 0, 300, 400)
+    small_sub = SubOpt()
+    small_sub.add_alignment(optimal._to_alignment(
+        model, small, cw.find_path_batched(model, [(small, cdata)],
+                                           device=dev)[0]))
+    k2_batches.append(("est2genome masked Qp 512", model,
+                       [(small, cdata)], small_sub))
+    k2_pool = _pool(2)
+    pools.append(k2_pool)
+    k2_err, k2_checks = 0, []
+    # the CTAs per pair of the last launch (1 for K1/K4)
+    last_c = {"C": 0}
+    real_launch = cw._launch
+
+    def launch_c(*args, **kwargs):
+        out = real_launch(*args, **kwargs)
+        last_c["C"] = out[2]
+        return out
+
+    cw._launch = launch_c
+    _EXIT.callback(setattr, cw, "_launch", real_launch)
+
+    def forced_k2(label, model_, jobs_, sub):
+        """find_batched(stream=True) on the card; its K2 launch made again,
+        timed, equal to find_batched's results and held, in a worker
+        process, to the plain version on the same inputs."""
+        kis = []
+
+        def grab(*args, **kwargs):
+            kis.append(real_tki(*args, **kwargs))
+            return kis[-1]
+
+        cw.to_kernel_inputs = grab
+        try:
+            got = cw.find_batched(model_, jobs_, "region", device=dev,
+                                  subopt=sub, stream=True)
+        finally:
+            cw.to_kernel_inputs = real_tki
+        [ki] = kis
+        out, ms = _cuda_call(lambda: cw.wavefront_stream_scan(ki))
+        if [[r.score, r.query_end, r.target_end, r.query_start,
+             r.target_start] for r in got] != out.t().tolist():
+            raise RuntimeError(f"K2 {label}: find_batched's results differ "
+                               f"from the kernel's output")
+        path = _save_wave(os.path.join(tmp_dir, f"k2_{len(k2_checks)}.pt"),
+                          ki, {"out": out})
+        res = k2_pool.apply_async(_plain_wave_check, (path,))
+        name = (f"K2 forced {label} (C={last_c['C']}, masked "
+                f"{ki.masked}, split {ki.split}, Qp {ki.Qp} x Tp {ki.Tp} "
+                f"x{ki.batch})")
+        k2_checks.append((name, ms, res))
+        pending.append((name, list(range(ki.batch)), res))
+
+    for label, m, jobs, sub in k2_batches:
+        forced_k2(label, m, jobs, sub)
+        print(f"{k2_checks[-1][0]} [{card}]: {k2_checks[-1][1]:.3f} ms; "
+              f"plain check started")
+
+    # b. est2genome -E yes --bestn 2 --score 5000 through the CLI: calm
+    # against CH_LEN bp with two spliced copies; every whole-target region
+    # scan (Qp 2304 x Tp 1356288, B=1) runs on K2, the copies' boxes on K1
+    # and K4.  The first scan's inputs go to K1 on a side stream (one CTA,
+    # about as long as the rest of the phase), held to K2's output last.
+    ch_scans, pend = [], {}
+    side = torch.cuda.Stream()
+    k1_full = {}
+    k1_launch = cw._launch          # the uncounted launcher, untimed
+    real_k2, real_bk, real_plane = (cw.wavefront_stream_scan, cw._buckets,
+                                    wf.blocked_plane)
+
+    def spy_buckets(model_, jobs_, subopt=None):
+        pend.clear()
+        pend["whole"] = jobs_[0][0].target_length == len(chrom)
+        pend["points"] = (set() if not isinstance(subopt, SubOpt)
+                          else set(subopt.points))
+        t0 = time.perf_counter()
+        out = real_bk(model_, jobs_, subopt)
+        pend["prep"] = time.perf_counter() - t0
+        return out
+
+    def spy_plane(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_plane(*args, **kwargs)
+        pend["mask"] = pend.get("mask", 0.0) + time.perf_counter() - t0
+        return out
+
+    def spy_k2(ki):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real_k2(ki)
+        ev[1].record()
+        ch_scans.append(dict(pend, ev=ev, C=last_c["C"], out=out, ki=ki,
+                             shape=(ki.batch, ki.Qp, ki.Tp),
+                             masked=ki.masked, mb=_k2_mb([ki])[0][3]))
+        if len(ch_scans) == 1:
+            # K1 on the same inputs, uncounted, beside the rest of the run
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                k1_ev = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                k1_ev[0].record()
+                k1_out, _, _ = k1_launch(ki)
+                k1_ev[1].record()
+            k1_full.update(ki=ki, out=k1_out, ev=k1_ev)
+        return out
+
+    ch_time, ch_kis = {}, []
+
+    def capture_ch(*args, **kwargs):
+        t0 = time.perf_counter()
+        k = real_tki(*args, **kwargs)
+        pend["copies"] = time.perf_counter() - t0
+        ch_kis.append((k.mode, k.batch, k.Qp, k.Tp, k.masked))
+        return k
+
+    observe.reset()
+    zero_counts()
+    try:
+        cw.wavefront_stream_scan = spy_k2
+        cw._buckets = spy_buckets
+        wf.blocked_plane = spy_plane
+        cw.to_kernel_inputs = capture_ch
+        with _timed(cw, WAVE_CLOCKS, ch_time):
+            out_ch, secs_ch = run_cli(argv_ch(ctf))
+    finally:
+        cw.wavefront_stream_scan = real_k2
+        cw._buckets = real_bk
+        wf.blocked_plane = real_plane
+        cw.to_kernel_inputs = real_tki
+    ch_launches = read_counts("chromosome-scale -E yes",
+                              ("K2", "K1", "K4", "walkback", "K3"))
+    ch_eng = dict(observe.engine_counts)
+    whole = [s for s in ch_scans if s["whole"]]
+    print(f"chromosome-scale est2genome -E yes calm {len(calm_s)} x "
+          f"{len(chrom)} bp, two spliced copies at {CH_STARTS} [{card}]: "
+          f"{secs_ch:.2f} s host clock; engines {ch_eng}; launches "
+          f"{ch_launches}; K1/K4 launches (mode, B, Qp, Tp, masked) "
+          f"{[k for k in ch_kis if k[3] < len(chrom)]}")
+    for n, s in enumerate(ch_scans):
+        s["ms"] = s["ev"][0].elapsed_time(s["ev"][1])
+        print(f"  K2 scan {n} (B, Qp, Tp) {s['shape']}, masked {s['masked']}"
+              f": {s['ms']:.3f} ms (CUDA events), C={s['C']}, footprint "
+              f"{s['mb']} MB by the JAX package's K2 test (24 MB); host "
+              f"prep {s['prep']:.3f} s (of it the mask plane "
+              f"{s.get('mask', 0.0):.3f} s), copies {s['copies']:.3f} s")
+    print(f"  where the run's {secs_ch:.2f} s go (host clock): "
+          f"{_breakdown(ch_time, secs_ch)}")
+    ops_ch = _vulgar_ops(out_ch)
+    if len(ops_ch) != 2 or any(o.count("I") != 2 for o in ops_ch):
+        raise RuntimeError(f"chromosome-scale -E yes: want both copies with "
+                           f"two introns each, got {ops_ch}")
+    scans = [(s["whole"], s["masked"], s["C"]) for s in ch_scans]
+    if len(whole) != len(ch_scans) or ch_launches["K2"] != len(whole) \
+            or len(whole) < 3 or any(s["masked"] != bool(s["points"])
+                                     for s in whole) \
+            or sum(s["masked"] for s in whole) < 2 \
+            or any(s["C"] < 2 for s in whole):
+        raise RuntimeError(f"chromosome-scale -E yes: want every region "
+                           f"scan on K2 a whole-target scan, C > 1, masked "
+                           f"after the first of its strand: (whole, "
+                           f"masked, C) {scans}; K2 launches "
+                           f"{ch_launches['K2']}")
+    if any(k[3] >= len(chrom) for k in ch_kis if k[0] == "path") \
+            or not any(k[0] == "path" for k in ch_kis):
+        raise RuntimeError(f"chromosome-scale -E yes: the copies' boxes must "
+                           f"run on K1 and K4 ({ch_kis})")
+
+    # c. the masked forced batch: a ~6 kb window around the first copy under
+    # the mask of the run's first alignment (the points the second scan saw)
+    first_pts = next(s["points"] for s in whole if s["masked"])
+    w_sub = SubOpt()
+    w_sub.points = set(first_pts)
+    wdata = AlignData(Sequence("calm", None, calm_s),
+                      Sequence("chromosome", None, chrom))
+    w_region = Region(0, min(t for _q, t in first_pts) - 500, len(calm_s),
+                      6000)
+    forced_k2("est2genome masked by the run's first alignment, 6 kb window",
+              model, [(w_region, wdata)], w_sub)
+    if "masked True" not in k2_checks[-1][0]:
+        raise RuntimeError("K2 forced window: the mask blocks no cell")
+    print(f"{k2_checks[-1][0]} [{card}]: {k2_checks[-1][1]:.3f} ms; plain "
+          f"check started")
+    k2_ms = whole[0]["ms"]
+    k2_shape = (f"Qp {whole[0]['shape'][1]} x Tp {whole[0]['shape'][2]} "
+                f"x{whole[0]['shape'][0]}, {len(calm_s)} x {len(chrom)}")
+
+    # d. the third forward iteration's path DP at --score 2000
+    # (CH_PATH_SCORE): under both copies' masks the third scan's box is a
+    # chain across most of the target, its traceback cube (D x S x Qp+1,
+    # tens of GB) over the card's budget and its native traceback over the
+    # host's, so optimal.find_path runs it on the checkpointed traceback:
+    # forward segments on K2, the walk back re-running segments on K4 on
+    # a cluster.  Driven on the box, as the -E loop's recursion calls it
+    # (its region scan on K2 first); the first diagonals of the walk's
+    # first segment are held to the plain version in a worker process.
+    third = whole[2]
+    t_score, t_qe, t_te, t_qs, t_ts = third["out"][:, 0].tolist()
+    if not (CH_PATH_SCORE <= t_score < CH_SCORE) \
+            or len(third["points"]) <= len(whole[1]["points"]):
+        raise RuntimeError(f"chromosome-scale -E yes: the third forward scan"
+                           f" (both copies masked) scored {t_score}, want "
+                           f"{CH_PATH_SCORE} to {CH_SCORE}")
+    box = Region(t_qs, t_ts, t_qe - t_qs, t_te - t_ts)
+    ck_sub = SubOpt()
+    for q, t in third["points"]:
+        ck_sub.points.add((q, t))
+        ck_sub.by_row.setdefault(t, set()).add(q)
+    ck = {"fwd": [], "path": [], "check": None}
+    real_seg = cw.wavefront_segment
+
+    def spy_seg(ki, ring, span):
+        before = (tuple(t.clone() for t in ring)
+                  if ki.mode == "path" and ck["check"] is None else None)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out, tb = real_seg(ki, ring, span)
+        ev[1].record()
+        ck["path" if ki.mode == "path" else "fwd"].append(ev)
+        if before is not None:
+            # its first CH_SPAN_DIAGS diagonals, from the same rings
+            n = min(CH_SPAN_DIAGS, span[1] - span[0])
+            ck["check"] = _save_span(os.path.join(tmp_dir, "ck_seg.pt"), ki,
+                                     before, (span[0], span[0] + n), None,
+                                     tb[:, :n])
+            ck["check_span"] = (span[0], span[0] + n)
+        return out, tb
+
+    ck_time = {}
+    observe.reset()
+    zero_counts()
+    cw.wavefront_segment = spy_seg
+    try:
+        with _timed(cw, WAVE_CLOCKS, ck_time):
+            t0 = time.perf_counter()
+            ck_al = optimal.find_path(model, box, wdata, subopt=ck_sub,
+                                      threshold=CH_PATH_SCORE, device=dev)
+            ck_secs = time.perf_counter() - t0
+    finally:
+        cw.wavefront_segment = real_seg
+    ck_launches = read_counts("the checkpointed traceback",
+                              ("K2", "K4", "K3"))
+    if observe.fallback_counts:
+        raise RuntimeError(f"checkpointed traceback: fallbacks "
+                           f"{dict(observe.fallback_counts)}")
+    ck_seg_ms = [sum(a.elapsed_time(b) for a, b in ck[k])
+                 for k in ("fwd", "path")]
+    if ck_al is None or ck_al.score != t_score or (
+            ck_al.region.query_start, ck_al.region.target_start,
+            ck_al.region.query_length, ck_al.region.target_length) != (
+            box.query_start, box.target_start, box.query_length,
+            box.target_length) or ck["check"] is None \
+            or ck_launches["K2"] != 1 + len(ck["fwd"]):
+        raise RuntimeError(f"checkpointed traceback of the third scan's box "
+                           f"{box}: want score {t_score} over the whole box "
+                           f"(launches {ck_launches}), got "
+                           f"{ck_al and (ck_al.score, ck_al.region)}")
+    # the path takes no match step into a cell of the copies' paths
+    # (the mask bars a match row at its destination cell)
+    qi, tj, blocked_steps = box.query_start, box.target_start, 0
+    for op in ck_al.ops:
+        for _ in range(op.length):
+            qi += op.transition.advance_query
+            tj += op.transition.advance_target
+            blocked_steps += (op.transition.is_match
+                              and (qi, tj) in ck_sub.points)
+    if (qi, tj) != (t_qe, t_te) or blocked_steps:
+        raise RuntimeError(f"checkpointed traceback: the path ends at "
+                           f"{(qi, tj)}, want {(t_qe, t_te)}; {blocked_steps}"
+                           f" match steps into masked cells")
+    ck_res = k2_pool.apply_async(_plain_span_check, (ck["check"],))
+    print(f"checkpointed traceback, the third forward iteration at --score "
+          f"{CH_PATH_SCORE}: box {box.query_length} x {box.target_length} "
+          f"at ({box.query_start}, {box.target_start}), score {t_score} "
+          f"[{card}]: {ck_secs:.2f} s host clock; forward {len(ck['fwd'])} "
+          f"segments on K2 {ck_seg_ms[0]:.3f} ms, walk back "
+          f"{len(ck['path'])} segments on K4 (cluster) {ck_seg_ms[1]:.3f} ms"
+          f" (CUDA events); launches {ck_launches}; "
+          f"{sum(op.length for op in ck_al.ops)} path steps, none a match "
+          f"into a masked cell; the path's score and box equal the scan's; "
+          f"plain check of the walk's first segment over diagonals "
+          f"{ck['check_span']} started")
+    print(f"  where its {ck_secs:.2f} s go (host clock): "
+          f"{_breakdown(ck_time, ck_secs)}")
+
+    # e. K2 at the main path's shape against the plain version: the first
+    # masked whole-target scan's inputs (the first copy masked) run on K2
+    # over [0, CH_SPAN_AT), then, timed, over CH_SPAN_DIAGS diagonals
+    # through the first copy's cells, continuing the rings; that span is
+    # held to the plain version from the same rings in a worker process
+    ki_m = whole[1]["ki"]
+    span = (CH_SPAN_AT, CH_SPAN_AT + CH_SPAN_DIAGS)
+    ring = cw.ring_buffers(ki_m)
+    real_launch(ki_m, 0, (0, span[0]), ring)
+    before = tuple(t.clone() for t in ring)
+    (sp_out, _, sp_c), sp_ms = _cuda_call(
+        lambda: real_launch(ki_m, 0, span, ring))
+    sp_res = k2_pool.apply_async(_plain_span_check, (_save_span(
+        os.path.join(tmp_dir, "k2_span.pt"), ki_m, before, span, sp_out,
+        None),))
+    k2_work = _wave_work(ki_m, 5 * 4, span)
+    k2_span_shape = (f"the first masked whole-target scan, Qp {ki_m.Qp} x Tp"
+                     f" {ki_m.Tp} x1, diagonals {span[0]}-{span[1]}, C="
+                     f"{sp_c}")
+    print(f"K2 region, masked, over {k2_span_shape} [{card}]: {sp_ms:.3f} ms"
+          f" (CUDA events); plain check started")
+    for s_ in whole:
+        del s_["ki"]
+    del ki_m, ring, before
+
+    # -- 10. the port's CLI, end to end (the exhaustive main path) ------
     golden = dict((n, argv) for n, _prog, argv in cases.CASES)[
         "exhaustive_est2genome"]
     engines.clear()
@@ -1310,7 +1813,7 @@ def main() -> int:
     if cw.engine_name(dev) not in engines:
         raise RuntimeError(f"the CLI did not use {cw.engine_name(dev)}")
 
-    # -- 10. K6/K7 vs plain on est2genome_genomic's comparison, timed ---
+    # -- 11. K6/K7 vs plain on est2genome_genomic's comparison, timed ---
     pair_g, plan_g = max(gjobs, key=lambda j: (j[0].region.query_length + 1)
                          * (j[1].W + 1))
     q_g, w_g = pair_g.region.query_length, plan_g.W
@@ -1337,7 +1840,7 @@ def main() -> int:
           f"protein2genome {pk_rev:.3f} / {pk_fwd:.3f} ms (summed over "
           f"{len(p_shapes)} launches)")
 
-    # -- 11. the plain checks (started in phases 4 to 6) -----------------
+    # -- 12. the plain checks and native routes (started in phases 4 to 9)
     wait_t0 = time.perf_counter()
     for pname, idx, res in pending:
         left = DEADLINE_S - (time.perf_counter() - t_start)
@@ -1350,17 +1853,84 @@ def main() -> int:
             raise RuntimeError(f"{pname}: kernel != plain on comparisons "
                                f"{idx} (max err {err})")
         band_err = max(band_err, err)
-    for pool in pools:
-        pool.close()
     print(f"plain checks: kernel == plain on all {len(sjobs)} comparisons "
           f"of the est2genome scan, comparisons {c_check} of the "
           f"coding2genome scan and {p_check} of the protein2genome scan "
           f"(bits, live; column best, live, xband) and on the protein2genome"
           f" -E run's other K1/K4 launches, the est2genome -E run's widest "
-          f"masked K1 and first masked K4 and the locus pool's sampled pairs"
-          f" (scores, ends, starts; cube, walk-back), "
-          f"{time.perf_counter() - check_t0:.1f} s after they started, "
-          f"{time.perf_counter() - wait_t0:.1f} s of it waited for")
+          f"masked K1 and first masked K4, the locus pool's sampled pairs"
+          f" and K2's forced batches (scores, ends, starts; cube, "
+          f"walk-back), {time.perf_counter() - check_t0:.1f} s after they "
+          f"started, {time.perf_counter() - wait_t0:.1f} s of it waited for")
+    # the native routes of phases 6a and 9 (worker processes)
+    left = DEADLINE_S - (time.perf_counter() - t_start)
+    nat_we, nat_secs_we, nat_eng, nat_falls = nat_we_res.get(
+        timeout=max(left, 1.0))
+    if nat_falls or any("wavefront" in e for e in nat_eng):
+        raise RuntimeError(f"est2genome -E yes native route: engines "
+                           f"{nat_eng}, fallbacks {nat_falls}")
+    if out_we != nat_we:
+        raise RuntimeError("est2genome -E yes: the kernels' output differs "
+                           "from the native route's")
+    print(f"est2genome -E yes Waterman-Eggert (phase 6a): byte-equal to the "
+          f"native route (engines {nat_eng}; {nat_secs_we:.2f} s host clock "
+          f"in a worker process, against the kernels' {secs_we:.2f} s)")
+    ch_lines = [ln.split() for ln in out_ch.splitlines()
+                if ln.startswith("vulgar:")]
+    for k, (w0, res) in enumerate(ch_windows):
+        out_w, secs_w, eng_w, falls_w = res.get(
+            timeout=max(DEADLINE_S - (time.perf_counter() - t_start), 1.0))
+        if falls_w or any("wavefront" in e for e in eng_w):
+            raise RuntimeError(f"window {k} native route: engines {eng_w}, "
+                               f"fallbacks {falls_w}")
+        lines = [ln.split() for ln in out_w.splitlines()
+                 if ln.startswith("vulgar:")]
+        if len(lines) != 1:
+            raise RuntimeError(f"window {k} at {w0}: want one vulgar line, "
+                               f"got {lines}")
+        v = list(lines[0])
+        v[6], v[7] = str(int(v[6]) + w0), str(int(v[7]) + w0)
+        if v not in ch_lines:
+            raise RuntimeError(f"chromosome-scale -E yes: no line equals the "
+                               f"native route's on the window at {w0}: {v} "
+                               f"not in {ch_lines}")
+        print(f"chromosome-scale -E yes copy {k}: its vulgar line equals the "
+              f"native route's on the {CH_WIN} bp window at {w0}, shifted "
+              f"({secs_w:.2f} s host clock in a worker process; engines "
+              f"{eng_w})")
+    # K1 at the full shape, on its side stream since phase 9b
+    wait_k1 = time.perf_counter()
+    side.synchronize()
+    k1_full_ms = k1_full["ev"][0].elapsed_time(k1_full["ev"][1])
+    k1_err = _max_err(k1_full["out"], whole[0]["out"])
+    if k1_err or not torch.equal(k1_full["out"], whole[0]["out"]):
+        raise RuntimeError(f"K2 != K1 at the full shape ({k2_shape}): "
+                           f"{whole[0]['out'].tolist()} vs "
+                           f"{k1_full['out'].tolist()}")
+    print(f"K2 == K1 at the full shape ({k2_shape}; score, ends, starts) "
+          f"[{card}]: K2 {k2_ms:.3f} ms (C={whole[0]['C']}), K1 "
+          f"{k1_full_ms:.3f} ms (one CTA, on a side stream beside the rest "
+          f"of the phase; {time.perf_counter() - wait_k1:.1f} s waited for)")
+    del k1_full
+    for pool in pools:
+        pool.close()
+    k2_res = [res.get() for _n, _ms, res in k2_checks]
+    k2_err = max(max(err for _ok, err, _s, _d in k2_res), k1_err)
+    # the span launches of phase 9d-e against the plain version
+    span_err, span_s = {}, {}
+    for key, label, res in (
+            ("K2", "K2 region, masked, over " + k2_span_shape, sp_res),
+            ("K4", f"K4 on a cluster, the checkpointed traceback's first "
+                   f"segment walked, diagonals {ck['check_span']}", ck_res)):
+        ok, span_err[key], span_s[key], n_diag = res.get(
+            timeout=max(DEADLINE_S - (time.perf_counter() - t_start), 1.0))
+        print(f"plain check {label}: {span_s[key]:.1f} s on one host core "
+              f"({n_diag} diagonals); max |kernel - plain| {span_err[key]}")
+        if not ok:
+            raise RuntimeError(f"{label}: kernel != plain (max err "
+                               f"{span_err[key]})")
+    k2_err = max(k2_err, *span_err.values())
+    report["K4"] = (max(report["K4"][0], span_err["K4"]),) + report["K4"][1:]
     report["K6"] = (band_err, k_rev, p_rev, genomic_work[0])
     report["K7"] = (band_err, k_fwd, p_fwd, genomic_work[1])
     # K9's and K3's plain times: the plain version on one host core (worker
@@ -1369,6 +1939,8 @@ def main() -> int:
     report["K9"] = (k9_err, e_ms, k9_plain_s * 1e3, k9_work)
     _, k3_err, k3_plain_s, _ = we_pending["K1"].get()
     report["K3"] = (k3_err, k3_ms, k3_plain_s * 1e3, k3_work)
+    # K2's plain time: the ragged forced batch on one host core
+    report["K2"] = (k2_err, sp_ms, span_s["K2"] * 1e3, k2_work)
 
     src = "exonerate_tpu_torch/csrc/"
     pw = "exonerate_tpu/engine/pallas_wavefront.py"
@@ -1392,6 +1964,13 @@ def main() -> int:
          f"est2genome -E yes run's widest masked scan, {k3_shape}; plain ms "
          f"on one host core)", "K3", "K3", src + "wavefront.cu",
          pw + ":1129"),
+        (f"K2 wavefront_stream_scan: the cluster instantiation of K1 "
+         f"(region, masked, {k2_span_shape}, continuing the rings of "
+         f"diagonals 0-{CH_SPAN_AT}; plain ms on one host core; max err "
+         f"also over the forced batches, K1 at the whole scan's shape and "
+         f"the checkpointed traceback's end segment; a whole-target scan: "
+         f"{k2_ms:.3f} ms)", "K2", "K2", src + "wavefront.cu",
+         pw + ":438"),
     ]
     rows = []
     for kname, lkey, rkey, source, replaces in kernels:

@@ -1,5 +1,6 @@
 // Exhaustive anti-diagonal Viterbi for a batch of pairs: K1 (score and
-// region modes) and K4 (path mode), hand-written for Hopper (sm_90a).
+// region modes), K4 (path mode) and K2 (the streamed wavefront, score and
+// region modes), hand-written for Hopper (sm_90a).
 //
 // Replaces exonerate_tpu/engine/pallas_wavefront.py: the Pallas kernel
 // built by build_pallas_wavefront (:427; body `kernel` :593 and
@@ -59,8 +60,33 @@
 // diagonal reads get ring rows, and only live (state, lane) slots are
 // stored (_storage_plan).  64 CTAs fill 64 of the 132 SMs; speed is
 // later work.
+//
+// Kernel K2, the streamed wavefront (build_pallas_wavefront(...,
+// stream=True), :438, window DMAs :607-640), is the cluster
+// instantiation of the same cells.  The TPU streams the reversed target
+// vectors from HBM through a per-diagonal VMEM window because a
+// chromosome-scale target does not fit VMEM; here K1 already reads its
+// target vectors from global memory, so what a chromosome-scale pair at
+// B=1 lacks is SMs, not memory: one CTA walks ~1.2 M diagonals of ~9
+// cells per thread.  K2 runs each pair on a thread-block cluster of C
+// CTAs, about one cell per thread per diagonal at Qp 2304, with a
+// cluster barrier per diagonal.  K1, K4 and K2 are instantiations of one
+// kernel template (wavefront_kernel; CLUSTER is K2), so the plan
+// semantics cannot drift apart.
+//
+// The checkpointed traceback (find_path_checkpointed,
+// exonerate_tpu/engine/wavefront.py:700: an XLA route over diagonal
+// segments, the reference's --dpmemory bound) also runs on the cluster
+// instantiation: a launch may run a span [d_begin, d_end) of the
+// diagonals, continuing the carry ring that the launch before it left,
+// and in path mode it writes only that span's traceback planes (K4 on a
+// cluster).  A pair whose cube does not fit the card (a path across a
+// chromosome-scale target) is walked back one segment at a time.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -69,6 +95,8 @@ constexpr int32_t HIGH = 987654321;       // IMPOSSIBLY_HIGH_SCORE
 constexpr int THREADS = 256;              // a power of two (final reduce)
 constexpr int MAX_L = 6;                  // lanes per state (cuda_wavefront)
 constexpr int LEAN_L = 4;                 // ... in the lean instantiation
+constexpr int MAX_CLUSTER = 16;           // K2: CTAs per pair, non-portable
+constexpr int PORTABLE_CLUSTER = 8;       // ... without that attribute
 
 // plan-table columns (engine/wavefront.py: P_*)
 constexpr int P_AQ = 0;
@@ -144,6 +172,11 @@ struct Params {
     int nq, nt, ntab, nsc;
     int n_plan, B, Qp, Tp, S, L, NR, NL, R, n_shadow;
     int start_id, end_id, start_scope, end_scope;
+    // CLUSTER only: the diagonals [d_begin, d_end) of this launch, which
+    // continues the carry ring a launch over [0, d_begin) left (a segment
+    // of the checkpointed traceback); tb then holds d_end - d_begin
+    // diagonals, diagonal d at d - d_begin
+    int d_begin, d_end;
 };
 
 __device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
@@ -223,6 +256,34 @@ __device__ __forceinline__ int32_t split_codon(
     return aa < 25 ? qv[(row[P_C0] + aa) * W + i] : 0;
 }
 
+// K2's pieces, compiled away in K1/K4 (CLUSTER false): the cluster's
+// size and this CTA's rank in it (1 and 0 without a cluster), the
+// per-diagonal barrier, and a load of the carry ring, which K2 reads
+// past L1 as the other CTAs of its cluster write it
+template <bool CLUSTER>
+__device__ __forceinline__ int cluster_size() {
+    if constexpr (CLUSTER) return (int)cg::this_cluster().num_blocks();
+    else return 1;
+}
+
+template <bool CLUSTER>
+__device__ __forceinline__ int cluster_rank() {
+    if constexpr (CLUSTER) return (int)cg::this_cluster().block_rank();
+    else return 0;
+}
+
+template <bool CLUSTER>
+__device__ __forceinline__ void diagonal_barrier() {
+    if constexpr (CLUSTER) cg::this_cluster().sync();
+    else __syncthreads();
+}
+
+template <bool CLUSTER>
+__device__ __forceinline__ int32_t ld_ring(const int32_t* ptr) {
+    if constexpr (CLUSTER) return __ldcg(ptr);
+    else return *ptr;
+}
+
 // FULL: the plan may hold kernel K9's pieces (a C_SPLIT row or a start
 // lane read from a tvec) and up to MAX_L lanes per state.  The lean
 // instantiation (!FULL) serves the other plans, up to LEAN_L lanes, with
@@ -230,12 +291,33 @@ __device__ __forceinline__ int32_t split_codon(
 // the models served before K9 keep the code they had.  MASKED: the batch
 // carries a SubOpt mask plane (K3); the mask-free launches keep the code
 // they had.
-template <int MODE, bool FULL, bool MASKED>
+//
+// CLUSTER: kernel K2, the streamed wavefront (score and region modes;
+// path mode runs the checkpointed traceback's segments, over the span
+// [p.d_begin, p.d_end) of the diagonals):
+// the same cells, each pair run by a thread-block cluster of C CTAs so
+// that one long pair (B=1 against a chromosome-scale target) spans C
+// SMs.  Grid B x C, cluster (C, 1, 1): rank r owns the diagonal's cells
+// at i = lo + r*THREADS + tid + k*C*THREADS.  The ring and the target
+// vectors stay in global memory, as in K1 (that is the HBM part of the
+// TPU's K2; its per-diagonal VMEM window has no counterpart here), and
+// one cluster barrier per diagonal (arrive.release / wait.acquire)
+// orders every CTA's ring writes of diagonal d before any CTA's reads
+// at d+1.  The end cell: each CTA reduces its threads as K1 does, then
+// rank 0 reads the C block results through distributed shared memory
+// and reduces them in rank order with the same lexicographic key, and a
+// last cluster barrier keeps the CTAs resident until it has.  K1, K4
+// and K2 are instantiations of this one kernel, so their plan semantics
+// cannot drift apart; without CLUSTER the K2 pieces compile away and K1
+// and K4 keep their code.
+template <int MODE, bool FULL, bool MASKED, bool CLUSTER>
 __global__ void __launch_bounds__(THREADS)
 wavefront_kernel(const Params p) {
     extern __shared__ __align__(16) int32_t smem[];
     const int tid = threadIdx.x;
-    const int b = blockIdx.x;
+    const int C = cluster_size<CLUSTER>();
+    const int rank = cluster_rank<CLUSTER>();
+    const int b = blockIdx.x / C;
     const int S = p.S, L = p.L;
     int32_t* s_plan = smem;
     int32_t* s_ring_row = s_plan + p.n_plan * PLAN_COLS;
@@ -271,11 +353,14 @@ wavefront_kernel(const Params p) {
     int32_t best_qs = 0, best_ts = 0;
 
     const int n_diag = qlen + tlen + 1;
-    for (int d = 0; d < n_diag; ++d) {
+    const int d_first = CLUSTER ? p.d_begin : 0;
+    const int d_stop = CLUSTER && p.d_end < n_diag ? p.d_end : n_diag;
+    for (int d = d_first; d < d_stop; ++d) {
         const int lo = d - tlen > 0 ? d - tlen : 0;
         const int hi = d < qlen ? d : qlen;
         const int slot = d % R;
-        for (int i = lo + tid; i <= hi; i += THREADS) {
+        for (int i = lo + rank * THREADS + tid; i <= hi;
+             i += C * THREADS) {
             const int j = d - i;
             const bool blk = MASKED
                 && ((blk_rows[(size_t)i * TB + (j >> 3)] >> (7 - (j & 7)))
@@ -303,8 +388,9 @@ wavefront_kernel(const Params p) {
                 } else {
                     base = adv == 0
                         ? CV(in)
-                        : ring[((size_t)src_slot * NR + s_ring_row[in]) * W
-                               + si];
+                        : ld_ring<CLUSTER>(
+                        ring + ((size_t)src_slot * NR + s_ring_row[in]) * W
+                        + si);
                     if (base <= NEG) continue;
                 }
                 if ((flags & F_TO_END)
@@ -315,7 +401,8 @@ wavefront_kernel(const Params p) {
                     if (adv == 0) return CV(V_LN + in * L + l);
                     const int lr = s_lane_row[in * L + l];
                     return lr < 0 ? 0
-                        : lring[((size_t)src_slot * NL + lr) * W + si];
+                        : ld_ring<CLUSTER>(
+                            lring + ((size_t)src_slot * NL + lr) * W + si);
                 };
                 int32_t calc = 0;
                 switch (row[P_CALC]) {
@@ -386,7 +473,10 @@ wavefront_kernel(const Params p) {
                         lring[((size_t)slot * NL + lr) * W + i] =
                             CV(V_LN + s * L + l);
                 }
-                if (MODE == MODE_PATH)
+                if constexpr (MODE == MODE_PATH && CLUSTER)
+                    p.tb[(((size_t)b * (p.d_end - p.d_begin) + (d - d_first))
+                          * S + s) * W + i] = (uint8_t)CV(V_TB + s);
+                else if constexpr (MODE == MODE_PATH)
                     p.tb[(((size_t)b * (p.Qp + p.Tp + 1) + d) * S + s) * W
                          + i] = (uint8_t)CV(V_TB + s);
             }
@@ -401,7 +491,7 @@ wavefront_kernel(const Params p) {
                 }
             }
         }
-        __syncthreads();
+        diagonal_barrier<CLUSTER>();
     }
 #undef CV
 
@@ -430,7 +520,25 @@ wavefront_kernel(const Params p) {
         }
         __syncthreads();
     }
-    if (tid == 0) {
+    if constexpr (CLUSTER) {
+        cg::cluster_group cluster = cg::this_cluster();
+        cluster.sync();     // every CTA's block result is in its smem
+        if (rank == 0 && tid == 0) {
+            for (int r = 1; r < C; ++r) {
+                const int32_t* o = cluster.map_shared_rank(r_s, r);
+                const int32_t* o_j = o + THREADS;
+                const int32_t* o_i = o_j + THREADS;
+                if (better(o[0], o_j[0], o_i[0], r_s[0], r_j[0], r_i[0])) {
+                    r_s[0] = o[0];
+                    r_j[0] = o_j[0];
+                    r_i[0] = o_i[0];
+                    r_qs[0] = o_i[THREADS];
+                    r_ts[0] = o_i[2 * THREADS];
+                }
+            }
+        }
+    }
+    if (rank == 0 && tid == 0) {
         const bool found = r_s[0] > NEG;
         p.out[0 * p.B + b] = found ? r_s[0] : NEG;
         p.out[1 * p.B + b] = found ? r_i[0] : 0;
@@ -438,21 +546,30 @@ wavefront_kernel(const Params p) {
         p.out[3 * p.B + b] = found ? r_qs[0] : 0;
         p.out[4 * p.B + b] = found ? r_ts[0] : 0;
     }
+    // rank 0 has read every CTA's shared memory before any CTA exits
+    if constexpr (CLUSTER) cg::this_cluster().sync();
+}
+
+// dynamic shared memory of a CTA (cuda_wavefront.smem_bytes)
+template <int MODE>
+size_t smem_bytes(const Params& p) {
+    const int lanes = p.L > 0 ? p.L : 1;
+    int cell_vars = p.S + p.S * p.L + (MODE == MODE_PATH ? p.S : 0);
+    if (cell_vars < 5) cell_vars = 5;   // the final reduce reuses it
+    return sizeof(int32_t)
+        * ((size_t)p.n_plan * PLAN_COLS + p.S + (size_t)p.S * lanes
+           + (size_t)cell_vars * THREADS);
 }
 
 template <int MODE, bool FULL, bool MASKED>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-    const int lanes = p.L > 0 ? p.L : 1;
-    int cell_vars = p.S + p.S * p.L + (MODE == MODE_PATH ? p.S : 0);
-    if (cell_vars < 5) cell_vars = 5;   // the final reduce reuses it
-    const size_t smem = sizeof(int32_t)
-        * ((size_t)p.n_plan * PLAN_COLS + p.S + (size_t)p.S * lanes
-           + (size_t)cell_vars * THREADS);
+    const size_t smem = smem_bytes<MODE>(p);
     cudaError_t err = cudaFuncSetAttribute(
-        wavefront_kernel<MODE, FULL, MASKED>,
+        wavefront_kernel<MODE, FULL, MASKED, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    wavefront_kernel<MODE, FULL, MASKED><<<p.B, THREADS, smem, stream>>>(p);
+    wavefront_kernel<MODE, FULL, MASKED, false>
+        <<<p.B, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
@@ -464,6 +581,78 @@ cudaError_t launch(const Params& p, bool full, bool masked,
                     : launch<MODE, false, true>(p, stream);
     return full ? launch<MODE, true, false>(p, stream)
                 : launch<MODE, false, false>(p, stream);
+}
+
+// K2 with C CTAs per pair.  cluster > 0 asks for that size; 0 takes
+// C = min(ceil(rows / THREADS), Cmax), rows the widest diagonal of the
+// batch (its largest qlen + 1) and Cmax the larger of MAX_CLUSTER (a
+// non-portable size) and PORTABLE_CLUSTER that
+// cudaOccupancyMaxActiveClusters admits at this launch's shared memory.
+// A size that cannot launch is an error: there is no fallback.  The size
+// launched is written to *used.
+template <int MODE, bool FULL, bool MASKED>
+cudaError_t launch_stream(const Params& p, int cluster, int rows, int* used,
+                          cudaStream_t stream) {
+    auto kern = wavefront_kernel<MODE, FULL, MASKED, true>;
+    const size_t smem = smem_bytes<MODE>(p);
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.blockDim = dim3(THREADS, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    // clusters of size c that fit on the card at once (0: none fits)
+    auto admitted = [&](int c) -> int {
+        attr[0].val.clusterDim.x = c;
+        cfg.gridDim = dim3(p.B * c, 1, 1);
+        int n = 0;
+        if (cudaOccupancyMaxActiveClusters(&n, kern, &cfg) != cudaSuccess) {
+            (void)cudaGetLastError();     // a refused size: not sticky
+            return 0;
+        }
+        return n;
+    };
+    int C = cluster;
+    if (C <= 0) {
+        const int cmax = admitted(MAX_CLUSTER) > 0 ? MAX_CLUSTER
+            : admitted(PORTABLE_CLUSTER) > 0 ? PORTABLE_CLUSTER : 0;
+        if (cmax == 0) return cudaErrorInvalidConfiguration;
+        const int want = (rows + THREADS - 1) / THREADS;
+        C = want < 1 ? 1 : want < cmax ? want : cmax;
+    }
+    if (C > MAX_CLUSTER || admitted(C) < 1)
+        return cudaErrorInvalidConfiguration;
+    attr[0].val.clusterDim.x = C;
+    cfg.gridDim = dim3(p.B * C, 1, 1);
+    *used = C;
+    err = cudaLaunchKernelEx(&cfg, kern, p);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_stream(const Params& p, bool full, bool masked,
+                          int cluster, int rows, int* used,
+                          cudaStream_t stream) {
+    if (masked)
+        return full
+            ? launch_stream<MODE, true, true>(p, cluster, rows, used, stream)
+            : launch_stream<MODE, false, true>(p, cluster, rows, used,
+                                               stream);
+    return full
+        ? launch_stream<MODE, true, false>(p, cluster, rows, used, stream)
+        : launch_stream<MODE, false, false>(p, cluster, rows, used, stream);
 }
 
 }  // namespace
@@ -482,7 +671,7 @@ extern "C" int wavefront_launch(
     Params p{plan, ring_row, lane_row, dims, qvecs, tvecs, tables, scalars,
              ring, lring, tb, blocked, out, nq, nt, ntab, nsc, n_plan, B, Qp,
              Tp, S, L, NR, NL, R, n_shadow, start_id, end_id, start_scope,
-             end_scope};
+             end_scope, 0, 0};
     cudaStream_t s = (cudaStream_t)stream;
     const bool full = split || L > LEAN_L;
     const bool masked = blocked != nullptr;
@@ -493,6 +682,53 @@ extern "C" int wavefront_launch(
             err = launch<MODE_REGION>(p, full, masked, s);
             break;
         case MODE_PATH: err = launch<MODE_PATH>(p, full, masked, s); break;
+        default: err = cudaErrorInvalidValue;
+    }
+    return (int)err;
+}
+
+// K2: the arguments of wavefront_launch, then the cluster size asked for
+// (0: the rule of launch_stream), the batch's widest diagonal, the
+// diagonals [d_begin, d_end) to run (0, INT_MAX: all of them; a later
+// segment continues the ring that the launch before it left) and where
+// to write the cluster size launched.  Score and region modes are K2;
+// path mode (a segment of the checkpointed traceback, tb holding d_end -
+// d_begin diagonals) is K4 on the cluster.
+extern "C" int wavefront_stream_launch(
+    int mode, const int32_t* plan, const int32_t* ring_row,
+    const int32_t* lane_row, const int32_t* dims, const int32_t* qvecs,
+    int nq, const int32_t* tvecs, int nt, const int32_t* tables, int ntab,
+    const int32_t* scalars, int nsc, int32_t* ring, int32_t* lring,
+    uint8_t* tb, int32_t* out, int n_plan, int B, int Qp, int Tp, int S,
+    int L, int NR, int NL, int R, int n_shadow, int start_id, int end_id,
+    int start_scope, int end_scope, int split, const uint8_t* blocked,
+    int cluster, int rows, int d_begin, int d_end, int* cluster_used,
+    void* stream) {
+    if (B <= 0) return 0;
+    if (L > MAX_L || d_begin < 0 || d_end < d_begin
+        || (mode == MODE_PATH) != (tb != nullptr))
+        return (int)cudaErrorInvalidValue;
+    Params p{plan, ring_row, lane_row, dims, qvecs, tvecs, tables, scalars,
+             ring, lring, tb, blocked, out, nq, nt, ntab, nsc, n_plan, B, Qp,
+             Tp, S, L, NR, NL, R, n_shadow, start_id, end_id, start_scope,
+             end_scope, d_begin, d_end};
+    cudaStream_t s = (cudaStream_t)stream;
+    const bool full = split || L > LEAN_L;
+    const bool masked = blocked != nullptr;
+    cudaError_t err;
+    switch (mode) {
+        case MODE_SCORE:
+            err = launch_stream<MODE_SCORE>(p, full, masked, cluster, rows,
+                                            cluster_used, s);
+            break;
+        case MODE_REGION:
+            err = launch_stream<MODE_REGION>(p, full, masked, cluster, rows,
+                                             cluster_used, s);
+            break;
+        case MODE_PATH:
+            err = launch_stream<MODE_PATH>(p, full, masked, cluster, rows,
+                                           cluster_used, s);
+            break;
         default: err = cudaErrorInvalidValue;
     }
     return (int)err;

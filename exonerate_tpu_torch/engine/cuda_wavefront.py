@@ -1,31 +1,43 @@
 """The exhaustive wavefront on hand-written CUDA kernels, and its host side.
 
-Counterpart of ``exonerate_tpu/engine/pallas_wavefront.py``.  Three
+Counterpart of ``exonerate_tpu/engine/pallas_wavefront.py``.  Four
 kernels, each behind a wrapper with a launch counter:
 
 - K1 ``wavefront_scan`` (``csrc/wavefront.cu``, modes score/region)
   replaces ``build_pallas_wavefront`` (``pallas_wavefront.py:427``);
+- K2 ``wavefront_stream_scan`` (the same source, its cluster kernel)
+  replaces the streamed build (``stream=True``, ``:438``): the same
+  function, each pair run by a thread-block cluster of several CTAs, for
+  the batches the JAX package streams (``stream_bytes`` over
+  ``STREAM_VMEM_BYTES``, the rule of ``find_batched``, ``:1437-1445``);
 - K4 ``wavefront_path`` (the same source, mode path) replaces its path
   mode (``:1147``), which writes each state's winning plan id per cell;
 - ``walkback`` (``csrc/walkback.cu``) replaces ``_build_walkback:1550``.
+
+``wavefront_segment`` runs a span of a batch's diagonals on the cluster
+kernel, continuing the carry rings the span before it left: K2 in score
+mode, K4 on a cluster in path mode.  It serves the checkpointed
+traceback (``optimal.find_path_checkpointed``), whose traceback cube
+does not fit the card.
 
 Kernel K9, the split-codon score of protein2genome, coding2genome and
 cdna2genome (``_make_split_pallas_fn``, ``model/phase.py:305``), is not
 a launch of its own: it is the plan's ``C_SPLIT`` calc kind, evaluated
 inside K1 and K4 (and inside the band kernel K7, ``cuda_sdp``), with the
 shadow start vectors as start lanes read from a target vector.
-``K9.launches`` counts the K1/K4/K7 launches whose plan holds it (the
+``K9.launches`` counts the K1/K2/K4/K7 launches whose plan holds it (the
 reverse band pass K6 scores split codons as 0 and carries no lanes).
 
 Kernel K3, the SubOpt mask of Waterman-Eggert re-runs (``_blocked``,
 ``pallas_wavefront.py:1129``), is not a launch of its own either: a
 batch whose pairs carry a mask ships it as packed bits by destination
 cell (``KernelInputs.blocked``) and runs the masked instantiation of
-K1/K4, which bars the plan's match rows (``F_MATCH``) at blocked cells.
+K1/K2/K4, which bars the plan's match rows (``F_MATCH``) at blocked
+cells.
 ``find_batched`` and ``find_path_batched`` take ``subopt`` as one mask
 or a per-job list, like the JAX package's; masked and mask-free jobs
-fall into different buckets.  ``K3.launches`` counts the K1/K4 launches
-that carry a mask plane.
+fall into different buckets.  ``K3.launches`` counts the K1/K2/K4
+launches that carry a mask plane.
 
 The model is not compiled into the kernels: ``to_kernel_inputs``
 flattens ``_build_plan(model)`` into an int32 plan table and the
@@ -67,6 +79,10 @@ MAX_L = 6
 MAX_PLAN = 64
 THREADS = 256
 SMEM_BYTES = 232_448          # shared memory a block may use on Hopper
+# K2's thread-block clusters: CTAs per pair at most (a non-portable size),
+# and the largest size every Hopper part admits
+MAX_CLUSTER = 16
+PORTABLE_CLUSTER = 8
 
 
 class _LaunchCount:
@@ -77,8 +93,18 @@ class _LaunchCount:
 # K7 (cuda_sdp) whose plan holds a split-codon row
 K9 = _LaunchCount()
 
-# kernel K3 (the SubOpt mask): launches of K1/K4 with a mask plane
+# kernel K3 (the SubOpt mask): launches of K1/K2/K4 with a mask plane
 K3 = _LaunchCount()
+
+# kernel K2 (the streamed wavefront): launches of the cluster kernel in
+# score and region modes (whole scans and the checkpointed traceback's
+# forward segments)
+K2 = _LaunchCount()
+
+# above this many bytes of reversed target vectors per call the JAX
+# package streams them from HBM (``pallas_wavefront.STREAM_VMEM_BYTES``);
+# here it routes a batch to K2
+STREAM_VMEM_BYTES = 24 << 20
 
 # device-memory budgets of one launch: the global carry rings, and in
 # path mode the uint8 traceback cube (D x S x (Qp+1) bytes per pair)
@@ -413,10 +439,11 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
     def put(a, dtype=np.int32):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    # the SubOpt mask bits, (Qp+1, ceil((Tp+1)/8)) per pair after
-    # _pad_inputs; a bucket is masked in all its pairs or in none
-    blocked = (np.stack([p["_blocked"] for p in per_pair])
-               if "_blocked" in kind_map else np.zeros(0, np.uint8))
+    # the SubOpt mask bits, (Qp+1, ceil((Tp+1)/8)) per pair; a bucket is
+    # masked in all its pairs or in none (one pair's plane is not copied)
+    blocked = (np.zeros(0, np.uint8) if "_blocked" not in kind_map
+               else per_pair[0]["_blocked"][None] if B == 1
+               else np.stack([p["_blocked"] for p in per_pair]))
 
     return KernelInputs(
         plan=put(rows), ring_row=put(ring_row), lane_row=put(lane_row),
@@ -434,7 +461,8 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
         start_scope=_SCOPES[model.start_state.scope],
         end_scope=_SCOPES[model.end_state.scope], mode=mode,
         split=bool((rows[:, P_CALC] == C_SPLIT).any()
-                   or (rows[:, P_ST_SRC0::2] >= ST_TVEC).any()))
+                   or (rows[:, P_ST_SRC0::2] >= ST_TVEC).any()),
+        qmax=int(dims[:, 2].max()))
 
 
 def max_batch(model: Model, Qp: int, Tp: int, mode: str,
@@ -452,6 +480,34 @@ def max_batch(model: Model, Qp: int, Tp: int, mode: str,
         n = min(n, PATH_TB_BYTES // ((Qp + Tp + 1) * len(model.states) * W
                                      + plane))
     return n
+
+
+def _qv(Qp: int) -> int:
+    """The TPU kernel's lane-aligned width of the i axis
+    (``pallas_wavefront._qv``)."""
+    return ((Qp + 1 + 127) // 128) * 128
+
+
+def n_rev(kinds: tuple) -> int:
+    """The reversed (target-indexed) vectors the JAX package ships for a
+    bucket of ``kinds`` (``pack_batched_inputs``' ``meta["wire"]``): one
+    per factored calc (its target classes) and one per target vector."""
+    return sum(1 for _key, kind in kinds if kind in ("factored", "tvec"))
+
+
+def stream_bytes(kinds: tuple, B: int, Qp: int, Tp: int) -> int:
+    """Bytes of a batch's reversed, padded int32 target vectors in the
+    TPU kernel's VMEM (``pallas_wavefront.find_batched``, ``:1437-1443``),
+    for ``B`` pairs rounded up to a power of two, as the JAX package pads
+    each chunk (``_chunk_pow2``)."""
+    Bp = 1 << max(B - 1, 0).bit_length()
+    return n_rev(kinds) * Bp * (2 * _qv(Qp) + 128 + Tp + 1 + 264) * 4
+
+
+def streams(kinds: tuple, B: int, Qp: int, Tp: int) -> bool:
+    """Whether the JAX package streams this batch (K2): its footprint is
+    over ``STREAM_VMEM_BYTES``."""
+    return stream_bytes(kinds, B, Qp, Tp) > STREAM_VMEM_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -512,40 +568,74 @@ def _check_inputs(ki: KernelInputs) -> None:
         raise ValueError(f"no wavefront engine for device {dev}")
 
 
-def _launch(ki: KernelInputs):
+def ring_buffers(ki: KernelInputs) -> tuple:
+    """The (ring, lring) carry rings of a batch, (B, K+1, rows, Qp+1)
+    int32 on its device: what a launch leaves and the next segment of
+    the checkpointed traceback continues."""
+    B, W, R = ki.batch, ki.Qp + 1, ki.K + 1
+    dev = ki.dims.device
+    return (torch.full((B, R, max(ki.NR, 1), W), NEG, dtype=torch.int32,
+                       device=dev),
+            torch.zeros((B, R, max(ki.NL, 1), W), dtype=torch.int32,
+                        device=dev))
+
+
+def _rows(ki: KernelInputs) -> int:
+    """The widest diagonal of the batch: its largest qlen + 1."""
+    return (ki.qmax if ki.qmax else int(ki.dims[:, 2].max())) + 1
+
+
+def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
+            ring=None):
     """Launch csrc/wavefront.cu on the current stream of the tensors'
-    card.  Returns (out (5, B) int32, tb or None)."""
-    fn = _lib("wavefront", "wavefront_launch",
-              [_I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I,
-               _P, _P, _P, _P] + [_I] * 15 + [_P, _P])
+    card: K1/K4 (``wavefront_launch``), or the cluster kernel
+    (``wavefront_stream_launch``) when ``cluster`` is given, with that
+    many CTAs per pair (0: the kernel's rule), over the diagonals ``span``
+    = (d0, d1) continuing the carry rings ``ring`` when given.  Returns
+    (out (5, B) int32, tb or None, CTAs per pair)."""
     dev = ki.dims.device
     B, W, D, R = ki.batch, ki.Qp + 1, ki.Qp + ki.Tp + 1, ki.K + 1
+    d0, d1 = span if span is not None else (0, D)
     out = torch.empty((5, B), dtype=torch.int32, device=dev)
-    ring = torch.empty((B, R, max(ki.NR, 1), W), dtype=torch.int32,
-                       device=dev)
-    lring = torch.empty((B, R, max(ki.NL, 1), W), dtype=torch.int32,
-                        device=dev)
-    tb = (torch.empty((B, D, ki.S, W), dtype=torch.uint8, device=dev)
+    if ring is None:
+        ring = (torch.empty((B, R, max(ki.NR, 1), W), dtype=torch.int32,
+                            device=dev),
+                torch.empty((B, R, max(ki.NL, 1), W), dtype=torch.int32,
+                            device=dev))
+    tb = (torch.empty((B, d1 - d0, ki.S, W), dtype=torch.uint8, device=dev)
           if ki.mode == "path" else None)
     mode = {"score": 0, "region": 1, "path": 2}[ki.mode]
+    head = [mode, ki.plan.data_ptr(), ki.ring_row.data_ptr(),
+            ki.lane_row.data_ptr(), ki.dims.data_ptr(),
+            ki.qvecs.data_ptr(), ki.qvecs.shape[1],
+            ki.tvecs.data_ptr(), ki.tvecs.shape[1],
+            ki.tables.data_ptr(), ki.tables.shape[1],
+            ki.scalars.data_ptr(), ki.scalars.shape[1],
+            ring[0].data_ptr(), ring[1].data_ptr(),
+            tb.data_ptr() if tb is not None else None, out.data_ptr()]
+    tail = [ki.plan.shape[0], B, ki.Qp, ki.Tp, ki.S, ki.L,
+            max(ki.NR, 1), max(ki.NL, 1), R, ki.n_shadow, ki.start_id,
+            ki.end_id, ki.start_scope, ki.end_scope, int(ki.split),
+            ki.blocked.data_ptr() if ki.masked else None]
+    args = [_I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P,
+            _P, _P] + [_I] * 15 + [_P]
+    used = _I(1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(mode, ki.plan.data_ptr(), ki.ring_row.data_ptr(),
-                ki.lane_row.data_ptr(), ki.dims.data_ptr(),
-                ki.qvecs.data_ptr(), ki.qvecs.shape[1],
-                ki.tvecs.data_ptr(), ki.tvecs.shape[1],
-                ki.tables.data_ptr(), ki.tables.shape[1],
-                ki.scalars.data_ptr(), ki.scalars.shape[1],
-                ring.data_ptr(), lring.data_ptr(),
-                tb.data_ptr() if tb is not None else None, out.data_ptr(),
-                ki.plan.shape[0], B, ki.Qp, ki.Tp, ki.S, ki.L,
-                max(ki.NR, 1), max(ki.NL, 1), R, ki.n_shadow, ki.start_id,
-                ki.end_id, ki.start_scope, ki.end_scope, int(ki.split),
-                ki.blocked.data_ptr() if ki.masked else None, stream)
+        if cluster is None:
+            fn = _lib("wavefront", "wavefront_launch", args + [_P])
+            rc = fn(*head, *tail, stream)
+        else:
+            fn = _lib("wavefront", "wavefront_stream_launch",
+                      args + [_I] * 4 + [ctypes.POINTER(_I), _P])
+            rc = fn(*head, *tail, cluster, _rows(ki), d0,
+                    d1 if span is not None else 2**31 - 1,
+                    ctypes.byref(used), stream)
     if rc != 0:
-        raise RuntimeError(f"wavefront kernel ({ki.mode}) launch failed: "
+        kernel = "cluster" if cluster is not None else "wavefront"
+        raise RuntimeError(f"{kernel} kernel ({ki.mode}) launch failed: "
                            f"CUDA error {rc}")
-    return out, tb
+    return out, tb, used.value
 
 
 def wavefront_scan(ki: KernelInputs) -> torch.Tensor:
@@ -557,7 +647,7 @@ def wavefront_scan(ki: KernelInputs) -> torch.Tensor:
     _check_inputs(ki)
     if ki.dims.device.type == "cpu":
         return wf.plain_wavefront(ki)[0]
-    out, _ = _launch(ki)
+    out, _, _ = _launch(ki)
     wavefront_scan.launches += 1
     K9.launches += ki.split
     K3.launches += ki.masked
@@ -565,6 +655,60 @@ def wavefront_scan(ki: KernelInputs) -> torch.Tensor:
 
 
 wavefront_scan.launches = 0
+
+
+def wavefront_stream_scan(ki: KernelInputs) -> torch.Tensor:
+    """K2: the whole wavefront of a batch in score or region mode, each
+    pair on a thread-block cluster of C CTAs: as many as the widest
+    diagonal fills, up to the largest cluster the card admits (a size
+    that cannot launch raises).  The same function as
+    ``wavefront_scan``, and the same output."""
+    if ki.mode not in ("score", "region"):
+        raise ValueError(f"wavefront_stream_scan runs score/region, not "
+                         f"{ki.mode}")
+    _check_inputs(ki)
+    if ki.dims.device.type == "cpu":
+        return wf.plain_wavefront(ki)[0]
+    out, _, _ = _launch(ki, 0)
+    K2.launches += 1
+    K9.launches += ki.split
+    K3.launches += ki.masked
+    return out
+
+
+def wavefront_segment(ki: KernelInputs, ring: tuple, span: tuple):
+    """One segment of the checkpointed traceback on the cluster kernel:
+    the diagonals ``span`` = (d0, d1) of a batch, continuing the carry
+    rings ``ring`` (``ring_buffers(ki)`` as the segment before left
+    them; updated in place).  Score mode is K2 (the forward pass); path
+    mode is K4 on a cluster (the walk back), its tb the (B, d1 - d0, S,
+    Qp+1) planes of the span.  Returns (out, tb or None): out the best
+    end cell within the span, as for ``wavefront_scan``."""
+    if ki.mode not in ("score", "path"):
+        raise ValueError(f"wavefront_segment runs score/path, not "
+                         f"{ki.mode}")
+    d0, d1 = span
+    if not 0 <= d0 <= d1 <= ki.Qp + ki.Tp + 1:
+        raise ValueError(f"span {span} outside the {ki.Qp + ki.Tp + 1} "
+                         f"diagonals of the batch")
+    _check_inputs(ki)
+    want = (ki.batch, ki.K + 1, max(ki.NR, 1), ki.Qp + 1)
+    for t, rows in zip(ring, (ki.NR, ki.NL)):
+        if t.dtype != torch.int32 or t.device != ki.dims.device \
+                or not t.is_contiguous() \
+                or tuple(t.shape) != want[:2] + (max(rows, 1), want[3]):
+            raise ValueError("wavefront_segment: ring must be the pair "
+                             "ring_buffers(ki) makes")
+    if ki.dims.device.type == "cpu":
+        return wf.plain_wavefront(ki, span, ring)
+    out, tb, _ = _launch(ki, 0, span, ring)
+    if ki.mode == "path":
+        wavefront_path.launches += 1
+    else:
+        K2.launches += 1
+    K9.launches += ki.split
+    K3.launches += ki.masked
+    return out, tb
 
 
 def wavefront_path(ki: KernelInputs):
@@ -576,7 +720,7 @@ def wavefront_path(ki: KernelInputs):
     _check_inputs(ki)
     if ki.dims.device.type == "cpu":
         return wf.plain_wavefront(ki)
-    out, tb = _launch(ki)
+    out, tb, _ = _launch(ki)
     wavefront_path.launches += 1
     K9.launches += ki.split
     K3.launches += ki.masked
@@ -654,10 +798,12 @@ def _masked(kinds: tuple) -> bool:
 
 def find_batched(model: Model, jobs: list, mode: str = "region",
                  device: Optional[torch.device] = None,
-                 subopt=None) -> list:
-    """Score or region DP of (region, data) jobs on K1, under ``subopt``
-    (one SubOpt mask or a per-job list) when given.  Returns one DPResult
-    per job (starts are 0 in score mode)."""
+                 subopt=None, stream: Optional[bool] = None) -> list:
+    """Score or region DP of (region, data) jobs, under ``subopt`` (one
+    SubOpt mask or a per-job list) when given.  Each chunk of a bucket
+    runs on K2 when ``stream`` is True, on K1 when it is False, and by the
+    JAX package's streaming test (``streams``) when it is None.  Returns
+    one DPResult per job (starts are 0 in score mode)."""
     dev = device if device is not None else default_device()
     out: list = [None] * len(jobs)
     for (Qp, Tp, kinds), items in _buckets(model, jobs, subopt).items():
@@ -666,7 +812,10 @@ def find_batched(model: Model, jobs: list, mode: str = "region",
             chunk = items[lo:lo + cap]
             ki = to_kernel_inputs(model, [inp for _, inp in chunk], kinds,
                                   dev, mode)
-            res = wavefront_scan(ki).cpu().tolist()
+            use_stream = (streams(kinds, len(chunk), Qp, Tp)
+                          if stream is None else stream)
+            scan = wavefront_stream_scan if use_stream else wavefront_scan
+            res = scan(ki).cpu().tolist()
             observe.count_engine(engine_name(dev), len(chunk))
             for b, (n, _) in enumerate(chunk):
                 out[n] = DPResult(score=res[0][b], query_end=res[1][b],
@@ -682,16 +831,15 @@ def find_path_batched(model: Model, jobs: list, subopt=None,
     mask or a per-job list) when given.  Returns DPResults with ``.path``;
     an entry is None when the job's traceback cube is over the budget or
     its path is longer than the walk cap (the caller then runs it on the
-    host)."""
+    host, or on the checkpointed traceback)."""
     dev = device if device is not None else default_device()
     out: list = [None] * len(jobs)
     plan_ts = _plan_transitions(model)
     for (Qp, Tp, kinds), items in _buckets(model, jobs, subopt).items():
         cap_b = max_batch(model, Qp, Tp, "path", _masked(kinds))
         if cap_b < 1:
-            observe.count_fallback(
-                f"{engine_name(dev)}->host: traceback cube over "
-                f"{PATH_TB_BYTES >> 20} MB", len(items))
+            # the caller runs the checkpointed traceback (as the JAX
+            # package's find_path_batched leaves these jobs to XLA's)
             continue
         wcap = Qp + Tp + 1 + WALK_SLACK
         for lo in range(0, len(items), cap_b):

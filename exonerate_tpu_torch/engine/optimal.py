@@ -15,11 +15,16 @@ and mask alone, on whatever device the caller passes:
 - then, for a model the kernels serve, the region scan on K1 and the
   path on K4 + walk-back (``cuda_wavefront``), each with the SubOpt mask
   plane (kernel K3) when the job is masked;
-- then the native DP within its budget; past it, only
-  ``find_path_checkpointed`` could run the DP, and it is not ported.
+- then the native DP within its budget; past it the checkpointed
+  traceback (``find_path_checkpointed``) on the cluster kernel, as the
+  JAX package runs its XLA one: a forward pass over diagonal segments
+  saving the carry rings, then a walk back that re-runs in path mode
+  only the segments the path crosses, one segment's traceback planes
+  at a time.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -33,6 +38,7 @@ from .region import Region
 from ..model.ir import Model
 
 from . import cuda_wavefront
+from . import wavefront as wf
 
 # below this many cells the interpreter path is cheaper than a kernel
 SMALL_DP_CELLS = 40_000
@@ -137,11 +143,116 @@ def find_path(model: Model, region: Region, data, subopt=None,
         res = _native_res(model, region, data, "path", subopt)
         if res is not None:
             return _thresholded(model, region, res, threshold)
-    raise NotImplementedError(
-        f"exonerate_tpu_torch: a {region.query_length}x"
-        f"{region.target_length} path DP for {model.name} needs the "
-        f"checkpointed traceback (find_path_checkpointed), which is not "
-        f"ported yet")
+    reason = cuda_wavefront.unsupported_reason(model)
+    if reason is not None:
+        raise NotImplementedError(
+            f"exonerate_tpu_torch: a {region.query_length}x"
+            f"{region.target_length} path DP for {model.name} is over the "
+            f"host's budget and the kernels cannot run it ({reason})")
+    D = region.query_length + region.target_length + 1
+    observe.note(2, f"path DP checkpointed: tb cube "
+                    f"{(D * (region.query_length + 1) * len(model.states)) >> 20}"
+                    f" MB over --dpmemory {DP_MEMORY_LIMIT >> 20} MB")
+    res = find_path_checkpointed(model, region, data, subopt,
+                                 budget_bytes=DP_MEMORY_LIMIT, device=device)
+    return _thresholded(model, region, res, threshold)
+
+
+def _better(a: list, b: list) -> bool:
+    """End cell ``a`` = (score, i, j) beats ``b``: score desc, j asc, i asc
+    (the kernels' key)."""
+    return a[0] > b[0] or (a[0] == b[0] and (a[2] < b[2]
+                                             or (a[2] == b[2] and a[1] < b[1])))
+
+
+def _segment_bytes(dev: torch.device, budget_bytes: int) -> int:
+    """Traceback planes per segment of the checkpointed traceback: on a
+    card the budget of K4's cube, so that a path across a
+    chromosome-scale target takes a few launches, not hundreds; on the
+    host ``--dpmemory``'s."""
+    return (cuda_wavefront.PATH_TB_BYTES if dev.type == "cuda"
+            else budget_bytes)
+
+
+def find_path_checkpointed(model: Model, region: Region, data, subopt=None,
+                           budget_bytes: int = DP_MEMORY_LIMIT,
+                           device: Optional[torch.device] = None
+                           ) -> DPResult:
+    """Full-path DP under a traceback-memory budget
+    (``exonerate_tpu/engine/wavefront.py:700``; ref: viterbi.c:128-152,
+    537-633, Hughey checkpointing), on the cluster kernel.
+
+    A forward pass over segments of traceback planes (K2, score mode)
+    saves the carry rings before each segment; the walk back from the
+    best end cell re-runs, from its saved rings, only the segments the
+    path crosses, in path mode (K4 on a cluster), and walks their planes
+    on the host, ``budget_bytes`` of them at a time; a segment holds up
+    to ``_segment_bytes`` of them.  The path is the full cube's: the same
+    cells and the same first-max choices."""
+    dev = device if device is not None else cuda_wavefront.default_device()
+    Q, T = region.query_length, region.target_length
+    D = Q + T + 1
+    Qp, Tp = wf._bucket(Q), wf._bucket(T)
+    inputs, kinds = wf.prepare_inputs(model, region, data, subopt=subopt,
+                                      pad_to=(Qp, Tp), for_pallas=True)
+    ki = cuda_wavefront.to_kernel_inputs(model, inputs, kinds, dev, "path")
+    per_diag = (Qp + 1) * ki.S
+    chunk = max(16, min(D, budget_bytes // per_diag))
+    seg = max(chunk, min(D, _segment_bytes(dev, budget_bytes) // per_diag)
+              // chunk * chunk)
+    spans = [(d0, min(d0 + seg, D)) for d0 in range(0, D, seg)]
+    observe.count_engine(cuda_wavefront.engine_name(dev))
+
+    # forward: the carry rings before each segment, and each one's best
+    fwd = dataclasses.replace(ki, mode="score")
+    ring = cuda_wavefront.ring_buffers(ki)
+    saved, bests = [], []
+    for span in spans:
+        saved.append(tuple(t.clone() for t in ring))
+        out, _ = cuda_wavefront.wavefront_segment(fwd, ring, span)
+        bests.append(out[:3, 0])
+    best = [cuda_wavefront.NEG, 0, 0]
+    for cand in torch.stack(bests).tolist():
+        if _better(cand, best):
+            best = cand
+    score, bi, bj = best
+    if score <= cuda_wavefront.NEG:
+        res = DPResult(score=cuda_wavefront.NEG, query_end=0, target_end=0,
+                       query_start=0, target_start=0)
+        res.path = []
+        return res
+
+    # walk back (ref: Viterbi_Data_create_Alignment, viterbi.c:342-392)
+    plan_ts = cuda_wavefront._plan_transitions(model)
+    aq_t, at_t, in_t, fs_t = ki.walk.tolist()
+    i, j, state = bi, bj, ki.end_id
+    ops: list = []
+    cur, planes, part, tb, lo = -1, None, -1, None, 0
+    while True:
+        k = (i + j) // seg
+        if k != cur:
+            ring = tuple(t.clone() for t in saved[k])
+            planes = None
+            _, planes = cuda_wavefront.wavefront_segment(ki, ring, spans[k])
+            cur, part = k, -1
+        c = (i + j - spans[k][0]) // chunk
+        if c != part:
+            # the chunk of the segment's planes the walk is in, on the host
+            tb = planes[0, c * chunk:(c + 1) * chunk].cpu().numpy()
+            lo, part = spans[k][0] + c * chunk, c
+        tid = int(tb[i + j - lo, state, i])
+        if tid == 0:
+            break
+        ops.append(tid)
+        i -= aq_t[tid]
+        j -= at_t[tid]
+        state = in_t[tid]
+        if fs_t[tid]:
+            break
+    res = DPResult(score=score, query_end=bi, target_end=bj,
+                   query_start=i, target_start=j)
+    res.path = [plan_ts[tid - 1] for tid in reversed(ops)]
+    return res
 
 
 def _thresholded(model: Model, region: Region, res: DPResult,

@@ -4,7 +4,10 @@ Counterpart of ``exonerate_tpu/engine/wavefront.py``.  Two parts:
 
 - Host prep (``prepare_inputs``, ``_pad_inputs``, ``_grid_key``,
   ``_bucket_ladder``, ``_bucket``): NumPy copies of the JAX module's
-  functions, unchanged, so the port needs no JAX to prepare a pair.
+  functions, so the port needs no JAX to prepare a pair.  One change:
+  the SubOpt mask plane is written from the mask's points at the padded
+  width (``blocked_plane``), with the bits the JAX module's dense grid,
+  packed and re-packed by ``_pad_inputs``, gives.
 - ``plain_wavefront`` / ``plain_walkback``: the plain PyTorch version of
   the hand-written kernels in ``csrc/wavefront.cu`` (K1 score/region, K4
   path) and ``csrc/walkback.cu``.  It interprets the same plan table
@@ -64,10 +67,12 @@ def prepare_inputs(model: Model, region: Region, data,
     # blocked-cell plane, addressed by DESTINATION cell
     # (ref: viterbi.c:701-704 SubOpt blocking of match transitions);
     # omitted entirely when empty and bit-packed otherwise to keep
-    # host->device transfer tiny
-    blocked = None if subopt is None else subopt.blocked_grid(region)
-    if blocked is not None and blocked.any():
-        inputs["_blocked"] = np.packbits(blocked, axis=1)
+    # host->device transfer tiny.  Built from the mask's points at the
+    # padded width, never as a dense grid (_pad_inputs keeps it as is)
+    blocked = (None if subopt is None
+               else blocked_plane(subopt, region, Qp, Tp))
+    if blocked is not None:
+        inputs["_blocked"] = blocked
         kinds["_blocked"] = "blocked"
     done = set()
     for t in model.transitions:
@@ -141,6 +146,31 @@ def prepare_inputs(model: Model, region: Region, data,
     return inputs, tuple(sorted(kinds.items()))
 
 
+def blocked_plane(subopt, region: Region, Qp: int, Tp: int):
+    """The SubOpt mask's bits over ``region``'s cells as a packed
+    (Qp+1, ceil((Tp+1)/8)) uint8 plane, written straight from the mask's
+    points: cell (i, j) of the region is bit ``7 - j % 8`` of byte
+    ``j // 8`` in row i, the ``np.packbits(axis=1)`` order of
+    ``SubOpt.blocked_grid(region)`` padded with zeros to (Qp+1, Tp+1), as
+    the JAX package's ``_pad_inputs`` pads it.  None when no point falls
+    in the region.  Costs O(points) and one plane, never a dense grid
+    (2.6 GB of bools at a 2 kb cDNA x 1.2 Mb target)."""
+    Q, T = region.query_length, region.target_length
+    if not subopt.points:
+        return None
+    pts = np.array(list(subopt.points), np.int64).reshape(-1, 2)
+    lq = pts[:, 0] - region.query_start
+    lt = pts[:, 1] - region.target_start
+    ok = (lq >= 0) & (lq <= Q) & (lt >= 0) & (lt <= T)
+    if not ok.any():
+        return None
+    lq, lt = lq[ok], lt[ok]
+    plane = np.zeros((Qp + 1, (Tp + 8) // 8), np.uint8)
+    np.bitwise_or.at(plane, (lq, lt >> 3),
+                     (0x80 >> (lt & 7)).astype(np.uint8))
+    return plane
+
+
 def _pad_inputs(inputs, kinds, Q, T, Qp, Tp):
     """Pad per-pair arrays to a bucket shape (catch-all submat index 24
     for factored vectors; zeros elsewhere)."""
@@ -162,11 +192,9 @@ def _pad_inputs(inputs, kinds, Q, T, Qp, Tp):
             out[k] = np.pad(v, (0, Tp - T))
         elif kind == "grid2d":
             out[k] = np.pad(v, ((0, Qp - Q), (0, Tp - T)))
-        elif kind == "blocked":
-            grid = np.unpackbits(v, axis=1)[:, :T + 1]
-            grid = np.pad(grid, ((0, Qp - Q), (0, Tp - T)))
-            out[k] = np.packbits(grid, axis=1)
         else:
+            # scalars, shadow inputs and the mask plane (blocked_plane
+            # builds it at the padded width)
             out[k] = v
     return out
 
@@ -274,6 +302,8 @@ class KernelInputs:
     mode: str                # "score" | "region" | "path"
     split: bool = False      # the plan holds K9: a split-codon row or a
     #                          start lane read from a tvec
+    qmax: int = 0            # the largest qlen of the batch, known on the
+    #                          host (0: read it from dims)
 
     @property
     def batch(self) -> int:
@@ -330,18 +360,26 @@ def split_codon(phase: int, tin, sel, cand, rows):
     return torch.where(tin >= phase, score, NEG)
 
 
-def plain_wavefront(ki: KernelInputs):
+def plain_wavefront(ki: KernelInputs, span=None, ring=None):
     """The whole wavefront for a batch, in plain PyTorch.
 
     Returns ``(out, tb)``: ``out`` is a (5, B) int32 tensor of score,
     query_end, target_end, query_start, target_start (the starts are 0
     outside region mode; a pair with no alignment reports NEG, 0, 0, 0,
     0), and ``tb`` the (B, Qp+Tp+1, S, Qp+1) uint8 cube of winning plan
-    ids (``plan row + 1``, 0 = unset) in path mode, else None."""
+    ids (``plan row + 1``, 0 = unset) in path mode, else None.
+
+    A segment of the checkpointed traceback runs only the diagonals
+    ``span = (d0, d1)``: ``ring`` is the kernels' (ring, lring) pair of
+    (B, K+1, rows, Qp+1) int32 carry rings, read at d0 (the diagonals
+    before it, as the launch over [0, d0) left them) and written with
+    the span's last diagonals; ``out`` is the best end cell within the
+    span, and ``tb`` holds its d1 - d0 diagonals."""
     want_region = ki.mode == "region"
     want_path = ki.mode == "path"
     dev = ki.dims.device
     B, W, D = ki.batch, ki.Qp + 1, ki.Qp + ki.Tp + 1
+    d0, d1 = span if span is not None else (0, D)
     S, L, K = ki.S, ki.L, ki.K
     rs_q, rs_t = ki.n_shadow, ki.n_shadow + 1
     plan = ki.plan.tolist()
@@ -354,22 +392,28 @@ def plain_wavefront(ki: KernelInputs):
     trev = F.pad(torch.flip(ki.tvecs, dims=(2,)), (W, W + K))
     qv, tabs, scal = ki.qvecs, ki.tables, ki.scalars
     b_sc, b_j, b_qs, b_ts = neg, zero, zero, zero    # per-lane best planes
-    tb = (torch.zeros((B, D, S, W), dtype=torch.uint8, device=dev)
+    tb = (torch.zeros((B, d1 - d0, S, W), dtype=torch.uint8, device=dev)
           if want_path else None)
     blank = ([neg] * S, [[zero] * L for _ in range(S)])
     prev = [blank] * K                # prev[k]: diagonal d-1-k
-    grid = None
-    if ki.masked:
-        # unpack the mask bits to a (B, W, Tp+1) bool grid
-        shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
-        grid = ((ki.blocked[..., None] >> shifts) & 1).reshape(
-            B, W, -1)[:, :, :ki.Tp + 1].bool()
-        i_long = i.long()
+    ring_row = ki.ring_row.tolist()
+    lane_row = ki.lane_row.tolist()
+    if ring is not None:
+        # the carry of the diagonals before d0, from the kernels' rings
+        # (a state or lane without a ring row is never read across one)
+        for k in range(min(K, d0)):
+            slot = (d0 - 1 - k) % (K + 1)
+            prev[k] = (
+                [ring[0][:, slot, r] if r >= 0 else neg for r in ring_row],
+                [[ring[1][:, slot, lr] if lr >= 0 else zero
+                  for lr in lane_row[s][:L]] for s in range(S)])
+    masked = ki.masked
+    i_long = i.long()
 
     def shift(x, aq, fill):
         return F.pad(x[:, :W - aq], (aq, 0), value=fill) if aq else x
 
-    for d in range(D):
+    for d in range(d0, d1):
         j = d - i
         cell_ok = (j >= 0) & (j <= tlen) & (i <= qlen)           # (B, W)
         masks: dict = {}
@@ -378,11 +422,13 @@ def plain_wavefront(ki: KernelInputs):
         scores: list = [None] * S
         lanes: list = [[None] * L for _ in range(S)]
         tbv: list = [None] * S
-        if grid is not None:
-            # the blocked destination cells (i, d - i) of this diagonal
-            jd = d - i_long
-            blk = grid[:, i_long, jd.clamp(0, ki.Tp)] & (jd >= 0) \
-                & (jd <= ki.Tp)
+        if masked:
+            # the blocked destination cells (i, d - i) of this diagonal:
+            # their bits of the packed plane, np.packbits order
+            jd = (d - i_long).clamp(0, ki.Tp)
+            byte = ki.blocked[:, i_long, jd >> 3]
+            blk = (((byte >> (7 - (jd & 7)).to(torch.uint8)) & 1) != 0) \
+                & (d - i_long >= 0) & (d - i_long <= ki.Tp)
         for pid, row in enumerate(plan):
             aq, at = row[P_AQ], row[P_AT]
             inp, out, flags = row[P_IN], row[P_OUT], row[P_FLAGS]
@@ -468,7 +514,7 @@ def plain_wavefront(ki: KernelInputs):
                 val = torch.clamp(val, max=IMPOSSIBLY_HIGH_SCORE)
             val = torch.clamp(val, min=NEG)
             keep = ok if flags & F_FROM_START else ok & (base > NEG)
-            if grid is not None and flags & F_MATCH:
+            if masked and flags & F_MATCH:
                 keep = keep & ~blk
             val = torch.where(keep, val, NEG)
             cur = scores[out] if scores[out] is not None else neg
@@ -505,12 +551,23 @@ def plain_wavefront(ki: KernelInputs):
                 b_qs = torch.where(take_e, e_ln[rs_q], b_qs)
                 b_ts = torch.where(take_e, e_ln[rs_t], b_ts)
         if want_path:
-            tb[:, d] = torch.stack([v if v is not None else zero
-                                    for v in tbv], dim=1).to(torch.uint8)
+            tb[:, d - d0] = torch.stack([v if v is not None else zero
+                                         for v in tbv], dim=1).to(torch.uint8)
         new_diag = ([v if v is not None else neg for v in scores],
                     [[v if v is not None else zero for v in lanes[s]]
                      for s in range(S)])
         prev = [new_diag] + prev[:-1]
+    if ring is not None:
+        # the span's last K diagonals into their ring slots
+        for k in range(min(K, d1)):
+            slot = (d1 - 1 - k) % (K + 1)
+            p_sc, p_ln = prev[k]
+            for s, r in enumerate(ring_row):
+                if r >= 0:
+                    ring[0][:, slot, r] = p_sc[s]
+                for ln, lr in enumerate(lane_row[s][:L]):
+                    if lr >= 0:
+                        ring[1][:, slot, lr] = p_ln[s][ln]
     # lexicographic winner: max score, then min j, then min i
     big = 1 << 30
     m = b_sc.max(dim=1).values

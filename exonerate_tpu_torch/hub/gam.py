@@ -11,7 +11,9 @@ strictly better alignments exist for the query, ranked 1..N in
 descending score order.
 
 The GAM holds the port's device.  The exhaustive enumeration and the
-refinement call the port's ``optimal.find_path`` on it; the seeded
+refinement call the port's ``optimal.find_path`` on it (the enumeration
+with its score threshold, so that a sub-threshold last iteration runs no
+path DP); the seeded
 heuristic's device tier (``sdp_device_active``, ``run_sdp_pool``,
 ``_make_sdp_pair``) runs the port's SDP hybrid on it: the band kernels
 K6/K7 on a card, their plain PyTorch versions on the CPU when
@@ -705,8 +707,16 @@ class GAM:
         subopt = SubOpt() if self.gas.use_subopt else None
         out = []
         while True:
+            # the threshold goes to find_path (Optimal_find_path's
+            # threshold), so an iteration whose region scan scores under
+            # it ends the loop before its path DP: on a chromosome-scale
+            # target that last, discarded alignment can be a chain of
+            # short exons across most of the target, whose path DP is a
+            # checkpointed traceback across it.  The output is the same:
+            # the path DP scores what the scan scores.
             alignment = optimal.find_path(self.model, region, data,
-                                          subopt=subopt, device=self.device)
+                                          subopt=subopt, threshold=threshold,
+                                          device=self.device)
             if alignment is None or alignment.score < threshold:
                 break
             out.append((alignment, data))

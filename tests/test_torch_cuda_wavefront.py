@@ -9,6 +9,7 @@ package's planners are imported inside the tests that compare with
 them, so that on a machine without JAX the card tests run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_cuda_wavefront.py``.
 """
+import dataclasses
 import os
 import re
 
@@ -60,9 +61,9 @@ def _names(ts):
     return [t.name for t in ts]
 
 
-def _split_inputs(mtname, mode, device=CPU, n_jobs=2):
-    """K1/K4 inputs of ``mtname`` on its small split pair (and a shifted
-    sub-box of it), built from the port's host layer."""
+def _split_job(mtname):
+    """(model, region, data) of ``mtname`` on its small split pair, from
+    the port's host layer."""
     kind, cuts = {"PROTEIN2GENOME": ("protein", sc.CUTS),
                   "CODING2GENOME": ("cdna", sc.C2G_CUTS),
                   "CDNA2GENOME": ("cdna", sc.CUTS)}[mtname]
@@ -73,10 +74,17 @@ def _split_inputs(mtname, mode, device=CPU, n_jobs=2):
     mt = ModelType[mtname]
     model = get_model(mt, AlphabetType.PROTEIN if kind == "protein"
                       else AlphabetType.DNA, AlphabetType.DNA)
-    data = AlignData(qs, ts, translate_both(mt))
-    boxes = [Region(0, 0, len(q), len(t)),
-             Region(3, 5, len(q) - 3, len(t) - 20)][:n_jobs]
-    pads = (twf._bucket(len(q)), twf._bucket(len(t)))
+    return (model, Region(0, 0, len(q), len(t)),
+            AlignData(qs, ts, translate_both(mt)))
+
+
+def _split_inputs(mtname, mode, device=CPU, n_jobs=2):
+    """K1/K4 inputs of ``mtname`` on its small split pair (and a shifted
+    sub-box of it), built from the port's host layer."""
+    model, whole, data = _split_job(mtname)
+    nq, nt = whole.query_length, whole.target_length
+    boxes = [whole, Region(3, 5, nq - 3, nt - 20)][:n_jobs]
+    pads = (twf._bucket(nq), twf._bucket(nt))
     per_pair = []
     for region in boxes:
         inputs, kinds = twf.prepare_inputs(model, region, data, pad_to=pads,
@@ -168,11 +176,14 @@ def test_cuda_source_declares_the_python_constants():
     assert int(consts["NEG"]) == twf.NEG
     assert int(consts["HIGH"]) == twf.IMPOSSIBLY_HIGH_SCORE
     assert int(consts["MAX_L"]) == cw.MAX_L
+    assert int(consts["THREADS"]) == cw.THREADS
+    assert int(consts["MAX_CLUSTER"]) == cw.MAX_CLUSTER
+    assert int(consts["PORTABLE_CLUSTER"]) == cw.PORTABLE_CLUSTER
 
 
 def test_launch_counters_stay_zero_on_cpu():
     before = (cw.wavefront_scan.launches, cw.wavefront_path.launches,
-              cw.walkback.launches, cw.K3.launches)
+              cw.walkback.launches, cw.K3.launches, cw.K2.launches)
     model, ki = _e2g_inputs("region")
     cw.wavefront_scan(ki)
     _, ki = _e2g_inputs("path")
@@ -186,8 +197,11 @@ def test_launch_counters_stay_zero_on_cpu():
     sub.by_row[12] = {10}
     cw.find_batched(model, [(Region(0, 0, 60, 70), AlignData(calm, calm))],
                     device=CPU, subopt=sub)
+    cw.find_batched(model, [(Region(0, 0, 60, 70), AlignData(calm, calm))],
+                    device=CPU, subopt=sub, stream=True)
     assert (cw.wavefront_scan.launches, cw.wavefront_path.launches,
-            cw.walkback.launches, cw.K3.launches) == before == (0, 0, 0, 0)
+            cw.walkback.launches, cw.K3.launches,
+            cw.K2.launches) == before == (0, 0, 0, 0, 0)
 
 
 def test_wrappers_check_their_inputs():
@@ -201,6 +215,9 @@ def test_wrappers_check_their_inputs():
     stats, tb = cw.wavefront_path(ki)
     with pytest.raises(ValueError):
         cw.walkback(tb.int(), stats, ki.walk, ki.end_id, 10)
+    # K2 runs score/region
+    with pytest.raises(ValueError):
+        cw.wavefront_stream_scan(ki)
 
 
 def test_unsupported_models_name_the_missing_kernel():
@@ -409,3 +426,219 @@ def _tb_valid(ki, tb):
     i = torch.arange(tb.shape[3], device=tb.device)[None, None, :]
     return ((d - i >= 0) & (d - i <= tlen)
             & (i <= qlen))[:, :, None, :].expand_as(tb)
+
+
+def _k2_inputs(mode, device, masked=False):
+    """A ragged est2genome batch at Qp 2304 (rows up to 2176: nine CTAs
+    by K2's rule), with each job's first alignment masked when asked."""
+    from exonerate_tpu_torch.engine.optimal import _to_alignment
+    model = est2genome_create()
+    calm = _calm()
+    data = AlignData(calm, calm)
+    boxes = [Region(0, 0, 2175, 160), Region(40, 10, 2000, 150),
+             Region(10, 30, 1500, 90)]
+    per_pair = []
+    for region in boxes:
+        sub = None
+        if masked:
+            sub = SubOpt()
+            path = cw.find_path_batched(model, [(region, data)],
+                                        device=device)[0]
+            sub.add_alignment(_to_alignment(model, region, path))
+        inputs, kinds = twf.prepare_inputs(model, region, data, subopt=sub,
+                                           pad_to=(2304, 256),
+                                           for_pallas=True)
+        per_pair.append(inputs)
+    return cw.to_kernel_inputs(model, per_pair, kinds, device, mode)
+
+
+def _clusters(monkeypatch) -> list:
+    """The CTAs per pair of every launch from here on (1 for K1/K4)."""
+    used = []
+    real = cw._launch
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        used.append(out[2])
+        return out
+
+    monkeypatch.setattr(cw, "_launch", spy)
+    return used
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+def test_k2_equals_plain_and_k1_at_every_cluster_size(masked, monkeypatch):
+    """K2 at C = 1, 2, 8 (asked of the launcher) and by its rule (9 at
+    these rows) equals the plain version exactly, and K1 on the same
+    inputs, in score and region modes, masked (K3 inside K2) and
+    mask-free."""
+    dev = _need_card()
+    used = _clusters(monkeypatch)
+    for mode in ("score", "region"):
+        ki = _k2_inputs(mode, dev, masked)
+        assert ki.masked == masked
+        want = twf.plain_wavefront(ki)[0]
+        assert torch.equal(cw.wavefront_scan(ki), want)
+        for cluster in (1, 2, 8):
+            # a size asked of the launcher (uncounted)
+            n2 = cw.K2.launches
+            got, _, c = cw._launch(ki, cluster)
+            torch.cuda.synchronize()
+            assert c == cluster and cw.K2.launches == n2
+            assert torch.equal(got, want), (mode, cluster)
+        n2, n3 = cw.K2.launches, cw.K3.launches
+        got = cw.wavefront_stream_scan(ki)
+        torch.cuda.synchronize()
+        # by the rule: ceil(2176 / 256) = 9 CTAs, 8 where only the
+        # portable sizes launch
+        assert used[-1] in (9, cw.PORTABLE_CLUSTER)
+        assert torch.equal(got, want), mode
+        assert cw.K2.launches == n2 + 1
+        assert cw.K3.launches == n3 + masked
+
+
+@pytest.mark.gpu
+def test_k2_largest_cluster_admitted(monkeypatch):
+    """A pair whose diagonals are wider than MAX_CLUSTER x THREADS cells
+    runs on the largest cluster the card admits (16, or the portable 8),
+    equal to the plain version and to K1."""
+    dev = _need_card()
+    used = _clusters(monkeypatch)
+    model = est2genome_create()
+    cs = sc.calm()
+    q = Sequence("q", None, cs + cs)
+    data = AlignData(q, Sequence("t", None, cs))
+    region = Region(0, 0, len(q), 120)
+    inputs, kinds = twf.prepare_inputs(
+        model, region, data, pad_to=(twf._bucket(len(q)), 256),
+        for_pallas=True)
+    ki = cw.to_kernel_inputs(model, inputs, kinds, dev, "region")
+    assert len(q) + 1 > cw.MAX_CLUSTER * cw.THREADS
+    got = cw.wavefront_stream_scan(ki)
+    torch.cuda.synchronize()
+    assert used[-1] in (cw.MAX_CLUSTER, cw.PORTABLE_CLUSTER)
+    assert torch.equal(got, twf.plain_wavefront(ki)[0])
+    assert torch.equal(got, cw.wavefront_scan(ki))
+
+
+@pytest.mark.gpu
+def test_k2_split_codon_full_equals_plain():
+    """K9 inside K2 (the FULL instantiation): the protein2genome split
+    pair in score and region modes, at C = 1 and 2."""
+    dev = _need_card()
+    for mode in ("score", "region"):
+        _, ki = _split_inputs("PROTEIN2GENOME", mode, dev)
+        assert ki.split
+        want = twf.plain_wavefront(ki)[0]
+        n9 = cw.K9.launches
+        for cluster in (1, 2):
+            assert torch.equal(cw._launch(ki, cluster)[0], want)
+        assert torch.equal(cw.wavefront_stream_scan(ki), want)
+        assert cw.K9.launches == n9 + 1
+
+
+@pytest.mark.gpu
+def test_k2_cluster_that_cannot_launch_raises():
+    """A cluster size the kernel refuses raises from the launch; nothing
+    falls back to K1 or to the plain version, and no launch is counted."""
+    dev = _need_card()
+    ki = _k2_inputs("region", dev)
+    n1, n2 = cw.wavefront_scan.launches, cw.K2.launches
+    with pytest.raises(RuntimeError, match="cluster kernel"):
+        cw._launch(ki, cw.MAX_CLUSTER + 1)
+    assert (cw.wavefront_scan.launches, cw.K2.launches) == (n1, n2)
+    # the card is still usable
+    assert torch.equal(cw._launch(ki, 2)[0], cw.wavefront_scan(ki))
+
+
+@pytest.mark.gpu
+def test_find_batched_routes_by_the_stream_gate(monkeypatch):
+    """find_batched sends a batch over STREAM_VMEM_BYTES to K2 and one
+    under it to K1, with the same results; stream=True/False force it."""
+    dev = _need_card()
+    model = est2genome_create()
+    calm = _calm()
+    jobs = [(Region(0, 0, 300, 400), AlignData(calm, calm))]
+    n1, n2 = cw.wavefront_scan.launches, cw.K2.launches
+    low = cw.find_batched(model, jobs, device=dev)
+    assert (cw.wavefront_scan.launches, cw.K2.launches) == (n1 + 1, n2)
+    monkeypatch.setattr(cw, "STREAM_VMEM_BYTES", 0)
+    assert cw.find_batched(model, jobs, device=dev) == low
+    assert cw.K2.launches == n2 + 1
+    assert cw.find_batched(model, jobs, device=dev, stream=False) == low
+    assert cw.wavefront_scan.launches == n1 + 2
+    assert low == cw.find_batched(model, jobs, device=CPU)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["est2genome masked", "protein2genome"])
+def test_cluster_segments_equal_plain(kind):
+    """The checkpointed traceback's segments on the cluster kernel: score
+    mode (K2) over the rings the segment before left, and path mode (K4
+    on a cluster) re-run from saved rings, equal the plain version's
+    segments: best end cells, and the planes of every cell in the
+    span."""
+    dev = _need_card()
+    if kind == "protein2genome":
+        _, ki = _split_inputs("PROTEIN2GENOME", "path", dev)
+        assert ki.split
+    else:
+        ki = _k2_inputs("path", dev, masked=True)
+        assert ki.masked
+    D = ki.Qp + ki.Tp + 1
+    cut = [0, 5, D // 2, D // 2 + 1, D]
+    spans = list(zip(cut, cut[1:]))
+    fwd = dataclasses.replace(ki, mode="score")
+    ring, p_ring = cw.ring_buffers(ki), cw.ring_buffers(ki)
+    saved = []
+    n2, n4 = cw.K2.launches, cw.wavefront_path.launches
+    for span in spans:
+        saved.append(tuple(t.clone() for t in ring))
+        out, _ = cw.wavefront_segment(fwd, ring, span)
+        p_out, _ = twf.plain_wavefront(fwd, span, p_ring)
+        assert torch.equal(out, p_out), span
+    for span, rings in zip(spans, saved):
+        _, tb = cw.wavefront_segment(ki, tuple(t.clone() for t in rings),
+                                     span)
+        _, p_tb = twf.plain_wavefront(ki, span, rings)
+        full = torch.zeros((ki.batch, D, ki.S, ki.Qp + 1), dtype=torch.bool,
+                           device=dev)
+        full[:, span[0]:span[1]] = True
+        valid = _tb_valid(ki, full.to(torch.uint8)) & full
+        valid = valid[:, span[0]:span[1]]
+        assert torch.equal(tb[valid], p_tb[valid]), span
+    assert cw.K2.launches == n2 + len(spans)
+    assert cw.wavefront_path.launches == n4 + len(spans)
+
+
+@pytest.mark.gpu
+def test_checkpointed_traceback_on_the_card_equals_k4(monkeypatch):
+    """find_path_checkpointed on the card, at a budget of a few host
+    chunks in segments of two, gives K4's path for a masked est2genome
+    job and the protein2genome split pair."""
+    from exonerate_tpu_torch.engine import optimal as topt
+    dev = _need_card()
+    monkeypatch.setattr(topt, "_segment_bytes", lambda dev, b: 2 * b)
+    model = est2genome_create()
+    calm = _calm()
+    data = AlignData(calm, calm)
+    region = Region(0, 0, 600, 500)
+    first = cw.find_path_batched(model, [(region, data)], device=dev)[0]
+    sub = SubOpt()
+    sub.add_alignment(topt._to_alignment(model, region, first))
+    cases = [(model, region, data, sub)]
+    cases.append(_split_job("PROTEIN2GENOME") + (None,))
+    for m, reg, dat, s in cases:
+        want = cw.find_path_batched(m, [(reg, dat)], subopt=s,
+                                    device=dev)[0]
+        D = reg.query_length + reg.target_length + 1
+        budget = (twf._bucket(reg.query_length) + 1) * len(m.states) \
+            * (D // 4)
+        got = topt.find_path_checkpointed(m, reg, dat, s,
+                                          budget_bytes=budget, device=dev)
+        assert (got.score, got.query_start, got.target_start,
+                got.query_end, got.target_end) == (
+            want.score, want.query_start, want.target_start,
+            want.query_end, want.target_end)
+        assert [t.name for t in got.path] == [t.name for t in want.path]

@@ -138,6 +138,35 @@ def two_copy_locus(query: str, gap: int, length: int, start: int,
     return "".join(genome)
 
 
+def chromosome_locus(query: str, length: int = 1_200_000,
+                     starts=(300_000, 800_000), intron: int = 3125,
+                     seed: int = 23) -> str:
+    """A chromosome-scale target for ``-E yes`` (kernel K2): ``length``
+    random bases holding, at each of ``starts``, one spliced copy of
+    ``query`` (three exons at thirds, about 1% of each exon's bases
+    redrawn, joined by GT..AG introns of ``intron`` bp), the copies apart.
+    With calm and the default introns each copy spans 8,425 bp, as in
+    ``two_copy_locus``, so that its box (18.3 M cells) stays over the
+    16 M cells up to which a masked path DP runs on the host."""
+    rng = np.random.default_rng(seed)
+    genome = rng.choice(list("acgt"), length).tolist()
+    third = len(query) // 3
+    exons = [query[:third], query[third:2 * third], query[2 * third:]]
+    for pos in starts:
+        for k, exon in enumerate(exons):
+            ex = list(exon)
+            for _ in range(max(1, len(ex) // 100)):
+                ex[rng.integers(0, len(ex))] = rng.choice(list("ACGT"))
+            genome[pos:pos + len(ex)] = ex
+            pos += len(ex)
+            if k < 2:
+                genome[pos:pos + intron] = (["g", "t"] + rng.choice(
+                    list("acgt"), intron - 4).tolist() + ["a", "g"])
+                pos += intron
+        assert pos <= length
+    return "".join(genome)
+
+
 def mutated_proteins(n: int = 8, seed: int = 13) -> list:
     """tools/refbuild/bench_baseline.py's p2g queries: copies of
     CALM_HUMAN with one residue in 20 redrawn."""
