@@ -67,7 +67,7 @@ script then exits non-zero and prints no result line):
       the second iteration runs K3 inside K1 and K4; both copies spliced.
       The native dense DP route of the same CLI (cut-overs raised) runs
       in a worker process on a host core beside the card's phases, and
-      its bytes are compared in phase 12.
+      its bytes are compared in phase 15.
       The widest masked region scan is timed (kernel K3's row) and, with
       the first masked K4 launch and its walk-back, held to the plain
       version in two more worker processes.
@@ -79,13 +79,14 @@ script then exits non-zero and prints no result line):
       pairs, held to the full batch's results for those pairs and, in two
       more worker processes, to the plain versions.
 7. K1 vs plain: est2genome, calm (tests/golden/data/all4.fa record 1)
-   against itself, 2175x2175, B=64, score and region modes, plus a ragged
+   against itself, 2175x2175, B=64, score and region modes (the plain
+   versions in worker processes, read in phase 15), plus a ragged
    batch and the model zoo; the split-codon plans: the calm protein
-   against 8 windows of the 12 kb locus (score, region, path), the
-   coding2genome and cdna2genome split pairs; the protein2genome -E
-   run's first widest region scan on its own inputs (B=1, Qp 256 x Tp
-   12288), timed for kernel K9's row (its plain check runs in phase 5c's
-   worker process).  Times with CUDA events.
+   against 8 windows of the 12 kb locus (score, region, path; plain in
+   worker processes), the coding2genome and cdna2genome split pairs; the
+   protein2genome -E run's first widest region scan on its own inputs
+   (B=1, Qp 256 x Tp 12288), timed for kernel K9's row (its plain check
+   runs in phase 5c's worker process).  Times with CUDA events.
 8. K4 + walk-back vs plain and vs the native dense DP, calm 2175^2 path.
 9. Chromosome-scale -E yes (kernel K2, the cluster instantiation of K1):
    a. K2 through find_batched(stream=True) on forced batches: a ragged
@@ -106,7 +107,7 @@ script then exits non-zero and prints no result line):
       prep, and a host-clock breakdown.  The first scan's inputs go to K1
       on a side stream of their own (one CTA on one SM, beside the rest of
       the phase and phases 10-11; the script syncs streams, not the
-      device, for this), held to K2's output in phase 12.
+      device, for this), held to K2's output in phase 15.
       --score 5000, not 2000, bounds the run's length: past both copies
       the loop would keep chains of random short exons across the target,
       each a whole-target scan plus a checkpointed traceback.
@@ -133,24 +134,54 @@ script then exits non-zero and prints no result line):
 10. CLI end to end: the port's CLI must reproduce the exhaustive_est2genome
     golden byte for byte and give vulgar score 10875 on calm x calm, with
     the kernels' launch counters above 0 and no engine fallback.
-11. K6/K7 against the plain passes, exactly, on the est2genome_genomic
-    comparison of phase 3, timed kernel vs plain with CUDA events.
-12. The plain checks of the worker processes: every slice's plain pass
+11. K6/K7 on the est2genome_genomic comparison of phase 3, timed with
+    CUDA events; their plain passes in two worker processes, held to the
+    kernels' outputs exactly in phase 15.
+12. K8, the cross-chip band scan (the CROSS instantiation of K6/K7), on
+    a device list that repeats cuda:0 (the distinct cards where there are
+    two or more): the widest comparison of phase 4's scan cut into 2 and
+    4 chunks through cuda_sdp.run_kernel_cross_chip, whose band_end, live
+    and xband must equal its single K6/K7 launch, timed with CUDA events;
+    then, at reduced shapes, the synthetic cases of
+    tests/torch_sdp_cases.py cut 2 and 3 ways, among them span_cut (an
+    intron span frozen in one chunk and thawed in the next) and
+    c2g_split (kernel K9 inside a CROSS forward pass): every CROSS launch
+    must equal its plain version exactly (bits, live, column best, xband,
+    edge planes, span registers) and each chain the single launch.
+13. K5, the sharded locus prescan: phase 6b's first-generation region
+    batch through cuda_wavefront.find_batched_sharded over [cuda:0,
+    cuda:0] (the distinct cards where there are two or more), equal to
+    that generation's results on K1 (find_batched with no K2 launch);
+    the shards' K1 launches of six calm jobs held to the plain version
+    and timed.
+14. genome2genome -E yes on the generic wavefront (torch ops on the card,
+    the model the kernels refuse): the first 300 bp of cdna_mut.fa against
+    genome.fa 2990-3330 with the native traceback budget and --dpmemory at
+    1 MB, so that every path DP is checkpointed, forward strands only
+    (--revcomp no), through the CLI; only the generic engine counted; its
+    bytes must equal the same run on the CPU (a worker process started in
+    phase 4).
+15. The plain checks of the worker processes: every slice's plain pass
     must equal the kernels' outputs exactly (bits, live; column best,
     live, xband), and every K1/K2/K4 launch handed to them its plain
     version (scores, ends, starts; traceback cube, walk-back); the native
-    routes' bytes (phases 6a and 9); K1 at the full shape against K2;
-    the span launches of phases 9d-e.
+    routes' bytes (phases 6a and 9) and the genome2genome CPU run's
+    (phase 14); K1 at the full shape against K2; the span launches of
+    phases 9d-e.
 
-Phases 5-11 run on the card while the plain checks and the native routes
-run on the host's cores, so their host-clock and plain times share the
-host with them.
+K5 and K8 are the JAX package's multi-device routes; on one card they
+check every shard, chunk and halo and time the kernels, but cannot show
+the overlap of several cards.  Phases 5-14 run on the card while the
+plain checks and the native routes run on the host's cores, so their
+host-clock and plain times share the host with them.
 
 The last three lines are nvidia-smi's name and power limit of the card,
 a JSON object of the kernels (route, source, the TPU kernel each
 replaces, main-path launches, max |kernel - plain|, kernel and plain
-milliseconds (the plain version on the card, but for K9, K3 and K2 on one
-host core in a worker process; K2's over phase 9e's span of the
+milliseconds (the plain version on the card for K4, the walk-back, K5
+and K8, on one host core in a worker process for K1, K6, K7, K9, K3 and
+K2; K5's and K8's at the reduced shapes of phases 12-13; K2's over
+phase 9e's span of the
 chromosome's diagonals, as the plain loop would take hours over all of
 them), the bound: the larger of
 the bytes moved over 3.35 TB/s and the int32 operations over the int32
@@ -160,6 +191,7 @@ library call: none computes these DPs), and the result object.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -223,6 +255,24 @@ CH_SPAN_AT, CH_SPAN_DIAGS = 302_000, 1200
 CH_SPAN = CALM_LEN + 2 * CH_INTRON
 LOCUS_ARGV = ["-m", "est2genome", "--bestn", "10", "--maxintron", "20000",
               "--showvulgar", "yes", "--showalignment", "no"]
+# phase 14, genome2genome -E yes on the generic wavefront: the first 300
+# bp of cdna_mut.fa against genome.fa[2990:3330] (where they align), with
+# the native traceback budget and --dpmemory at 1 MB, so that every path
+# DP is past the host's budget and checkpointed (the CPU tests' cut);
+# --score 1000 keeps the loop to the cut's best alignment, and --revcomp
+# no to the forward strands (2 path DPs, not the CPU test's 6: each
+# diagonal step of the generic wavefront is ~1,500 small launches, ~20 ms
+# on the card)
+G2G_CUT = (300, 2990, 3330)
+G2G_ARGV = ["-m", "genome2genome", "-E", "yes", "--dpmemory", "1",
+            "--score", "1000", "--revcomp", "no", "--showvulgar", "yes"]
+G2G_BUDGET = 1 << 20
+# phase 12, K8: the chunk counts of the widest scan comparison, and the
+# synthetic cases (tests/torch_sdp_cases.py) whose every CROSS launch is
+# held to its plain version, with their chunk counts
+K8_SPLITS = (2, 4)
+K8_CASES = (("two_exons_intron", 2), ("ner_joint_span", 3),
+            ("span_cut", 2), ("c2g_split", 2))
 CROSSCHECK = "sdp device->host: locus score mismatch"
 # the one comparison of the coding2genome scan whose locus cross-check
 # disagrees (query 9, 2008 != 2007), as in the JAX package's device tier
@@ -436,9 +486,13 @@ def _cpu_fields(obj) -> dict:
 
 
 def _pool(n: int):
-    """n spawned worker processes, ended when the script ends."""
+    """n spawned worker processes, ended when the script ends.  They run
+    at a lower priority (nice 10): the main process drives the card, and
+    its plain versions on the card are bound by how fast it issues
+    launches, so it must not wait for a host core behind the workers."""
     import multiprocessing
-    pool = multiprocessing.get_context("spawn").Pool(n)
+    pool = multiprocessing.get_context("spawn").Pool(
+        n, initializer=os.nice, initargs=(10,))
     _EXIT.callback(pool.join)
     _EXIT.callback(pool.terminate)
     return pool
@@ -464,6 +518,73 @@ def _native_cli(argv: list, cells: int, n_states: int):
         raise RuntimeError(f"CLI exit status for {argv}")
     return (buf.getvalue(), time.perf_counter() - t0,
             dict(observe.engine_counts), dict(observe.fallback_counts))
+
+
+def _g2g_cli(argv: list):
+    """Worker process, CPU only: the port's CLI over ``argv`` with the
+    native traceback budget at G2G_BUDGET (phase 14's reference, on the
+    plain engines).  Returns (output, host seconds, engine counts,
+    fallback counts)."""
+    os.environ["EXONERATE_TPU_TORCH_DEVICE"] = "cpu"
+    sys.path.insert(0, ROOT)
+    from exonerate_tpu_torch import observe
+    from exonerate_tpu_torch.cli.exonerate import main as cli_main
+    from exonerate_tpu_torch.engine import optimal
+    torch.set_num_threads(1)
+    optimal.NATIVE_TB_BUDGET = G2G_BUDGET
+    observe.reset()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    if cli_main(argv, out=buf) != 0:
+        raise RuntimeError(f"CLI exit status for {argv}")
+    return (buf.getvalue(), time.perf_counter() - t0,
+            dict(observe.engine_counts), dict(observe.fallback_counts))
+
+
+def _k8_chain(cs, sd, chunks, plain: bool = False):
+    """K8's passes over a comparison's chunks (``cs.cross_chunks``): the
+    reverse pass right to left, then the forward pass left to right, each
+    launch on the kernel or, with ``plain``, on its plain version.
+    Returns [(launch, its halo in, its outputs)] in launch order."""
+    rev = sd.plain_band_reverse if plain else cs.band_reverse_cross
+    fwd = sd.plain_band_forward if plain else cs.band_forward_cross
+    out = []
+    bits = [None] * len(chunks)
+    halo = sd.blank_halo(chunks[-1][2], False)
+    for cx in range(len(chunks) - 1, -1, -1):
+        res = rev(chunks[cx][2], halo)
+        out.append((("rev", cx), halo, res))
+        bits[cx], halo = res[0], res[-1]
+    halo = sd.blank_halo(chunks[0][2], True)
+    for cx in range(len(chunks)):
+        res = fwd(chunks[cx][2], bits[cx], halo)
+        out.append((("fwd", cx), halo, res))
+        halo = res[-1]
+    return out
+
+
+def _halo_tensors(res) -> list:
+    """The tensors of one K8 launch's outputs, its outgoing Halo's too."""
+    *main, halo = res
+    return list(main) + [t for t in (halo.sc, halo.pm, halo.ln, halo.span)
+                         if t is not None]
+
+
+def _k8_work(cs, chunks):
+    """Bytes and int32 operations of K8's launches over ``chunks``: each
+    chunk's reverse and forward pass as K6/K7's (``_band_work``), plus
+    the halo read and written."""
+    n_bytes = n_ops = 0
+    for _v0, _v1, bi in chunks:
+        for fwd in (False, True):
+            b, o = _band_work(bi, fwd)
+            nr = max(bi.NR_fwd if fwd else bi.NR_rev, 1)
+            lanes = bi.n_sh * nr if fwd else 0
+            span = 2 * bi.n_spans * (4 + bi.n_sh) if fwd else 0
+            halo = 4 * (bi.Qp + 1) * ((2 * nr + lanes) * bi.maxat + span)
+            n_bytes += b + 2 * halo + _nbytes(bi.tctx)
+            n_ops += o
+    return n_bytes, n_ops
 
 
 def _plain_wave_check(path: str):
@@ -653,6 +774,7 @@ def main() -> int:
     from exonerate_tpu_torch.cli.exonerate import main as cli_main
     from exonerate_tpu_torch.engine import cuda_sdp as cs
     from exonerate_tpu_torch.engine import cuda_wavefront as cw
+    from exonerate_tpu_torch.engine import generic_wavefront as gw
     from exonerate_tpu_torch.engine import optimal
     from exonerate_tpu_torch.engine import sdp_device as sd
     from exonerate_tpu_torch.engine import sdp_hybrid as hy
@@ -723,7 +845,7 @@ def main() -> int:
     counters = {"K1": cw.wavefront_scan, "K4": cw.wavefront_path,
                 "walkback": cw.walkback, "K6": cs.band_reverse,
                 "K7": cs.band_forward, "K9": cw.K9, "K3": cw.K3,
-                "K2": cw.K2}
+                "K2": cw.K2, "K8": cs.K8, "K5": cw.K5}
     main_launches = dict.fromkeys(counters, 0)
 
     def zero_counts():
@@ -883,6 +1005,18 @@ def main() -> int:
     qf = _write_fasta(os.path.join(tmp_dir, "q.fa"),
                       [(f"q{k}", q) for k, q in enumerate(queries)])
     tf = _write_fasta(os.path.join(tmp_dir, "t.fa"), [("genome", genome)])
+    # phase 14's reference: the genome2genome -E run on the CPU, in a
+    # worker process beside the card's phases
+    g2g_seqs = {f: "".join(open(os.path.join(DATA, f)).read().split(
+        "\n", 1)[1].split()) for f in ("cdna_mut.fa", "genome.fa")}
+    g2g_files = [
+        _write_fasta(os.path.join(tmp_dir, "g2g_q.fa"),
+                     [("qmut300", g2g_seqs["cdna_mut.fa"][:G2G_CUT[0]])]),
+        _write_fasta(os.path.join(tmp_dir, "g2g_t.fa"),
+                     [("genome_2990", g2g_seqs["genome.fa"][
+                         G2G_CUT[1]:G2G_CUT[2]])])]
+    g2g_pool = _pool(1)
+    g2g_res = g2g_pool.apply_async(_g2g_cli, (G2G_ARGV + g2g_files,))
     scan_label = f"scan {SCAN_QUERIES} x {SCAN_LEN / 1e6:.0f} Mb est2genome"
     out_dev, scan_eng, batches, _ = scan(
         scan_label,
@@ -922,7 +1056,7 @@ def main() -> int:
     pool, pending = _start_plain_check(
         "scan", bi, {"bits": bits_s, "live_r": live_r, "colbest": col_s,
                      "live_f": live_f, "xband": xb_s}, tmp_dir, tasks)
-    pools = [pool]
+    pools = [pool, g2g_pool]
     check_t0 = time.perf_counter()
     del bi, bits_s, col_s
 
@@ -1089,7 +1223,7 @@ def main() -> int:
     we_cells = (len(calm_s) + 1) * (len(we_locus) + 1)
     # the native routes of this phase and of phase 9 run in worker
     # processes on host cores (the native dense DP needs no card), beside
-    # the card's phases; their outputs are compared in phase 12
+    # the card's phases; their outputs are compared in phase 15
     nat_pool = _pool(1 + len(CH_STARTS))
     pools.append(nat_pool)
     nat_we_res = nat_pool.apply_async(
@@ -1200,7 +1334,7 @@ def main() -> int:
     # b. the pooled locus heuristic at the flagship's shape: phase 4's
     # scan with EXONERATE_TPU_HEURISTIC=locus and --bestn 10, so that no
     # comparison is full after the first generation
-    lo_kis, lo_gens = [], []
+    lo_kis, lo_gens, lo_gen0 = [], [], []
     real_fb = cw.find_batched
 
     def capture_lo(*args, **kwargs):
@@ -1210,7 +1344,10 @@ def main() -> int:
     def count_gen(model_, jobs_, mode="region", device=None, subopt=None):
         lo_gens.append((len(jobs_), any(
             x is not None and x.points for x in subopt or [])))
-        return real_fb(model_, jobs_, mode, device=device, subopt=subopt)
+        res = real_fb(model_, jobs_, mode, device=device, subopt=subopt)
+        if not lo_gen0:
+            lo_gen0.extend([model_, list(jobs_), res])
+        return res
 
     argv_lo = LOCUS_ARGV + [qf, tf]
     lo_time = {}
@@ -1290,22 +1427,26 @@ def main() -> int:
           f"pairs) equal the full batch's results; plain checks started")
 
     # -- 7. K1 vs plain --------------------------------------------------
+    # the plain versions run on host cores (worker processes) beside the
+    # card's phases; region mode's time is K1's plain time
+    k1_pool = _pool(2)
+    pools.append(k1_pool)
+    k1_res = {}
     for mode in ("score", "region"):
         ki = cw.to_kernel_inputs(model, [inputs] * BATCH, kinds, dev, mode)
-        got, want, ms, plain_ms = _turns(lambda: wf.plain_wavefront(ki)[0],
-                                         lambda: cw.wavefront_scan(ki))
-        err = _max_err(got, want)
-        if err or not torch.equal(got, want):
-            raise RuntimeError(f"K1 {mode}: kernel != plain (max err {err})")
+        got = cw.wavefront_scan(ki)
+        ms = _cuda_ms(lambda: cw.wavefront_scan(ki), 3)
         if set(got[0].tolist()) != {CALM_SELF_SCORE}:
             raise RuntimeError(f"K1 {mode}: scores {set(got[0].tolist())}")
-        print(f"K1 {mode} calm {CALM_LEN}^2 x{BATCH} [{card}]: kernel "
-              f"{ms:.3f} ms ({ms / BATCH:.4f} ms/pair, "
-              f"{cells * BATCH / ms / 1e6:.3f} GCUPS), plain {plain_ms:.3f}"
-              f" ms ({plain_ms / BATCH:.4f} ms/pair, "
-              f"{cells * BATCH / plain_ms / 1e6:.4f} GCUPS)")
-        report[f"K1_{mode}"] = (err, ms, plain_ms,
-                                _wave_work(ki, 5 * BATCH * 4))
+        k1_name = f"K1 {mode} calm {CALM_LEN}^2 x{BATCH}"
+        k1_path = _save_wave(os.path.join(tmp_dir, f"k1_{mode}.pt"), ki,
+                             {"out": got})
+        k1_res[mode] = k1_pool.apply_async(_plain_wave_check, (k1_path,))
+        pending.append((k1_name, list(range(BATCH)), k1_res[mode]))
+        print(f"{k1_name} [{card}]: kernel {ms:.3f} ms "
+              f"({ms / BATCH:.4f} ms/pair, "
+              f"{cells * BATCH / ms / 1e6:.3f} GCUPS); plain check started")
+        report[f"K1_{mode}"] = (0, ms, 0.0, _wave_work(ki, 5 * BATCH * 4))
     ragged = [(Region(0, 0, 100, 160), data), (Region(40, 10, 80, 150), data),
               (Region(10, 30, 120, 90), data)]
     pa = Sequence("a", None, "MKVLAAGICAGWLLWKKMKVL")
@@ -1361,38 +1502,21 @@ def main() -> int:
     wQp, wTp = wf._bucket(len(prot)), wf._bucket(2000)
     per = [wf.prepare_inputs(p2g, r, pdata, pad_to=(wQp, wTp),
                              for_pallas=True) for r in windows]
+    # each launch held to its plain version on a host core (worker)
+    w_pool = _pool(2)
+    pools.append(w_pool)
     for mode in ("score", "region", "path"):
         ki = cw.to_kernel_inputs(p2g, [p for p, _ in per], per[0][1], dev,
                                  mode)
-        if mode == "path":
-            (stats, tb), (p_stats, p_tb), ms, p_ms = _turns(
-                lambda: wf.plain_wavefront(ki),
-                lambda: cw.wavefront_path(ki), 1)
-            valid = _tb_valid(ki, tb)
-            err = max(_max_err(stats, p_stats),
-                      _max_err(tb[valid], p_tb[valid]))
-            ok = torch.equal(stats, p_stats) and not err
-            cap = ki.Qp + ki.Tp + 1 + cw.WALK_SLACK
-            ops, res = cw.walkback(tb, stats, ki.walk, ki.end_id, cap)
-            p_ops, p_res = wf.plain_walkback(tb, stats, ki.walk, ki.end_id,
-                                             cap)
-            ok = ok and torch.equal(res, p_res) and all(
-                torch.equal(ops[b, :int(res[0, b])],
-                            p_ops[b, :int(res[0, b])])
-                for b in range(ki.batch))
-            del tb, p_tb
-        else:
-            got, want, ms, p_ms = _turns(
-                lambda: wf.plain_wavefront(ki)[0],
-                lambda: cw.wavefront_scan(ki))
-            err = _max_err(got, want)
-            ok = torch.equal(got, want)
-        if not ok:
-            raise RuntimeError(f"K1/K4 {mode} protein2genome windows: "
-                               f"kernel != plain (max err {err})")
-        print(f"K1/K4 {mode} protein2genome calm protein x 8 windows of "
-              f"2000 bp (split codons, K9) [{card}]: kernel == plain; "
-              f"kernel {ms:.3f} ms, plain {p_ms:.3f} ms")
+        outs = _wave_outputs(cw, ki)
+        wname = (f"K1/K4 {mode} protein2genome calm protein x 8 windows of "
+                 f"2000 bp (split codons, K9)")
+        w_path = _save_wave(os.path.join(tmp_dir, f"p2g_windows_{mode}.pt"),
+                            ki, outs)
+        del outs
+        pending.append((wname, list(range(ki.batch)),
+                        w_pool.apply_async(_plain_wave_check, (w_path,))))
+        print(f"{wname} [{card}]: plain check started")
     # K1 on the p2g -E yes run's own inputs (its first widest region scan,
     # B=1), timed: kernel K9's row (its plain check runs in a worker
     # process since phase 5c)
@@ -1526,6 +1650,19 @@ def main() -> int:
         forced_k2(label, m, jobs, sub)
         print(f"{k2_checks[-1][0]} [{card}]: {k2_checks[-1][1]:.3f} ms; "
               f"plain check started")
+    # the instantiations of step d's checkpointed traceback (masked, on a
+    # cluster: score mode forward, path mode for the walk back), launched
+    # once on the masked pair so that CUDA loads them now: a kernel loads
+    # at its first launch, and that load waits for the kernels running
+    # then, K1's side check below among them
+    (warm_key, warm_items), = cw._buckets(model, [(small, cdata)],
+                                          small_sub).items()
+    warm = cw.to_kernel_inputs(model, [warm_items[0][1]], warm_key[2], dev,
+                               "path")
+    for ki in (dataclasses.replace(warm, mode="score"), warm):
+        cw.wavefront_segment(ki, cw.ring_buffers(ki),
+                             (0, ki.Qp + ki.Tp + 1))
+    _sync()
 
     # b. est2genome -E yes --bestn 2 --score 5000 through the CLI: calm
     # against CH_LEN bp with two spliced copies; every whole-target region
@@ -1818,18 +1955,23 @@ def main() -> int:
                          * (j[1].W + 1))
     q_g, w_g = pair_g.region.query_length, plan_g.W
     bi = cs.band_inputs(gmodel, [(pair_g, plan_g)], pair_g.args.dropoff, dev)
-    err, p_rev, p_fwd = _band_vs_plain(bi, name_g)
-    band_err = max(band_err, err)
+    bits_g, live_r_g = cs.band_reverse(bi)
+    col_g, live_f_g, xb_g = cs.band_forward(bi, bits_g)
+    # the plain passes on host cores (worker processes), read in phase 15
+    g_pool, g_pending = _start_plain_check(
+        name_g, bi, {"bits": bits_g, "live_r": live_r_g, "colbest": col_g,
+                     "live_f": live_f_g, "xband": xb_g}, tmp_dir,
+        [(False, [0]), (True, [0])])
+    pools.append(g_pool)
+    pending.extend(g_pending)
     k_rev = (_cuda_ms(lambda: cs.band_reverse(bi), 3)
              + _cuda_ms(lambda: cs.band_reverse(bi), 3)) / 2
-    bits_g = cs.band_reverse(bi)[0]
     k_fwd = (_cuda_ms(lambda: cs.band_forward(bi, bits_g), 3)
              + _cuda_ms(lambda: cs.band_forward(bi, bits_g), 3)) / 2
     n_diag_g = q_g + w_g + 1
     print(f"{name_g}'s comparison Q {q_g} x W {w_g} "
           f"({n_diag_g} diagonals) [{card}]: K6 kernel {k_rev:.3f} ms, "
-          f"plain {p_rev:.3f} ms; K7 kernel {k_fwd:.3f} ms, plain "
-          f"{p_fwd:.3f} ms; kernel == plain")
+          f"K7 kernel {k_fwd:.3f} ms; plain checks started")
     genomic_work = (_band_work(bi, False), _band_work(bi, True))
     if split_band is not None:
         print(f"K7 on the split-codon synthetic batch {split_band[0]} (Qp "
@@ -1840,7 +1982,168 @@ def main() -> int:
           f"protein2genome {pk_rev:.3f} / {pk_fwd:.3f} ms (summed over "
           f"{len(p_shapes)} launches)")
 
-    # -- 12. the plain checks and native routes (started in phases 4 to 9)
+    # -- 12. K8, the cross-chip band scan, on one card ------------------
+    # the widest comparison of phase 4's scan, cut into 2 and 4 chunks on
+    # a device list of cuda:0 (or the distinct cards), held to its single
+    # K6/K7 launch; the span-cut case on both routes; every CROSS launch
+    # of the synthetic cases held to its plain version on the same chunk
+    import torch_sdp_cases as tcases
+    xdevs = ([torch.device("cuda", k)
+              for k in range(torch.cuda.device_count())]
+             if torch.cuda.device_count() >= 2 else [dev])
+    pair_x, plan_x = max(sjobs, key=lambda j: j[1].W)
+    drop_x = pair_x.args.dropoff
+    want_x = cs.run_kernel(smodel, [(pair_x, plan_x)], drop_x, dev)[0]
+    zero_counts()
+    k8_ms = {}
+    for n in K8_SPLITS:
+        got_x, ms_x = _cuda_call(lambda: cs.run_kernel_cross_chip(
+            smodel, pair_x, plan_x, drop_x, n, devices=xdevs))
+        if (got_x["live"], got_x["xband"]) != (want_x["live"],
+                                               want_x["xband"]) \
+                or not np.array_equal(got_x["band_end"],
+                                      want_x["band_end"]):
+            raise RuntimeError(f"K8 ({n} chunks) != the single K6/K7 "
+                               f"launch on the scan's widest comparison")
+        k8_ms[n] = [ms_x]
+    k8_launches = read_counts("K8 on the scan's widest comparison",
+                              ("K8",))
+    for n in K8_SPLITS:
+        chunks_x = cs.cross_chunks(smodel, pair_x, plan_x, drop_x, n, xdevs)
+        k8_ms[n].append(_cuda_ms(lambda: _k8_chain(cs, sd, chunks_x)))
+        del chunks_x
+    print(f"K8 on the est2genome scan's widest comparison (Q "
+          f"{pair_x.region.query_length} x W {plan_x.W}) over devices "
+          f"{[str(d) for d in xdevs]} [{card}]: "
+          + "; ".join(f"{n} chunks {k8_ms[n][1]:.3f} ms for its {2 * n} "
+                      f"launches (CUDA events; {k8_ms[n][0]:.3f} ms with "
+                      f"host prep)" for n in K8_SPLITS)
+          + f"; band_end, live and xband == the single K6/K7 launch; "
+          f"launches {k8_launches}")
+    k8_err = 0
+    k8_cases = []
+    for cname, n in K8_CASES:
+        cmodel, cpair, cplan = tcases.case(cname)
+        chunks_c = cs.cross_chunks(cmodel, cpair, cplan, cpair.args.dropoff,
+                                   n, [dev])
+        kern = _k8_chain(cs, sd, chunks_c)
+        plain, p_ms = _cuda_call(lambda: _k8_chain(cs, sd, chunks_c, True))
+        for (lab, _h, kres), (_l, _h2, pres) in zip(kern, plain):
+            for a, b in zip(_halo_tensors(kres), _halo_tensors(pres)):
+                k8_err = max(k8_err, _max_err(a, b))
+                if not torch.equal(a, b):
+                    raise RuntimeError(f"K8 {cname} ({n} chunks) launch "
+                                       f"{lab}: kernel != plain")
+        got_c = cs.run_kernel_cross_chip(cmodel, cpair, cplan,
+                                         cpair.args.dropoff, n, [dev])
+        want_c = cs.run_kernel(cmodel, [(cpair, cplan)], cpair.args.dropoff,
+                               dev)[0]
+        if not np.array_equal(got_c["band_end"], want_c["band_end"]) \
+                or (got_c["live"], got_c["xband"]) != (want_c["live"],
+                                                       want_c["xband"]):
+            raise RuntimeError(f"K8 {cname}: != the single launch")
+        k8_cases.append((cname, n, len(kern)))
+        if cname == "span_cut":
+            k_ms = _cuda_ms(lambda: _k8_chain(cs, sd, chunks_c), 3)
+            k8_row = (k8_err, k_ms, p_ms, _k8_work(cs, chunks_c),
+                      f"Q {cpair.region.query_length} x W {cplan.W}, "
+                      f"{n} chunks")
+    report["K8"] = (k8_err,) + k8_row[1:4]
+    print(f"K8 vs plain (case, chunks, launches) {k8_cases} [{card}]: every "
+          f"CROSS launch == its plain version (bits, live, column best, "
+          f"xband, edge planes, span registers), each chain == the single "
+          f"launch; span_cut ({k8_row[4]}): kernel {k8_row[1]:.3f} ms, "
+          f"plain {k8_row[2]:.3f} ms (CUDA events)")
+
+    # -- 13. K5, the sharded locus prescan, on one card -----------------
+    # phase 6b's first generation through find_batched_sharded over
+    # [cuda:0, cuda:0] (or the distinct cards), held to that generation's
+    # results on K1 on one device (phase 6b ran no K2)
+    lo_model, lo_jobs, want5 = lo_gen0
+    if lo_launches.get("K2"):
+        raise RuntimeError("the locus pool ran K2: its first generation is "
+                           "no find_batched(stream=False) reference")
+    k5_devs = xdevs if len(xdevs) >= 2 else [dev, dev]
+    zero_counts()
+    got5, ms5 = _cuda_call(lambda: cw.find_batched_sharded(
+        lo_model, lo_jobs, k5_devs, "region"))
+    k5_launches = read_counts("K5 on the locus pool's first generation",
+                              ("K5", "K1"))
+    def _dp(r):
+        return (r.score, r.query_start, r.target_start, r.query_end,
+                r.target_end)
+
+    if [_dp(r) for r in got5] != [_dp(r) for r in want5]:
+        raise RuntimeError("K5 != find_batched(stream=False) on the locus "
+                           "pool's first generation")
+    # the shards' K1 launches again, timed, and held to the plain version
+    # on the calm jobs of tests/test_torch_sharded.py (6 pairs, 2 shards)
+    calm_jobs = [(Region(0, k * 7, 100, 150 + k), data) for k in range(6)]
+    k5_kis = []
+    real_tki5 = cw.to_kernel_inputs
+
+    def capture5(*args, **kwargs):
+        k5_kis.append(real_tki5(*args, **kwargs))
+        return k5_kis[-1]
+
+    cw.to_kernel_inputs = capture5
+    try:
+        cw.find_batched_sharded(model, calm_jobs, k5_devs, "region")
+    finally:
+        cw.to_kernel_inputs = real_tki5
+    k5_err = 0
+    for ki in k5_kis:
+        got, want, _, _ = _turns(lambda: wf.plain_wavefront(ki)[0],
+                                 lambda: cw.wavefront_scan(ki), 1)
+        k5_err = max(k5_err, _max_err(got, want))
+        if not torch.equal(got, want):
+            raise RuntimeError("K5 shard: kernel != plain")
+    k5_ms = _cuda_ms(lambda: [cw.wavefront_scan(ki) for ki in k5_kis], 3)
+    _, k5_plain = _cuda_call(lambda: [wf.plain_wavefront(ki)
+                                      for ki in k5_kis])
+    k5_work = [_wave_work(ki, 5 * ki.batch * 4) for ki in k5_kis]
+    report["K5"] = (k5_err, k5_ms, k5_plain,
+                    (sum(w[0] for w in k5_work), sum(w[1] for w in k5_work)))
+    print(f"K5 on the locus pool's first generation ({len(lo_jobs)} jobs) "
+          f"over {[str(d) for d in k5_devs]} [{card}]: {ms5:.3f} ms with host"
+          f" prep (CUDA events), == that generation's K1 results in phase "
+          f"6b; launches "
+          f"{k5_launches}; calm x 6 in {len(k5_kis)} shards: kernel "
+          f"{k5_ms:.3f} ms, plain {k5_plain:.3f} ms, kernel == plain")
+
+    # -- 14. genome2genome -E yes on the generic wavefront --------------
+    steps = [0]
+    real_step = gw.Engine.step
+
+    def count_step(self, *args, **kwargs):
+        steps[0] += 1
+        return real_step(self, *args, **kwargs)
+
+    observe.reset()
+    zero_counts()
+    saved = optimal.NATIVE_TB_BUDGET, optimal.DP_MEMORY_LIMIT
+    optimal.NATIVE_TB_BUDGET = G2G_BUDGET
+    gw.Engine.step = count_step
+    try:
+        out_g2g, secs_g2g = run_cli(G2G_ARGV + g2g_files)
+    finally:
+        gw.Engine.step = real_step
+        optimal.NATIVE_TB_BUDGET, optimal.DP_MEMORY_LIMIT = saved
+    g2g_eng = dict(observe.engine_counts)
+    if set(g2g_eng) != {gw.engine_name(dev)}:
+        raise RuntimeError(f"genome2genome -E yes: engines {g2g_eng}, want "
+                           f"only {gw.engine_name(dev)}")
+    if "1455 M 300 300" not in out_g2g:
+        raise RuntimeError("genome2genome -E yes: the 1455 alignment is "
+                           "missing")
+    print(f"genome2genome -E yes (cdna_mut 300 bp x genome {G2G_CUT[1]}-"
+          f"{G2G_CUT[2]}, native budget and --dpmemory 1 MB) on the generic "
+          f"wavefront [{card}]: {secs_g2g:.2f} s host clock, engines "
+          f"{g2g_eng}, {steps[0]} diagonal steps "
+          f"({secs_g2g / max(steps[0], 1) * 1e3:.3f} ms each); its bytes are "
+          f"compared with the CPU run's in phase 15")
+
+    # -- 15. the plain checks and native routes (started in phases 4 to 14)
     wait_t0 = time.perf_counter()
     for pname, idx, res in pending:
         left = DEADLINE_S - (time.perf_counter() - t_start)
@@ -1857,11 +2160,24 @@ def main() -> int:
           f"of the est2genome scan, comparisons {c_check} of the "
           f"coding2genome scan and {p_check} of the protein2genome scan "
           f"(bits, live; column best, live, xband) and on the protein2genome"
-          f" -E run's other K1/K4 launches, the est2genome -E run's widest "
+          f" -E run's other K1/K4 launches, K1 at calm x64, the "
+          f"est2genome_genomic comparison, the est2genome -E run's widest "
           f"masked K1 and first masked K4, the locus pool's sampled pairs"
           f" and K2's forced batches (scores, ends, starts; cube, "
           f"walk-back), {time.perf_counter() - check_t0:.1f} s after they "
           f"started, {time.perf_counter() - wait_t0:.1f} s of it waited for")
+    # phase 14's reference: the genome2genome -E run on the CPU
+    left = DEADLINE_S - (time.perf_counter() - t_start)
+    cpu_g2g, cpu_g2g_s, cpu_g2g_eng, cpu_g2g_falls = g2g_res.get(
+        timeout=max(left, 1.0))
+    if out_g2g != cpu_g2g or cpu_g2g_falls \
+            or set(cpu_g2g_eng) != {"torch-generic"}:
+        raise RuntimeError(f"genome2genome -E yes: the card's output differs"
+                           f" from the CPU run's (engines {cpu_g2g_eng}, "
+                           f"fallbacks {cpu_g2g_falls})")
+    print(f"genome2genome -E yes (phase 14): byte-equal to the CPU run "
+          f"(engines {cpu_g2g_eng}; {cpu_g2g_s:.2f} s host clock in a worker "
+          f"process, against the card's {secs_g2g:.2f} s)")
     # the native routes of phases 6a and 9 (worker processes)
     left = DEADLINE_S - (time.perf_counter() - t_start)
     nat_we, nat_secs_we, nat_eng, nat_falls = nat_we_res.get(
@@ -1931,8 +2247,14 @@ def main() -> int:
                                f"{span_err[key]})")
     k2_err = max(k2_err, *span_err.values())
     report["K4"] = (max(report["K4"][0], span_err["K4"]),) + report["K4"][1:]
+    # K6/K7's and K1's plain times: the plain versions on one host core
+    # (worker processes, checked above with the rest)
+    p_rev, p_fwd = (res.get()[2] * 1e3 for _n, _ix, res in g_pending)
     report["K6"] = (band_err, k_rev, p_rev, genomic_work[0])
     report["K7"] = (band_err, k_fwd, p_fwd, genomic_work[1])
+    _, k1r_err, k1r_s, _ = k1_res["region"].get()
+    report["K1_region"] = (k1r_err,) + report["K1_region"][1:2] + (
+        k1r_s * 1e3,) + report["K1_region"][3:]
     # K9's and K3's plain times: the plain version on one host core (worker
     # processes)
     _, k9_err, k9_plain_s, _ = e_pending.get()
@@ -1946,15 +2268,18 @@ def main() -> int:
     pw = "exonerate_tpu/engine/pallas_wavefront.py"
     sp = "exonerate_tpu/engine/sdp_pallas.py"
     kernels = [
-        ("K1 wavefront_scan (region, calm 2175^2 x64)", "K1", "K1_region",
+        ("K1 wavefront_scan (region, calm 2175^2 x64; plain ms on one host "
+         "core)", "K1", "K1_region",
          src + "wavefront.cu", pw + ":427"),
         ("K4 wavefront_path (calm 2175^2 x1)", "K4", "K4",
          src + "wavefront.cu", pw + ":1147"),
         ("walkback (calm 2175^2 x1)", "walkback", "walkback",
          src + "walkback.cu", pw + ":1550"),
-        (f"K6 band_reverse ({name_g}, Q {q_g} x W {w_g})", "K6", "K6",
+        (f"K6 band_reverse ({name_g}, Q {q_g} x W {w_g}; plain ms on one "
+         f"host core)", "K6", "K6",
          src + "sdp_band.cu", sp + ":974"),
-        (f"K7 band_forward ({name_g}, Q {q_g} x W {w_g})", "K7", "K7",
+        (f"K7 band_forward ({name_g}, Q {q_g} x W {w_g}; plain ms on one "
+         f"host core)", "K7", "K7",
          src + "sdp_band.cu", sp + ":996"),
         (f"K9 split codon: C_SPLIT inside K1 (region, the protein2genome "
          f"-E yes run's scan, {e_shape}; plain ms on one host core)", "K9",
@@ -1971,6 +2296,14 @@ def main() -> int:
          f"the checkpointed traceback's end segment; a whole-target scan: "
          f"{k2_ms:.3f} ms)", "K2", "K2", src + "wavefront.cu",
          pw + ":438"),
+        (f"K5 find_batched_sharded: K1 per device shard (region, calm x 6 "
+         f"in 2 shards; the locus pool's first generation {ms5:.3f} ms)",
+         "K5", "K5", src + "wavefront.cu", pw + ":1470"),
+        (f"K8 band_reverse_cross / band_forward_cross: the CROSS "
+         f"instantiation of K6/K7 (every launch of the {k8_row[4]} chain; "
+         f"the scan's widest comparison: " + ", ".join(
+             f"{n} chunks {k8_ms[n][1]:.3f} ms" for n in K8_SPLITS) + ")",
+         "K8", "K8", src + "sdp_band.cu", sp + ":904"),
     ]
     rows = []
     for kname, lkey, rkey, source, replaces in kernels:
@@ -1996,7 +2329,7 @@ def main() -> int:
     print(_card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

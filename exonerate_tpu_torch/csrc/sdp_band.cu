@@ -50,6 +50,25 @@
 // planes are double-buffered by the parity of d; the stored registers
 // belong to their own lane and are single-buffered.
 //
+// K8, the cross-chip band scan (sdp_pallas.py:237 with cross=True,
+// pallas_call :904 / :929, driven by run_kernel_cross_chip :1220), is the
+// CROSS instantiation of the same passes: one comparison whose compressed
+// W axis the host has cut into chunks, one launch per chunk and pass, the
+// chunks chained through a halo (struct Halo).  A source column sj < 0
+// (forward) or sj > wlen (reverse) lies up to MAXAT columns inside the
+// neighbouring chunk: its carry values come from the neighbour's edge
+// planes (plane k - 1 holds column -k, resp. wlen + k, indexed by the
+// source lane), and such a source is valid.  After its silent sweep each
+// cell of the chunk's edge columns (forward: the last MAXAT, reverse: the
+// first MAXAT) writes its ring states' values to the outgoing edge plane;
+// a column has one lane per diagonal, so this is a plain write, as the
+// column best is.  W-axis vectors are read at columns down to -MAXAT from
+// a small context array (tctx; the columns past wlen are in the row).
+// The span registers are chained by the wrapper: it seeds span_st and
+// both span_cu buffers from the left chunk's registers and reads each
+// lane's curr register from the buffer its last cell wrote.  The
+// non-CROSS instantiations compile from unchanged code.
+//
 // What bounds it on the H100.  The diagonal loop: a 1 Mb comparison has
 // ~60k diagonals of <= Q+1 cells, each diagonal ends in a block barrier,
 // and each cell interprets ~22 candidates whose sources sit in the carry
@@ -155,6 +174,18 @@ struct Params {
     int row_abs_t, row_edge, row_seg, row_seedq, row_seedv, n_layers;
 };
 
+// K8's halo (CROSS only; zero for K6/K7).  B is 1.
+struct Halo {
+    const int32_t* tctx;      // (B, nt, maxat): W-axis rows at columns -k
+    const int32_t* sc_in;     // (NR, maxat, Qp+1): the neighbour's edge
+    const int32_t* pm_in;     //   columns, plane k - 1 for column -k (fwd)
+    const int32_t* ln_in;     //   or wlen + k (rev); lanes (NR * n_sh, ...)
+    int32_t* sc_out;          // (NR, maxat, Qp+1): this chunk's edge
+    int32_t* pm_out;          //   columns, plane k - 1 for column wlen+1-k
+    int32_t* ln_out;          //   (fwd) or k - 1 (rev)
+    int maxat;
+};
+
 __device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
     return (int32_t)((uint32_t)a + (uint32_t)b);
 }
@@ -170,8 +201,9 @@ __device__ __forceinline__ int floordiv6(int32_t x) {
 }
 
 // MS bounds the model's states: the cell state csc/cpm/cln is sized by it
-template <bool FWD, int MS>
-__global__ void __launch_bounds__(THREADS) band_kernel(const Params p) {
+template <bool FWD, int MS, bool CROSS>
+__global__ void __launch_bounds__(THREADS) band_kernel(const Params p,
+                                                       const Halo h) {
     __shared__ int32_t s_plan[MAX_CAND * BP_COLS];
     __shared__ int32_t s_span[MAX_SPANS * SP_COLS];
     __shared__ int32_t s_ring[MAX_S];
@@ -203,6 +235,11 @@ __global__ void __launch_bounds__(THREADS) band_kernel(const Params p) {
     // a W-axis vector at column c (0 outside [0, Wp]) and a q-axis vector
     // at lane l (0 outside [0, Qp])
     auto tcol = [&](int row, int c) -> int32_t {
+        if constexpr (CROSS) {
+            if (c < 0)
+                return c >= -h.maxat
+                    ? h.tctx[((size_t)b * p.nt + row) * h.maxat - c - 1] : 0;
+        }
         return (c >= 0 && c <= p.Wp) ? tv[(size_t)row * WT + c] : 0;
     };
     auto qlane = [&](int row, int l) -> int32_t {
@@ -264,7 +301,15 @@ __global__ void __launch_bounds__(THREADS) band_kernel(const Params p) {
                     const int adv = aq + at, r = row[BP_READ];
                     const int si = FWD ? i - aq : i + aq;
                     const int sj = FWD ? j - at : j + at;
-                    if (si < 0 || si > qlen || sj < 0 || sj > wlen) return;
+                    if constexpr (CROSS) {
+                        // sources up to maxat columns into the neighbour
+                        if (si < 0 || si > qlen || sj < (FWD ? -h.maxat : 0)
+                            || sj > (FWD ? wlen : wlen + h.maxat))
+                            return;
+                    } else {
+                        if (si < 0 || si > qlen || sj < 0 || sj > wlen)
+                            return;
+                    }
                     if (at && tcol(row[BP_CONTIG], FWD ? j : j + at) == 0)
                         return;
                     int32_t s_sc, s_pm;
@@ -278,14 +323,31 @@ __global__ void __launch_bounds__(THREADS) band_kernel(const Params p) {
                     } else {
                         const int sd = FWD ? d - adv : d + adv;
                         const int rr = s_ring[r];
-                        const size_t at_ix =
-                            ((size_t)(sd % R) * NR + rr) * W + si;
-                        s_sc = rsc[at_ix];
-                        s_pm = rpm[at_ix];
-                        if (FWD)
-                            for (int l = 0; l < n_sh; ++l)
-                                s_ln[l] = rln[((size_t)(sd % R) * NL
-                                               + rr * n_sh + l) * W + si];
+                        bool halo = false;
+                        if constexpr (CROSS) halo = FWD ? sj < 0 : sj > wlen;
+                        if (halo) {
+                            // the neighbour's edge plane k - 1
+                            const int k = FWD ? -sj : sj - wlen;
+                            const size_t ex =
+                                ((size_t)rr * h.maxat + k - 1) * W + si;
+                            s_sc = h.sc_in[ex];
+                            s_pm = h.pm_in[ex];
+                            if (FWD)
+                                for (int l = 0; l < n_sh; ++l)
+                                    s_ln[l] = h.ln_in[
+                                        (((size_t)rr * n_sh + l) * h.maxat
+                                         + k - 1) * W + si];
+                        } else {
+                            const size_t at_ix =
+                                ((size_t)(sd % R) * NR + rr) * W + si;
+                            s_sc = rsc[at_ix];
+                            s_pm = rpm[at_ix];
+                            if (FWD)
+                                for (int l = 0; l < n_sh; ++l)
+                                    s_ln[l] = rln[((size_t)(sd % R) * NL
+                                                   + rr * n_sh + l) * W
+                                                  + si];
+                        }
                     }
                     if (s_sc <= NEG) return;
                     const int qi = FWD ? i - aq : i;
@@ -495,6 +557,24 @@ __global__ void __launch_bounds__(THREADS) band_kernel(const Params p) {
                     for (int spx = 0; spx < p.n_spans; ++spx)
                         flag |= csc[s_span[spx * SP_COLS + SP_STATE]] > 0;
                 }
+                if constexpr (CROSS) {
+                    // halo export: edge column k of this chunk
+                    const int k = FWD ? wlen + 1 - j : j + 1;
+                    if (k >= 1 && k <= h.maxat)
+                        for (int s = 0; s < S; ++s) {
+                            const int rr = s_ring[s];
+                            if (rr < 0) continue;
+                            const size_t ex =
+                                ((size_t)rr * h.maxat + k - 1) * W + i;
+                            h.sc_out[ex] = csc[s];
+                            h.pm_out[ex] = cpm[s];
+                            if (FWD)
+                                for (int l = 0; l < n_sh; ++l)
+                                    h.ln_out[(((size_t)rr * n_sh + l)
+                                              * h.maxat + k - 1) * W + i] =
+                                        cln[s * MAX_SH + l];
+                        }
+                }
                 for (int s = 0; s < S; ++s) {
                     const int rr = s_ring[s];
                     if (rr < 0) continue;
@@ -524,12 +604,12 @@ __global__ void __launch_bounds__(THREADS) band_kernel(const Params p) {
     if (tid == 0) p.live[b] = live ? 1 : 0;
 }
 
-template <bool FWD>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <bool FWD, bool CROSS>
+cudaError_t launch(const Params& p, const Halo& h, cudaStream_t stream) {
     if (p.S <= SMALL_S)
-        band_kernel<FWD, SMALL_S><<<p.B, THREADS, 0, stream>>>(p);
+        band_kernel<FWD, SMALL_S, CROSS><<<p.B, THREADS, 0, stream>>>(p, h);
     else
-        band_kernel<FWD, MAX_S><<<p.B, THREADS, 0, stream>>>(p);
+        band_kernel<FWD, MAX_S, CROSS><<<p.B, THREADS, 0, stream>>>(p, h);
     return cudaGetLastError();
 }
 
@@ -543,7 +623,9 @@ int check(const Params& p) {
 
 }  // namespace
 
-#define SDP_BAND_ARGS                                                        \
+#define SDP_BAND_ARGS SDP_BAND_BASE_ARGS, void *stream
+
+#define SDP_BAND_BASE_ARGS                                                   \
     const int32_t *plan, const int32_t *spans, const int32_t *ring_row,     \
         const int32_t *dims, const int32_t *qvecs, const int32_t *tvecs,    \
         const int32_t *scalars, int32_t *bits, int32_t *ring_sc,            \
@@ -552,7 +634,7 @@ int check(const Params& p) {
         int n_plan, int n_adv, int n_spans, int nq, int nt, int ns, int B,  \
         int Qp, int Wp, int S, int n_sh, int K, int NR, int start_id,       \
         int end_id, int dropoff, int row_abs_t, int row_edge, int row_seg,  \
-        int row_seedq, int row_seedv, int n_layers, void *stream
+        int row_seedq, int row_seedv, int n_layers
 
 #define SDP_BAND_PARAMS                                                      \
     Params p{plan, spans, ring_row, dims, qvecs, tvecs, scalars, bits,      \
@@ -567,7 +649,7 @@ extern "C" int sdp_band_reverse(SDP_BAND_ARGS) {
     SDP_BAND_PARAMS;
     const int bad = check(p);
     if (bad) return bad;
-    return (int)launch<false>(p, (cudaStream_t)stream);
+    return (int)launch<false, false>(p, Halo{}, (cudaStream_t)stream);
 }
 
 // K7: the forward pass from K6's bits.  Writes colbest, live and xband;
@@ -577,5 +659,36 @@ extern "C" int sdp_band_forward(SDP_BAND_ARGS) {
     SDP_BAND_PARAMS;
     const int bad = check(p);
     if (bad) return bad;
-    return (int)launch<true>(p, (cudaStream_t)stream);
+    return (int)launch<true, false>(p, Halo{}, (cudaStream_t)stream);
+}
+
+#define SDP_HALO_ARGS                                                        \
+    const int32_t *tctx, const int32_t *sc_in, const int32_t *pm_in,        \
+        const int32_t *ln_in, int32_t *sc_out, int32_t *pm_out,             \
+        int32_t *ln_out, int maxat
+
+// K8, reverse: K6 on one chunk of one comparison, reading the right
+// neighbour's edge planes and writing its own first columns'.
+extern "C" int sdp_band_reverse_cross(SDP_BAND_BASE_ARGS, SDP_HALO_ARGS,
+                                      void *stream) {
+    if (B <= 0) return 0;
+    SDP_BAND_PARAMS;
+    const int bad = check(p);
+    if (bad) return bad;
+    if (B != 1 || maxat < 1) return (int)cudaErrorInvalidValue;
+    const Halo h{tctx, sc_in, pm_in, ln_in, sc_out, pm_out, ln_out, maxat};
+    return (int)launch<false, true>(p, h, (cudaStream_t)stream);
+}
+
+// K8, forward: K7 on one chunk, reading the left neighbour's edge planes
+// (span registers seeded by the wrapper) and writing its last columns'.
+extern "C" int sdp_band_forward_cross(SDP_BAND_BASE_ARGS, SDP_HALO_ARGS,
+                                      void *stream) {
+    if (B <= 0) return 0;
+    SDP_BAND_PARAMS;
+    const int bad = check(p);
+    if (bad) return bad;
+    if (B != 1 || maxat < 1) return (int)cudaErrorInvalidValue;
+    const Halo h{tctx, sc_in, pm_in, ln_in, sc_out, pm_out, ln_out, maxat};
+    return (int)launch<true, true>(p, h, (cudaStream_t)stream);
 }

@@ -10,6 +10,14 @@ Counterpart of ``exonerate_tpu/engine/sdp_pallas.py``.  Two kernels of
   ``pallas_call`` ``:996``): boundary injection, span registers, the
   per-column best end score, ``live`` and ``xband``.
 
+K8, the cross-chip band scan (``build_sdp_kernel(cross=True)``,
+``pallas_call`` ``:904`` / ``:929``, driven by ``run_kernel_cross_chip``
+``:1220``), is the CROSS instantiation of the same source behind
+``band_reverse_cross`` / ``band_forward_cross``: one comparison's W axis
+cut into chunks (``cross_chunks``), each chunk a launch of its own on its
+own device, chained through ``sdp_device.Halo``
+(``run_kernel_cross_chip``).
+
 The model is not compiled into the kernels: ``to_band_inputs`` flattens
 ``_plan_transitions`` into an int32 candidate table per pass, and the
 per-pair arrays of ``prepare_kernel_inputs`` into packed q-axis, W-axis
@@ -37,7 +45,8 @@ from .sdp_native import _lane_for
 from ..model.ir import Model
 
 from . import sdp_device as sd
-from .cuda_wavefront import K9, _lib
+from .. import device as default_device
+from .cuda_wavefront import K9, _LaunchCount, _lib
 from .wavefront import _bucket
 from .sdp_device import (BF_EVENT, BF_P_OVER, BF_P_UNDER, BF_SH_Q, BF_SH_T,
                          BP_AQ, BP_AT, BP_C0, BP_C1, BP_C2, BP_C3, BP_C4,
@@ -59,6 +68,10 @@ MAX_S = 24
 MAX_SH = 4
 MAX_SPANS = 6
 MAX_CAND = 64
+
+# kernel K8 (the cross-chip band scan): CROSS launches of either pass,
+# one per chunk of a comparison
+K8 = _LaunchCount()
 
 # device-memory budget of one launch pair: boundary bits, W-axis inputs,
 # column-best plane and the carry/span planes of every pair of the batch
@@ -213,6 +226,13 @@ def _ring_plan(model: Model, is_forward: bool) -> list:
     return sorted({e["read"] for e in adv_plan})
 
 
+def _max_target_advance(model: Model) -> int:
+    """MAXAT: how many columns into a neighbouring chunk a source lies
+    (``sdp_pallas.py:256-257``)."""
+    return max(max((t.advance_target for t in model.transitions),
+                   default=1), 1)
+
+
 def _max_advance(model: Model) -> int:
     return max(max((t.advance_query + t.advance_target
                     for t in model.transitions), default=1), 1)
@@ -349,11 +369,13 @@ def _plan_table(model: Model, forward: bool, qrow: dict, trow: dict,
 
 def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
                    Qp: int, Wp: int, dropoff: int,
-                   device: torch.device) -> BandInputs:
+                   device: torch.device, ctx: Optional[list] = None
+                   ) -> BandInputs:
     """Pack the ``prepare_kernel_inputs`` outputs of a batch (same Qp, Wp,
     kinds and seed layers) and the candidate tables of ``model`` onto
     ``device``.  A name some pairs lack (an all-zero override plane)
-    ships zeros for them."""
+    ships zeros for them.  ``ctx`` (K8's chunks): per pair, each W-axis
+    vector's values at columns -1 .. -maxat."""
     reason = unsupported_reason(model)
     if reason is not None:
         raise ValueError(f"cuda_sdp cannot run {model.name}: {reason}")
@@ -424,6 +446,12 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
+    maxat = _max_target_advance(model) if ctx is not None else 0
+    tctx = None
+    if ctx is not None:
+        tctx = put(np.stack([np.stack([c.get(n, np.zeros(maxat, np.int32))
+                                       for n in tnames_l]) for c in ctx]))
+
     return BandInputs(
         rev_plan=put(rev_plan), fwd_plan=put(fwd_plan), spans=put(span_tab),
         rev_ring=put(rings[0][0]), fwd_ring=put(rings[1][0]),
@@ -439,7 +467,9 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         row_abs_t=trow["_abs_t"], row_edge=trow["_edge"],
         row_seg=trow["_seg"], row_seedq=trow["_seedq0"],
         row_seedv=trow["_seedv0"], n_layers=n_layers,
-        split=bool((fwd_plan[:, BP_CALC] == K_SPLIT).any()))
+        split=bool((fwd_plan[:, BP_CALC] == K_SPLIT).any()),
+        tctx=tctx, maxat=maxat,
+        span_joint=tuple(sp["max_query"] > 0 for sp in spans))
 
 
 def pair_bytes(model: Model, Qp: int, Wp: int, n_tvec: int) -> int:
@@ -468,6 +498,7 @@ def max_batch(model: Model, Qp: int, Wp: int, n_tvec: int) -> int:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 16 + [_I] * 22 + [_P]
+_CROSS_ARGTYPES = [_P] * 16 + [_I] * 22 + [_P] * 7 + [_I, _P]
 
 
 def _check_inputs(bi: BandInputs) -> None:
@@ -499,11 +530,14 @@ def _check_inputs(bi: BandInputs) -> None:
         raise ValueError(f"no band-scan engine for device {dev}")
 
 
-def _launch(bi: BandInputs, forward: bool, bits: torch.Tensor):
+def _launch(bi: BandInputs, forward: bool, bits: torch.Tensor,
+            halo: Optional[sd.Halo] = None):
     """Launch one pass of csrc/sdp_band.cu on the current stream of the
-    tensors' card."""
-    fn = _lib("sdp_band", "sdp_band_forward" if forward
-              else "sdp_band_reverse", _ARGTYPES)
+    tensors' card: K6 / K7, or with ``halo`` K8's pass over one chunk,
+    whose outgoing Halo comes last."""
+    name = "sdp_band_forward" if forward else "sdp_band_reverse"
+    fn = (_lib("sdp_band", name, _ARGTYPES) if halo is None
+          else _lib("sdp_band", name + "_cross", _CROSS_ARGTYPES))
     dev = bi.dims.device
     B, W, R = bi.batch, bi.Qp + 1, bi.K + 1
     NR = max(bi.NR_fwd if forward else bi.NR_rev, 1)
@@ -520,11 +554,27 @@ def _launch(bi: BandInputs, forward: bool, bits: torch.Tensor):
         span_cu[:, :, :, 0] = NEG
         colbest = torch.full((B, bi.Wp + 1), NEG, **i32)
         xband = torch.zeros(B, **i32)
+        if halo is not None and halo.span is not None:
+            # the left chunk's registers, copied (the kernel updates them
+            # in place): stored, and curr in both buffers (a lane's first
+            # cell reads the buffer of d's parity)
+            span_st = halo.span[None, :, 0].clone()
+            span_cu = halo.span[:, 1][None, None].expand(
+                1, 2, *halo.span[:, 1].shape).contiguous()
     live = torch.zeros(B, **i32)
     plan = bi.fwd_plan if forward else bi.rev_plan
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
+
+    cross = []
+    if halo is not None:
+        out = sd.Halo(torch.full_like(halo.sc, NEG),
+                      torch.full_like(halo.pm, NEG),
+                      torch.zeros_like(halo.ln) if halo.ln is not None
+                      else None, None)
+        cross = [ptr(bi.tctx), ptr(halo.sc), ptr(halo.pm), ptr(halo.ln),
+                 ptr(out.sc), ptr(out.pm), ptr(out.ln), bi.maxat]
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -538,14 +588,23 @@ def _launch(bi: BandInputs, forward: bool, bits: torch.Tensor):
                 bi.scalars.shape[1], B, bi.Qp, bi.Wp, bi.S, bi.n_sh, bi.K,
                 NR, bi.start_id, bi.end_id, bi.dropoff, bi.row_abs_t,
                 bi.row_edge, bi.row_seg, bi.row_seedq, bi.row_seedv,
-                bi.n_layers, stream)
+                bi.n_layers, *cross, stream)
     if rc != 0:
         which = "forward" if forward else "reverse"
-        raise RuntimeError(f"band kernel ({which}) launch failed: CUDA "
+        kernel = "cross-chip band" if halo is not None else "band"
+        raise RuntimeError(f"{kernel} kernel ({which}) launch failed: CUDA "
                            f"error {rc}")
+    if halo is None:
+        return (colbest, live != 0, xband != 0) if forward else live != 0
+    if forward and halo.span is not None:
+        # each lane's curr register from the buffer its last cell wrote
+        par = (torch.arange(W, device=dev) + bi.dims[0, 1]) & 1
+        cu = torch.where(par == 0, span_cu[0, 0], span_cu[0, 1])
+        out.span = sd._unjoint(torch.stack([span_st[0], cu], dim=1),
+                               bi.span_joint)
     if forward:
-        return colbest, live != 0, xband != 0
-    return live != 0
+        return colbest, live != 0, xband != 0, out
+    return live != 0, out
 
 
 def band_reverse(bi: BandInputs):
@@ -583,6 +642,57 @@ def band_forward(bi: BandInputs, bits: torch.Tensor):
 
 
 band_forward.launches = 0
+
+
+def _check_halo(bi: BandInputs, halo: sd.Halo, forward: bool) -> None:
+    if bi.batch != 1 or bi.tctx is None:
+        raise ValueError("the cross-chip band kernel runs one chunk of one "
+                         "comparison: BandInputs of batch 1 with tctx")
+    want = sd.blank_halo(bi, forward)
+    dev = bi.dims.device
+    for name in ("sc", "pm", "ln", "span"):
+        a, w = getattr(halo, name), getattr(want, name)
+        if (a is None) != (w is None) or a is not None and (
+                a.device != dev or a.dtype != torch.int32
+                or not a.is_contiguous() or a.shape != w.shape):
+            raise ValueError(f"Halo.{name}: want "
+                             f"{None if w is None else tuple(w.shape)} "
+                             f"contiguous int32 on {dev}")
+
+
+def band_reverse_cross(bi: BandInputs, halo: sd.Halo):
+    """K8's reverse pass over one chunk: K6 with the right neighbour's
+    edge planes in ``halo``.  Returns (bits, live, the Halo of this
+    chunk's first columns for its left neighbour)."""
+    _check_inputs(bi)
+    _check_halo(bi, halo, False)
+    if bi.dims.device.type == "cpu":
+        return sd.plain_band_reverse(bi, halo)
+    bits = torch.zeros((bi.batch, bi.Dp, bi.n_words), dtype=torch.int32,
+                       device=bi.dims.device)
+    live, out = _launch(bi, False, bits, halo)
+    K8.launches += 1
+    return bits, live, out
+
+
+def band_forward_cross(bi: BandInputs, bits: torch.Tensor, halo: sd.Halo):
+    """K8's forward pass over one chunk: K7 from the chunk's boundary bits
+    with the left neighbour's edge planes and span registers in
+    ``halo``.  Returns (colbest, live, xband, the Halo of this chunk's
+    last columns and registers for its right neighbour)."""
+    _check_inputs(bi)
+    _check_halo(bi, halo, True)
+    want = (bi.batch, bi.Dp, bi.n_words)
+    if bits.device != bi.dims.device or bits.dtype != torch.int32 \
+            or not bits.is_contiguous() or tuple(bits.shape) != want:
+        raise ValueError(f"band_forward_cross: bits must be contiguous "
+                         f"int32 {want} on {bi.dims.device}")
+    if bi.dims.device.type == "cpu":
+        return sd.plain_band_forward(bi, bits, halo)
+    out = _launch(bi, True, bits, halo)
+    K8.launches += 1
+    K9.launches += bi.split
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -648,22 +758,113 @@ def launch_batches(model: Model, jobs: list) -> list:
 
 
 def run_kernel(model: Model, jobs: list, dropoff: int,
-               device: torch.device) -> list:
+               device: torch.device, devices: Optional[list] = None
+               ) -> list:
     """jobs: [(pair, plan)], launched as ``launch_batches`` groups them.
     Runs K6 then K7 per batch on ``device``'s current stream (their plain
-    versions on the CPU).  Returns per-job dicts {"band_end": [n_loci]
-    int64, "live": bool, "xband": bool}."""
+    versions on the CPU).  With ``devices``, each batch is split into that
+    many contiguous shards, one per device (the JAX package's batch over
+    a mesh, ``sdp_pallas.py:1033-1042``), all launched before any result
+    is fetched.  Returns per-job dicts {"band_end": [n_loci] int64,
+    "live": bool, "xband": bool}."""
     out: list = [None] * len(jobs)
+    pending = []
     for chunk in launch_batches(model, jobs):
-        bi = band_inputs(model, [jobs[ix] for ix in chunk], dropoff,
-                         device)
-        bits, live_r = band_reverse(bi)
-        colbest, live_f, xband = band_forward(bi, bits)
-        del bits
+        n_sh = len(devices) if devices else 1
+        step = -(-len(chunk) // n_sh)
+        for k in range(0, len(chunk), step):
+            shard = chunk[k:k + step]
+            dev = devices[k // step] if devices else device
+            bi = band_inputs(model, [jobs[ix] for ix in shard], dropoff, dev)
+            bits, live_r = band_reverse(bi)
+            colbest, live_f, xband = band_forward(bi, bits)
+            del bits
+            pending.append((shard, colbest, live_r | live_f, xband))
+    for shard, colbest, live, xband in pending:
         colbest = colbest.cpu().numpy()
-        live = (live_r | live_f).cpu().numpy()
+        live = live.cpu().numpy()
         xband = xband.cpu().numpy()
-        for b, ix in enumerate(chunk):
+        for b, ix in enumerate(shard):
             out[ix] = {"band_end": locus_best(colbest[b], jobs[ix][1]),
                        "live": bool(live[b]), "xband": bool(xband[b])}
     return out
+
+
+def cross_chunks(model: Model, pair, plan, dropoff: int, n_chips: int,
+                 devices: Optional[list] = None) -> list:
+    """K8's chunks of one comparison (``run_kernel_cross_chip:1220-1290``):
+    the compressed W axis cut into ceil((W+1)/n) columns each, padded to
+    Wpc = pow2(chunk + MAXAT); every W-axis vector but the seed layers
+    also gets the MAXAT columns past each end (the right ones in the row,
+    the left ones as ``tctx``).  Returns [(v0, v1, BandInputs)], chunk c
+    on ``devices[c % len(devices)]`` (the port's device when None)."""
+    Qp = _bucket(pair.region.query_length)
+    W = plan.W
+    maxat = _max_target_advance(model)
+    n_layers = count_seed_layers(pair, plan)
+    flat_g, kinds, meta = prepare_kernel_inputs(
+        model, pair, plan, Qp, _pow2(max(W, 1023)), n_layers)
+    tnames = set(meta["tnames"])
+    no_seed = {f"_seed{x}{lx}" for x in "qv" for lx in range(n_layers)}
+    chunk = -(-(W + 1) // n_chips)
+    Wpc = _pow2(chunk + maxat)
+    out = []
+    c = 0
+    while c * chunk <= W:
+        v0 = c * chunk
+        v1 = min(v0 + chunk - 1, W)
+        wlen = v1 - v0
+        flat, ctx = {}, {}
+        for n, g in flat_g.items():
+            g = np.asarray(g)
+            if n == "_wlen":
+                flat[n] = np.array([wlen], np.int32)
+            elif n in tnames:
+                vec = np.zeros(Wpc + 1, np.int32)
+                vec[:wlen + 1] = g[v0:v1 + 1]
+                left = np.zeros(maxat, np.int32)
+                if n not in no_seed:
+                    kr = min(maxat, W - v1)
+                    vec[wlen + 1:wlen + 1 + kr] = g[v1 + 1:v1 + 1 + kr]
+                    kl = min(maxat, v0)
+                    left[:kl] = g[v0 - 1::-1][:kl]
+                flat[n], ctx[n] = vec, left
+            else:
+                flat[n] = g
+        dev = devices[c % len(devices)] if devices else default_device()
+        out.append((v0, v1, to_band_inputs(model, [flat], kinds, [meta],
+                                           Qp, Wpc, dropoff, dev,
+                                           ctx=[ctx])))
+        c += 1
+    return out
+
+
+def run_kernel_cross_chip(model: Model, pair, plan, dropoff: int,
+                          n_chips: int, devices: Optional[list] = None
+                          ) -> dict:
+    """ONE comparison across devices on K8 (``sdp_pallas.py:1220``): its
+    chunks (``cross_chunks``) run the reverse pass right to left, then
+    the forward pass left to right, each chunk on its own device, and
+    the halo tensors are the only thing moved between devices.  Returns
+    ``run_kernel``'s dict for the job, equal to its single launch."""
+    chunks = cross_chunks(model, pair, plan, dropoff, n_chips, devices)
+    bits: list = [None] * len(chunks)
+    lives, xbands, cols = [], [], []
+    halo = sd.blank_halo(chunks[-1][2], False)
+    for cx in range(len(chunks) - 1, -1, -1):
+        bi = chunks[cx][2]
+        bits[cx], live, halo = band_reverse_cross(bi,
+                                                  halo.to(bi.dims.device))
+        lives.append(live)
+    halo = sd.blank_halo(chunks[0][2], True)
+    for cx, (v0, v1, bi) in enumerate(chunks):
+        col, live, xband, halo = band_forward_cross(
+            bi, bits[cx], halo.to(bi.dims.device))
+        bits[cx] = None
+        cols.append(col[0, :v1 - v0 + 1])
+        lives.append(live)
+        xbands.append(xband)
+    colbest = np.concatenate([c.cpu().numpy() for c in cols])
+    return {"band_end": locus_best(colbest, plan),
+            "live": any(bool(v.any()) for v in lives),
+            "xband": any(bool(v.any()) for v in xbands)}

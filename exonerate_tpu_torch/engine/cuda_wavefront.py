@@ -14,6 +14,16 @@ kernels, each behind a wrapper with a launch counter:
   mode (``:1147``), which writes each state's winning plan id per cell;
 - ``walkback`` (``csrc/walkback.cu``) replaces ``_build_walkback:1550``.
 
+K5, the sharded locus prescan (``find_batched_sharded``,
+``pallas_wavefront.py:1470``), is K1 data-parallel over a list of
+devices in one process: each device's shard of a batch is built and
+launched there.  It has no source of its own.
+
+A bucket the kernels refuse (``fallback_reason``: genome2genome's
+query-side and joint split codons) runs on the generic wavefront
+(``generic_wavefront``, the JAX package's XLA engine as torch ops), as
+``pallas_wavefront.find_batched:1396-1420`` sends it to XLA.
+
 ``wavefront_segment`` runs a span of a batch's diagonals on the cluster
 kernel, continuing the carry rings the span before it left: K2 in score
 mode, K4 on a cluster in path mode.  It serves the checkpointed
@@ -61,6 +71,7 @@ from ..model.ir import Model, Protect, Scope
 
 from .. import _cudabuild
 from .. import device as default_device
+from . import generic_wavefront as gw
 from . import wavefront as wf
 from .wavefront import (C_FACTORED, C_QVEC, C_SCALAR, C_SPLIT, C_TVEC,
                         F_FROM_START, F_MATCH, F_P_OVER, F_P_UNDER, F_SH_Q,
@@ -796,17 +807,67 @@ def _masked(kinds: tuple) -> bool:
     return ("_blocked", "blocked") in kinds
 
 
+def _shadows_supported(model: Model, inputs: dict) -> bool:
+    """Shadow calc inputs are scalars, or the calc has the kernels' split
+    codon form (``pallas_wavefront._shadows_supported:70``)."""
+    for k, v in inputs.items():
+        if k.startswith("sh") and not k.startswith("shv") \
+                and isinstance(v, dict):
+            if model.calcs[int(k[2:])].pallas_fn is not None:
+                continue
+            if any(np.ndim(x) != 0 for x in v.values()):
+                return False
+    return True
+
+
+def fallback_reason(model: Model, kinds: tuple, inputs: dict
+                    ) -> Optional[str]:
+    """Why a bucket goes to the generic wavefront (None when the kernels
+    run it), in the JAX package's words (``pallas_wavefront.py:1400-1413``)
+    where its Pallas kernel refuses the bucket too."""
+    reason = unsupported_reason(model, kinds)
+    if reason is None:
+        return None
+    if any(kind not in _KERNEL_KINDS for _key, kind in kinds):
+        return "pallas->xla: unsupported input kinds"
+    if not _shadows_supported(model, inputs):
+        return "pallas->xla: unsupported shadow lanes"
+    return f"pallas->xla: {reason}"
+
+
+def _sub(subopt, n: int):
+    return subopt[n] if isinstance(subopt, (list, tuple)) else subopt
+
+
 def find_batched(model: Model, jobs: list, mode: str = "region",
                  device: Optional[torch.device] = None,
                  subopt=None, stream: Optional[bool] = None) -> list:
     """Score or region DP of (region, data) jobs, under ``subopt`` (one
     SubOpt mask or a per-job list) when given.  Each chunk of a bucket
     runs on K2 when ``stream`` is True, on K1 when it is False, and by the
-    JAX package's streaming test (``streams``) when it is None.  Returns
-    one DPResult per job (starts are 0 in score mode)."""
+    JAX package's streaming test (``streams``) when it is None; a bucket
+    the kernels refuse runs the generic wavefront in region mode.
+    Returns one DPResult per job (starts are 0 in score mode on the
+    kernels)."""
     dev = device if device is not None else default_device()
     out: list = [None] * len(jobs)
     for (Qp, Tp, kinds), items in _buckets(model, jobs, subopt).items():
+        reason = fallback_reason(model, kinds, items[0][1])
+        if reason is not None:
+            # the generic wavefront in region mode, one batch per mask,
+            # as the JAX package sends such a bucket to its XLA engine
+            observe.count_fallback(reason, len(items))
+            observe.count_engine(gw.engine_name(dev), len(items))
+            groups: dict = {}
+            for n, _ in items:
+                groups.setdefault(id(_sub(subopt, n)), []).append(n)
+            for ns in groups.values():
+                res = gw.find_region_batched(model, [jobs[n] for n in ns],
+                                             subopt=_sub(subopt, ns[0]),
+                                             device=dev)
+                for n, r in zip(ns, res):
+                    out[n] = r
+            continue
         cap = max(1, max_batch(model, Qp, Tp, mode, _masked(kinds)))
         for lo in range(0, len(items), cap):
             chunk = items[lo:lo + cap]
@@ -825,10 +886,61 @@ def find_batched(model: Model, jobs: list, mode: str = "region",
     return out
 
 
+# kernel K5 (the sharded locus prescan): the shards find_batched_sharded
+# runs, one K1 launch each on a card (no CUDA source of its own)
+K5 = _LaunchCount()
+
+
+def find_batched_sharded(model: Model, jobs: list, devices: list,
+                         mode: str = "region") -> list:
+    """K1's score/region DP data-parallel over ``devices``
+    (``pallas_wavefront.find_batched_sharded:1470``, the JAX package's
+    ``shard_map`` over a ``dp`` mesh): jobs bucketed by (Qp, Tp, kinds),
+    each chunk of up to ``max_batch * len(devices)`` pairs padded to a
+    device multiple with copies of its last pair and cut into contiguous
+    shards, shard k built and launched on ``devices[k]`` (its current
+    stream).  Every shard is launched before any result is fetched; the
+    results merge in job order.  A bucket the kernels refuse runs on the
+    generic wavefront, as the JAX package's goes to XLA.  Mask-free, like
+    the locus pool's first generation that calls it."""
+    n_dev = len(devices)
+    out: list = [None] * len(jobs)
+    pending = []
+    for (Qp, Tp, kinds), items in _buckets(model, jobs).items():
+        if fallback_reason(model, kinds, items[0][1]) is not None:
+            res = gw.find_region_batched(model, [jobs[n] for n, _ in items],
+                                         device=devices[0])
+            for (n, _), r in zip(items, res):
+                out[n] = r
+            continue
+        cap = max(1, max_batch(model, Qp, Tp, mode)) * n_dev
+        for lo in range(0, len(items), cap):
+            chunk = items[lo:lo + cap]
+            per_pair = [inp for _, inp in chunk]
+            per_pair += [per_pair[-1]] * ((-len(per_pair)) % n_dev)
+            step = len(per_pair) // n_dev
+            shards = []
+            for k, dev in enumerate(devices):
+                ki = to_kernel_inputs(model, per_pair[k * step:(k + 1) * step],
+                                      kinds, dev, mode)
+                shards.append(wavefront_scan(ki))
+                K5.launches += 1
+                observe.count_engine(engine_name(dev), step)
+            pending.append((chunk, shards))
+    for chunk, shards in pending:
+        res = torch.cat([s.cpu() for s in shards], dim=1).tolist()
+        for b, (n, _) in enumerate(chunk):
+            out[n] = DPResult(score=res[0][b], query_end=res[1][b],
+                              target_end=res[2][b], query_start=res[3][b],
+                              target_start=res[4][b])
+    return out
+
+
 def find_path_batched(model: Model, jobs: list, subopt=None,
                       device: Optional[torch.device] = None) -> list:
     """Full-path DP on K4 plus the walk-back, under ``subopt`` (one SubOpt
-    mask or a per-job list) when given.  Returns DPResults with ``.path``;
+    mask or a per-job list) when given; a bucket the kernels refuse runs
+    the generic wavefront's path DP.  Returns DPResults with ``.path``;
     an entry is None when the job's traceback cube is over the budget or
     its path is longer than the walk cap (the caller then runs it on the
     host, or on the checkpointed traceback)."""
@@ -836,6 +948,20 @@ def find_path_batched(model: Model, jobs: list, subopt=None,
     out: list = [None] * len(jobs)
     plan_ts = _plan_transitions(model)
     for (Qp, Tp, kinds), items in _buckets(model, jobs, subopt).items():
+        reason = fallback_reason(model, kinds, items[0][1])
+        if reason is not None:
+            # the generic wavefront's path DP, checkpointed past
+            # --dpmemory (the JAX package leaves these jobs to the same
+            # XLA routes through its optimal.find_path)
+            from .optimal import DP_MEMORY_LIMIT
+            observe.count_fallback(reason, len(items))
+            observe.count_engine(gw.engine_name(dev), len(items))
+            for n, _ in items:
+                region, data = jobs[n]
+                out[n] = gw.find_path_checkpointed(
+                    model, region, data, _sub(subopt, n),
+                    budget_bytes=DP_MEMORY_LIMIT, device=dev)
+            continue
         cap_b = max_batch(model, Qp, Tp, "path", _masked(kinds))
         if cap_b < 1:
             # the caller runs the checkpointed traceback (as the JAX

@@ -21,6 +21,13 @@ and mask alone, on whatever device the caller passes:
   saving the carry rings, then a walk back that re-runs in path mode
   only the segments the path crosses, one segment's traceback planes
   at a time.
+
+A model the kernels refuse (``cuda_wavefront.unsupported_reason``:
+genome2genome's query-side and joint split codons) skips the kernels'
+region scan and, past the native budget, runs on the generic wavefront
+(``generic_wavefront``, the JAX package's XLA engine as torch ops on the
+same device): ``find_path`` while the traceback cube is within
+``DP_MEMORY_LIMIT``, its checkpointed route above it.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from .region import Region
 from ..model.ir import Model
 
 from . import cuda_wavefront
+from . import generic_wavefront as gw
 from . import wavefront as wf
 
 # below this many cells the interpreter path is cheaper than a kernel
@@ -143,16 +151,23 @@ def find_path(model: Model, region: Region, data, subopt=None,
         res = _native_res(model, region, data, "path", subopt)
         if res is not None:
             return _thresholded(model, region, res, threshold)
-    reason = cuda_wavefront.unsupported_reason(model)
-    if reason is not None:
-        raise NotImplementedError(
-            f"exonerate_tpu_torch: a {region.query_length}x"
-            f"{region.target_length} path DP for {model.name} is over the "
-            f"host's budget and the kernels cannot run it ({reason})")
     D = region.query_length + region.target_length + 1
-    observe.note(2, f"path DP checkpointed: tb cube "
-                    f"{(D * (region.query_length + 1) * len(model.states)) >> 20}"
-                    f" MB over --dpmemory {DP_MEMORY_LIMIT >> 20} MB")
+    cube = D * (region.query_length + 1) * len(model.states)
+    if cube > DP_MEMORY_LIMIT:
+        observe.note(2, f"path DP checkpointed: tb cube {cube >> 20} MB "
+                        f"over --dpmemory {DP_MEMORY_LIMIT >> 20} MB")
+    if cuda_wavefront.unsupported_reason(model) is not None:
+        # the generic engine, as the JAX package runs its XLA one: the
+        # whole cube within --dpmemory, checkpointed above it
+        dev = device if device is not None else cuda_wavefront.default_device()
+        observe.count_engine(gw.engine_name(dev))
+        if cube > DP_MEMORY_LIMIT:
+            res = gw.find_path_checkpointed(model, region, data, subopt,
+                                            budget_bytes=DP_MEMORY_LIMIT,
+                                            device=dev)
+        else:
+            res = gw.find_path(model, region, data, subopt, device=dev)
+        return _thresholded(model, region, res, threshold)
     res = find_path_checkpointed(model, region, data, subopt,
                                  budget_bytes=DP_MEMORY_LIMIT, device=device)
     return _thresholded(model, region, res, threshold)

@@ -13,6 +13,8 @@ Two parts:
   batched over B and vectorised over the query lanes i in [0, Qp], one
   Python loop step per compressed diagonal, and interpret the same int32
   candidate tables as the kernels (built by ``cuda_sdp.to_band_inputs``).
+  Given a ``Halo`` they are the plain version of K8, the cross-chip band
+  scan, on one chunk of a comparison (``cuda_sdp.cross_chunks``).
 
 The semantics are those of ``sdp_device.py:1-37`` as the Pallas kernel
 (``sdp_pallas.make_kernel``) evaluates them: candidate order
@@ -33,6 +35,7 @@ what the kernels are held against.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -320,6 +323,11 @@ class BandInputs:
     row_seedv: int
     n_layers: int
     split: bool = False      # the forward table holds a split-codon row (K9)
+    # K8 (one chunk of one comparison): the W-axis rows at columns -1 ..
+    # -maxat, (B, NT, maxat), and which spans are joint (query and target)
+    tctx: Optional[torch.Tensor] = None
+    maxat: int = 0
+    span_joint: tuple = ()
 
     @property
     def batch(self) -> int:
@@ -332,6 +340,40 @@ class BandInputs:
     @property
     def Dp(self) -> int:
         return self.Qp + self.Wp + 1
+
+
+@dataclass
+class Halo:
+    """What one chunk of K8 (the cross-chip band scan) hands the next: per
+    ring state of the pass, the values of the chunk's edge columns
+    (forward: column wlen + 1 - k, reverse: column k - 1, in plane k - 1
+    of ``maxat``), indexed by query lane; and, forward, the span
+    registers (n_spans, 2, 4 + n_sh, Qp+1), stored then curr, each sc,
+    pm, te, sg, lanes."""
+    sc: torch.Tensor              # (NR, maxat, Qp+1) int32
+    pm: torch.Tensor
+    ln: Optional[torch.Tensor]    # (NR * n_sh, maxat, Qp+1), forward
+    span: Optional[torch.Tensor]
+
+    def to(self, device: torch.device) -> "Halo":
+        return Halo(*(None if t is None else t.to(device)
+                      for t in (self.sc, self.pm, self.ln, self.span)))
+
+
+def blank_halo(bi: BandInputs, forward: bool) -> Halo:
+    """The halo no chunk has written: NEG scores, zero lanes, the span
+    registers' start values (sc rows NEG, the rest 0)."""
+    W, n_sh = bi.Qp + 1, bi.n_sh
+    NR = max(bi.NR_fwd if forward else bi.NR_rev, 1)
+    i32 = dict(dtype=torch.int32, device=bi.dims.device)
+    ln = span = None
+    if forward and n_sh:
+        ln = torch.zeros((NR * n_sh, bi.maxat, W), **i32)
+    if forward and bi.n_spans:
+        span = torch.zeros((bi.n_spans, 2, 4 + n_sh, W), **i32)
+        span[:, :, 0] = NEG
+    return Halo(torch.full((NR, bi.maxat, W), NEG, **i32),
+                torch.full((NR, bi.maxat, W), NEG, **i32), ln, span)
 
 
 # ---------------------------------------------------------------------------
@@ -351,10 +393,13 @@ class _Frame:
         self.qlen = bi.dims[:, 0:1]
         self.wlen = bi.dims[:, 1:2]
         # flipped and zero-padded: lane i of column d + s - i sits at
-        # position pad + Wp - d - s + i
+        # position pad + Wp - d - s + i (K8's context columns -1 .. -maxat
+        # follow column 0)
+        rows = bi.tvecs
+        if bi.tctx is not None:
+            rows = torch.cat([torch.flip(bi.tctx, dims=(2,)), rows], dim=2)
         self.pad = Qp + bi.K + 2
-        self.trev = F.pad(torch.flip(bi.tvecs, dims=(2,)),
-                          (self.pad, self.pad))
+        self.trev = F.pad(torch.flip(rows, dims=(2,)), (self.pad, self.pad))
         self.qmemo: dict = {}
         self.tmemo: dict = {}
         self.d = 0
@@ -423,10 +468,13 @@ def _calc(fr: _Frame, row, forward: bool):
     return v
 
 
-def _run_pass(bi: BandInputs, forward: bool, bits_in=None):
+def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None):
     """One pass over the diagonals.  Reverse: returns (bits (B, Dp, NW)
     int32, live (B,) bool).  Forward: (colbest (B, Wp+1) int32, live,
-    xband)."""
+    xband).  With ``halo`` (K8, a batch of one chunk) the sources up to
+    ``bi.maxat`` columns past the chunk's edge read the neighbour's edge
+    planes, the spans start from its registers, and the outgoing Halo is
+    returned last."""
     fr = _Frame(bi)
     B, W, S, n_sh, K = bi.batch, fr.W, bi.S, bi.n_sh, bi.K
     dev = bi.dims.device
@@ -444,6 +492,11 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None):
     live = torch.zeros(B, dtype=torch.bool, device=dev)
     xband = torch.zeros(B, dtype=torch.bool, device=dev)
     NW = bi.n_words
+    maxat = bi.maxat if halo is not None else 0
+    if halo is not None:
+        out_sc, out_pm = torch.full_like(halo.sc, NEG), \
+            torch.full_like(halo.pm, NEG)
+        out_ln = torch.zeros_like(halo.ln) if lanes else None
     if forward:
         colbest = torch.full((B, bi.Wp + 1), NEG, dtype=torch.int32,
                              device=dev)
@@ -451,6 +504,9 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None):
         regs = [[neg, zero, zero, zero] + [zero] * n_sh
                 + [neg, zero, zero, zero] + [zero] * n_sh
                 for _ in spans]
+        if halo is not None and spans:
+            regs = [[v[None] for v in halo.span[spx].reshape(-1, W)]
+                    for spx in range(len(spans))]
         bit_ix = torch.arange(32, dtype=torch.int32, device=dev)
     else:
         bits = torch.zeros((B, bi.Dp, NW), dtype=torch.int32, device=dev)
@@ -495,16 +551,21 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None):
                 if got is None:
                     p_sc, p_pm, p_ln = prev[adv - 1]
                     k = aq if forward else -aq
-                    got = reads[key] = (
-                        _shift(p_sc[r], k, NEG), _shift(p_pm[r], k, NEG),
-                        [_shift(v, k, 0) for v in p_ln[r]] if lanes
-                        else no_ln)
+                    got = (_shift(p_sc[r], k, NEG), _shift(p_pm[r], k, NEG),
+                           [_shift(v, k, 0) for v in p_ln[r]] if lanes
+                           else no_ln)
+                    if maxat and adv > aq:
+                        got = _halo_read(got, halo, ring[r], adv - aq, aq,
+                                         j, wlen, forward, n_sh, maxat)
+                    reads[key] = got
                 s_sc, s_pm, s_ln = got
             src_ok = masks.get((aq, at))
             if src_ok is None:
                 si, sj = (i - aq, j - at) if forward else (i + aq, j + at)
-                src_ok = (cell_ok & (si >= 0) & (si <= qlen) & (sj >= 0)
-                          & (sj <= wlen))
+                # K8: sources up to maxat columns into the neighbour
+                src_ok = (cell_ok & (si >= 0) & (si <= qlen)
+                          & (sj >= (-maxat if forward else 0))
+                          & (sj <= (wlen if forward else wlen + maxat)))
                 if at:
                     src_ok = src_ok & (fr.t(row[BP_CONTIG],
                                             0 if forward else at) != 0)
@@ -579,6 +640,22 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None):
             any_live = any_live | (sc[s] > NEG)
         edge = fr.t(bi.row_edge, 0) != 0
         live = live | (any_live & edge & cell_ok).any(dim=1)
+        if halo is not None:
+            for k in range(1, maxat + 1):
+                exp = (j == ((wlen + 1 - k) if forward else (k - 1)))
+                exp = (exp & cell_ok)[0]
+                for s in range(S):
+                    if ring[s] < 0:
+                        continue
+                    rr = ring[s]
+                    out_sc[rr, k - 1] = torch.where(exp, sc[s][0],
+                                                    out_sc[rr, k - 1])
+                    out_pm[rr, k - 1] = torch.where(exp, pm[s][0],
+                                                    out_pm[rr, k - 1])
+                    for lx in range(n_sh if lanes else 0):
+                        row = rr * n_sh + lx
+                        out_ln[row, k - 1] = torch.where(
+                            exp, ln[s][lx][0], out_ln[row, k - 1])
         if forward:
             ev = ev_row > NEG
             if bool(ev.any()):
@@ -594,9 +671,52 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None):
             word = (flag.reshape(B, NW, 32).long() * weights).sum(dim=2)
             bits[:, d] = (word - ((word >> 31) << 32)).to(torch.int32)
         prev = [(sc, pm, ln)] + prev[:-1]
+    if halo is not None:
+        span = None
+        if forward and spans:
+            span = torch.stack([torch.cat(r) for r in regs]).reshape(
+                len(spans), 2, 4 + n_sh, W)
+            span = _unjoint(span, bi.span_joint)
+        out = Halo(out_sc, out_pm, out_ln, span)
+        return ((colbest, live, xband, out) if forward
+                else (bits, live, out))
     if forward:
         return colbest, live, xband
     return bits, live
+
+
+def _halo_read(got, halo: Halo, rr: int, at: int, aq: int, j, wlen,
+               forward: bool, n_sh: int, maxat: int):
+    """K8: the source planes of an advancing candidate with the lanes
+    whose source column lies k = 1..maxat columns past the chunk's edge
+    read from the neighbour's edge plane k - 1 (shifted by aq as the ring
+    read is)."""
+    s_sc, s_pm, s_ln = got
+    sh = aq if forward else -aq
+    for k in range(1, maxat + 1):
+        zone = (j - at == -k) if forward else (j + at == wlen + k)
+        s_sc = torch.where(zone, _shift(halo.sc[rr, k - 1][None], sh, NEG),
+                           s_sc)
+        s_pm = torch.where(zone, _shift(halo.pm[rr, k - 1][None], sh, NEG),
+                           s_pm)
+        if forward and n_sh:
+            s_ln = [torch.where(zone, _shift(
+                halo.ln[rr * n_sh + lx, k - 1][None], sh, 0), v)
+                for lx, v in enumerate(s_ln)]
+    return s_sc, s_pm, s_ln
+
+
+def _unjoint(span: torch.Tensor, joint: tuple) -> torch.Tensor:
+    """The span registers a chunk hands on, with the curr registers of
+    joint spans at their start values: a joint curr register walks a
+    column from lane 0 and so never carries into the next chunk (the
+    kernel and this version leave different values there)."""
+    span = span.clone()
+    for spx, jt in enumerate(joint):
+        if jt:
+            span[spx, 1] = 0
+            span[spx, 1, 0] = NEG
+    return span
 
 
 def _span_step(reg, sp, sc, pm, ln, thaw, cell_ok, abs_tv, seg_row, n_sh):
@@ -649,19 +769,22 @@ def _span_step(reg, sp, sc, pm, ln, thaw, cell_ok, abs_tv, seg_row, n_sh):
     return xb
 
 
-def plain_band_reverse(bi: BandInputs):
+def plain_band_reverse(bi: BandInputs, halo: Optional[Halo] = None):
     """K6's plain version: the reverse pass.  Returns (bits (B, Dp, NW)
     int32 with bit i & 31 of word i >> 5 set where lane i of diagonal d is
-    a boundary cell, live (B,) bool)."""
-    return _run_pass(bi, forward=False)
+    a boundary cell, live (B,) bool); with ``halo``, K8's reverse pass on
+    one chunk, and the outgoing Halo last."""
+    return _run_pass(bi, forward=False, halo=halo)
 
 
-def plain_band_forward(bi: BandInputs, bits: torch.Tensor):
+def plain_band_forward(bi: BandInputs, bits: torch.Tensor,
+                       halo: Optional[Halo] = None):
     """K7's plain version: the forward pass from the reverse pass's
     boundary bits.  Returns (colbest (B, Wp+1) int32, the best end score
     per compressed column, NEG where none; live (B,) bool; xband (B,)
-    bool)."""
-    return _run_pass(bi, forward=True, bits_in=bits)
+    bool); with ``halo``, K8's forward pass on one chunk, and the
+    outgoing Halo last."""
+    return _run_pass(bi, forward=True, bits_in=bits, halo=halo)
 
 
 def plain_band_scan(bi: BandInputs) -> dict:

@@ -14,9 +14,12 @@ Routing is the JAX package's: the same size gates (``DEVICE_MIN_*``),
 and ``EXONERATE_TPU_SDP=device`` forces the device tier.  On the CPU the
 forced tier runs the plain scan under ``SCAN_DIAG_CAP``, as the JAX
 package's XLA scan does.  A job the kernels cannot serve raises
-``HybridFallback`` for its comparison with the missing piece named.  The
-row-scan tier (``EXONERATE_TPU_SDP_ROWS``) and the cross-chip tier
-(``EXONERATE_TPU_CROSS_CHIP``) are not ported and are refused.
+``HybridFallback`` for its comparison with the missing piece named.
+With ``EXONERATE_TPU_CROSS_CHIP=N`` and N cards visible, a comparison of
+at least ``EXONERATE_TPU_CROSS_CHIP_MIN_W`` compressed columns runs
+alone across them on K8 (``cuda_sdp.run_kernel_cross_chip``); with
+fewer cards the knob is ignored, as in the JAX package.  The row-scan
+tier (``EXONERATE_TPU_SDP_ROWS``) is not ported and is refused.
 """
 from __future__ import annotations
 
@@ -61,10 +64,28 @@ def unported_tier() -> Optional[str]:
     if os.environ.get("EXONERATE_TPU_SDP_ROWS", "") in ("1", "all"):
         return ("exonerate: EXONERATE_TPU_SDP_ROWS (the row-scan SDP "
                 "tier) is not ported to exonerate_tpu_torch yet")
-    if int(os.environ.get("EXONERATE_TPU_CROSS_CHIP", "0") or 0) >= 2:
-        return ("exonerate: EXONERATE_TPU_CROSS_CHIP (the cross-chip band "
-                "kernel, K8) is not ported to exonerate_tpu_torch yet")
     return None
+
+
+def _devices() -> list:
+    """The cards PyTorch sees."""
+    return [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
+
+
+def _cross_chip_config(plan) -> int:
+    """Cross-chip routing (``exonerate_tpu/engine/sdp_hybrid.py:366-389``):
+    with ``EXONERATE_TPU_CROSS_CHIP=N`` (N >= 2), a comparison whose
+    compressed band has at least ``EXONERATE_TPU_CROSS_CHIP_MIN_W``
+    (default 1M) columns runs across N devices when N are visible.
+    Returns N, or 0 for the single-device path."""
+    n = int(os.environ.get("EXONERATE_TPU_CROSS_CHIP", "0") or 0)
+    if n < 2 or plan is None:
+        return 0
+    min_w = int(os.environ.get("EXONERATE_TPU_CROSS_CHIP_MIN_W",
+                               str(1 << 20)))
+    if plan.W < min_w or len(_devices()) < n:
+        return 0
+    return n
 
 
 def eligible(model: Model, args: SdpArgs, subopt) -> bool:
@@ -269,9 +290,16 @@ def run_device_batch(model: Model, jobs: list,
     by_drop: dict = {}
     for ix, (pair, plan) in enumerate(jobs):
         reason = cuda_sdp.unsupported_reason(model, pair, plan)
+        n_chips = _cross_chip_config(plan) if reason is None else 0
         if reason is not None:
             out[ix] = {"fallback": "sdp device->host: band kernel "
                                    f"unsupported ({reason})"}
+        elif n_chips:
+            # a chromosome-scale comparison alone across the devices
+            devs = _devices()[:n_chips]
+            observe.count_engine(cuda_sdp.engine_name(devs[0]) + "-xchip")
+            out[ix] = cuda_sdp.run_kernel_cross_chip(
+                model, pair, plan, pair.args.dropoff, n_chips, devices=devs)
         elif device.type == "cpu" and \
                 pair.region.query_length + plan.W + 1 > SCAN_DIAG_CAP:
             out[ix] = {"fallback": "sdp device->host: kernel unavailable, "

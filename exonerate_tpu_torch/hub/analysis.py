@@ -13,7 +13,9 @@ comparison to the GAM's pooled locus heuristic and flushes them at the
 end of the scan, on the card and on the CPU alike.  The routes of the
 JAX package that are not ported yet are refused with a clear error:
 ``--cores N`` with N > 1 (one device per worker thread) and the SDP
-row-scan and cross-chip tiers (``sdp_hybrid.unported_tier``).
+row-scan tier (``sdp_hybrid.unported_tier``).  The cross-chip band scan
+(``EXONERATE_TPU_CROSS_CHIP``) runs where that many cards are visible
+and is ignored elsewhere, as in the JAX package.
 """
 from __future__ import annotations
 

@@ -22,9 +22,10 @@ heuristic (``EXONERATE_TPU_HEURISTIC=locus``, ``result_heuristic_pooled``)
 runs its generation-batched Waterman-Eggert on the wavefront kernels on
 the GAM's device: each generation one SubOpt-masked region batch (K1
 with K3) and one masked path batch (K4 with K3), on the plain versions
-on the CPU.  It runs on one device, as the JAX package's does when its
-``_scan_mesh`` is None: the data-parallel first scan over several
-devices (``find_batched_sharded``, K5) is not ported.
+on the CPU.  With two or more cards visible (``_scan_devices``) the first
+generation's mask-free scan runs data-parallel over them
+(``cuda_wavefront.find_batched_sharded``, K5), as the JAX package's
+runs over its ``_scan_mesh``.
 """
 from __future__ import annotations
 
@@ -619,6 +620,16 @@ class GAM:
                 outs_all[ci] = o
         return outs_all
 
+    def _scan_devices(self) -> Optional[list]:
+        """The cards of the data-parallel first scan: every visible card
+        when there are at least two and the GAM's device is a card; None
+        otherwise (the JAX package's ``_scan_mesh``, a mesh over
+        ``jax.devices()``, is None on a single chip)."""
+        if self.device.type != "cuda" or torch.cuda.device_count() < 2:
+            return None
+        return [torch.device("cuda", k)
+                for k in range(torch.cuda.device_count())]
+
     def _locus_pool_run(self, groups: list) -> list[list]:
         """Generation-based batched Waterman-Eggert over every locus of
         every group: each generation runs ONE masked region-scan batch
@@ -649,9 +660,16 @@ class GAM:
         while live and gen < 256:       # runaway guard
             jobs = [(r, groups[g]["data"]) for g, r in live]
             subs = [groups[g]["subopt"] for g, _r in live]
-            scans = cuda_wavefront.find_batched(
-                self.model, jobs, "region", device=self.device,
-                subopt=subs)
+            devices = self._scan_devices()
+            if gen == 0 and devices is not None \
+                    and len(jobs) >= len(devices):
+                # the mask-free first scan, data-parallel over the cards
+                scans = cuda_wavefront.find_batched_sharded(
+                    self.model, jobs, devices, "region")
+            else:
+                scans = cuda_wavefront.find_batched(
+                    self.model, jobs, "region", device=self.device,
+                    subopt=subs)
             kept, boxes = [], []
             for (g, r), scan in zip(live, scans):
                 if full(g) or scan.score < thr(g):

@@ -228,8 +228,17 @@ def test_device_tier_gates_and_refusals(monkeypatch):
     with pytest.raises(RuntimeError, match="not ported"):
         thy.run_device_batch(model, [(pair, plan)], CPU)
     monkeypatch.delenv("EXONERATE_TPU_SDP_ROWS")
+    # the cross-chip tier (K8): N devices, and a band of MIN_W columns
     monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP", "4")
-    assert "K8" in thy.unported_tier()
+    assert thy.unported_tier() is None
+    assert thy._cross_chip_config(plan) == 0          # W under 1M
+    monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP_MIN_W", "1")
+    monkeypatch.setattr(thy, "_devices", lambda: [CPU] * 3)
+    assert thy._cross_chip_config(plan) == 0          # too few devices
+    monkeypatch.setattr(thy, "_devices", lambda: [CPU] * 4)
+    assert thy._cross_chip_config(plan) == 4
+    monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP_MIN_W", str(plan.W + 1))
+    assert thy._cross_chip_config(plan) == 0
 
 
 def test_cuda_source_declares_the_python_constants():

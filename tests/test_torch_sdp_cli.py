@@ -146,12 +146,30 @@ def test_forced_route_without_jax_equals_native_route(monkeypatch,
     assert " S " in outs[1]
 
 
-@pytest.mark.parametrize("knob", [("EXONERATE_TPU_SDP_ROWS", "1"),
-                                  ("EXONERATE_TPU_CROSS_CHIP", "2")])
+@pytest.mark.parametrize("knob", [("EXONERATE_TPU_SDP_ROWS", "1")])
 def test_unported_tiers_are_refused(forced, monkeypatch, knob):
     monkeypatch.setenv(*knob)
     with pytest.raises(SystemExit, match="not ported"):
         main(list(SMALL_ARGV), out=io.StringIO())
+
+
+def test_cross_chip_knob_on_one_device_prints_the_default_bytes(
+        forced, monkeypatch):
+    """EXONERATE_TPU_CROSS_CHIP=2 with fewer devices than that is ignored
+    (``_cross_chip_config`` returns 0), as in the JAX package: the CLI
+    prints what the JAX CLI prints, through the default device route.
+    The column floor is lowered so that only the device count decides."""
+    from exonerate_tpu.cli.exonerate import main as jax_main
+    monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP", "2")
+    jbuf = io.StringIO()
+    assert jax_main(list(SMALL_ARGV), out=jbuf) == 0
+    monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP_MIN_W", "1")
+    observe.reset()
+    assert _cli(SMALL_ARGV) == jbuf.getvalue()
+    assert observe.engine_counts["torch-sdp"] >= 1, dict(
+        observe.engine_counts)
+    assert not any("xchip" in k for k in observe.engine_counts)
+    assert not observe.fallback_counts, dict(observe.fallback_counts)
 
 
 @pytest.mark.slow

@@ -12,6 +12,7 @@ port's own counterparts of modules that reach JAX there are the
 exceptions.
 """
 import ast
+import glob
 import os
 import re
 
@@ -59,6 +60,7 @@ def test_no_module_imports_jax_or_the_jax_package():
     paths += [os.path.join(ROOT, "chip_smoke.py"),
               os.path.join(ROOT, "tests", "torch_sdp_cases.py"),
               os.path.join(ROOT, "tests", "torch_split_cases.py")]
+    paths += sorted(glob.glob(os.path.join(ROOT, "tools", "torch_*.py")))
     bad = []
     for path in paths:
         for name in _imports(path):

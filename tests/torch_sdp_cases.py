@@ -105,6 +105,17 @@ def _distant_loci(rng):
             [(20, 170, 40, 55), (20, 5270, 40, 55)], {})
 
 
+def _span_cut(rng):
+    """A 1 kb intron, so that cutting the band in two (K8) freezes its span
+    in the first chunk and thaws it in the second
+    (``test_cross_chip_span_crosses_cut``' recipe)."""
+    ex1, ex2 = dna(rng, 80), dna(rng, 80)
+    t = (dna(rng, 60) + ex1 + "GT" + dna(rng, 1000) + "AG" + ex2
+         + dna(rng, 60))
+    return ("EST2GENOME", mutate(rng, ex1 + ex2, 4), t,
+            [(10, 70, 40, 60), (90, 1220, 40, 60)], {})
+
+
 def _ner_joint(rng):
     blk_a = "".join(rng.choice(_AAS, 60))
     blk_b = "".join(rng.choice(_AAS, 60))
@@ -159,8 +170,8 @@ WIDE_SPLIT_CASES = {
                        32),
     "cd2g_split_wide": (_split("CDNA2GENOME", "cdna", flank=300), 33)}
 ALL_CASES = dict(CASES, distant_loci=(_distant_loci, 14),
-                 affine_local=(_affine_local, 7), **SPLIT_CASES,
-                 **WIDE_SPLIT_CASES)
+                 affine_local=(_affine_local, 7), span_cut=(_span_cut, 5),
+                 **SPLIT_CASES, **WIDE_SPLIT_CASES)
 
 
 def case(name, model=None, pkg=PORT):
