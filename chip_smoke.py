@@ -6,7 +6,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases, in the order they run, each of which raises on failure (the
-script then exits non-zero and prints no result line):
+script then exits non-zero and prints no result line); each prints the
+second of the script at which it starts:
 
 1. Device: a CUDA card must be visible; prints its name and power limit.
 2. Build: compiles csrc/*.cu with nvcc into build/cuda/ (one nvcc per
@@ -17,23 +18,34 @@ script then exits non-zero and prints no result line):
    locus), on a ragged batch of synthetic est2genome pairs, a ner
    joint-span pair and, per split-codon model (protein2genome,
    coding2genome, cdna2genome), a ragged pair of jobs whose exons split
-   codons of both phases (kernel K9 inside K7; tests/torch_sdp_cases.py).
-   Then the est2genome_genomic golden through the port's CLI on the
-   forced device route, byte-equal to the golden (this first heuristic
-   run also builds the host's native libraries, so that the scans are
-   timed warm).
+   codons of both phases (kernel K9 inside K7; tests/torch_sdp_cases.py);
+   the plain passes, and run_kernel on the CPU, in worker processes
+   (read in phase 14).  Then the est2genome_genomic golden through the
+   port's CLI on the forced device route, byte-equal to the golden
+   (this first heuristic run also builds the host's native libraries,
+   so that the scans are timed warm).
 4. The est2genome scan at full width (the band kernels' first main
    path): 16 mutated calm cDNAs against a 1 Mb genome holding 8 spliced
    copies (benchmarks/genome_scan.py's recipe, rng 7), through the port's
-   CLI with default routing and with EXONERATE_TPU_SDP=native; the
-   outputs must be byte-equal, with 16 comparisons on cuda-sdp, K6/K7
-   launched, no fallback, 16/16 queries spliced and no plain-scan pass.
-   K6/K7 are launched again on the scan's band batch, and worker
-   processes start the plain passes over that batch on the CPU (over
-   slices of the batch), to be held against the kernels' outputs in the
-   last phase.
+   CLI with default routing, with 16 comparisons on cuda-sdp, K6/K7
+   launched, no fallback, 16/16 queries spliced and no plain-scan pass;
+   its output must equal the same CLI's with EXONERATE_TPU_SDP=native,
+   byte for byte (run in a worker process, read in phase 14, as for the
+   scans of phase 5).  K6/K7 are launched again on the scan's band batch,
+   and worker processes start the plain passes over that batch on the
+   CPU (over slices of the batch), to be held against the kernels'
+   outputs in the last phase.
+   b. K8, the cross-chip band scan (the CROSS instantiation of K6/K7),
+   on a device list that repeats cuda:0 (the distinct cards where there
+   are two or more): the scan's widest comparison cut into 2 and 4
+   chunks through cuda_sdp.run_kernel_cross_chip, whose band_end, live
+   and xband must equal its single K6/K7 launch; the 2-chunk chain's
+   four launches made again, timed with CUDA events, and each held in a
+   worker process to its plain version from the same halo (bits, live,
+   column best, xband, edge planes, span registers).
 5. The split-codon paths (kernel K9), each through the port's CLI
-   against the native route, byte for byte, with its kernels launched and
+   against the native route (the scans' in a worker process), byte for
+   byte, with its kernels launched and
    no fallback but one: in the coding2genome scan the hybrid's locus
    cross-check disagrees on one comparison (the host's re-run of one
    locus alone scores 2008 where the band scan of the whole comparison
@@ -67,7 +79,7 @@ script then exits non-zero and prints no result line):
       the second iteration runs K3 inside K1 and K4; both copies spliced.
       The native dense DP route of the same CLI (cut-overs raised) runs
       in a worker process on a host core beside the card's phases, and
-      its bytes are compared in phase 15.
+      its bytes are compared in phase 14.
       The widest masked region scan is timed (kernel K3's row) and, with
       the first masked K4 launch and its walk-back, held to the plain
       version in two more worker processes.
@@ -78,27 +90,36 @@ script then exits non-zero and prints no result line):
       path batch are launched again on a sub-batch of their two widest
       pairs, held to the full batch's results for those pairs and, in two
       more worker processes, to the plain versions.
+   c. K5, the sharded locus prescan: 6b's first-generation region batch
+      through cuda_wavefront.find_batched_sharded over [cuda:0, cuda:0]
+      (the distinct cards where there are two or more), equal to that
+      generation's results on K1 (find_batched with no K2 launch); the
+      shards of its chunk with the most cells launched again, timed, and
+      held to the plain version in 6b's worker processes.
 7. K1 vs plain: est2genome, calm (tests/golden/data/all4.fa record 1)
    against itself, 2175x2175, B=64, score and region modes (the plain
-   versions in worker processes, read in phase 15), plus a ragged
+   versions in worker processes, read in phase 14), plus a ragged
    batch and the model zoo; the split-codon plans: the calm protein
    against 8 windows of the 12 kb locus (score, region, path; plain in
    worker processes), the coding2genome and cdna2genome split pairs; the
    protein2genome -E run's first widest region scan on its own inputs
    (B=1, Qp 256 x Tp 12288), timed for kernel K9's row (its plain check
    runs in phase 5c's worker process).  Times with CUDA events.
-8. K4 + walk-back vs plain and vs the native dense DP, calm 2175^2 path.
+8. K4 + walk-back vs plain and vs the native dense DP, calm 2175^2 path
+   (K4's plain version in a worker process, the walk-back's on the card).
 9. Chromosome-scale -E yes (kernel K2, the cluster instantiation of K1):
    a. K2 through find_batched(stream=True) on forced batches: a ragged
       est2genome B=3 at Qp 2304 (C = 9), a Qp 256 pair (C = 1), a Qp 768
       pair of 601 rows (a part-filled last CTA), the protein2genome split
       pair (FULL, K9) and a small masked pair (K3); each launch is held to
       the plain version in a worker process.
-   b. est2genome -E yes --bestn 2 --score 5000 through the CLI: calm
-      against a 1.2 Mb random genome holding two spliced copies of it at
-      300 kb and 800 kb (tests/torch_split_cases.py chromosome_locus:
-      exons at thirds, ~1% mutated, GT..AG introns of 3,125 bp, so each
-      copy spans 8,425 bp and its box stays over 16 M cells).  Every
+   b. est2genome -E yes --bestn 2 --score 5000 --revcomp no through the
+      CLI (the forward strands: the reverse strand's one scan finds
+      nothing over 5000): calm against a 1.2 Mb random genome holding two
+      spliced copies of it at 300 kb and 800 kb
+      (tests/torch_split_cases.py chromosome_locus: exons at thirds, ~1%
+      mutated, GT..AG introns of 3,125 bp, so each copy spans 8,425 bp
+      and its box stays over 16 M cells).  Every
       whole-target region scan (Qp 2304 x Tp 1,356,288, B=1, 26 MB by the
       JAX package's streaming test) must run on K2 with C > 1, masked
       after the first of its strand (K3 inside K2); the copies' boxes on
@@ -107,7 +128,7 @@ script then exits non-zero and prints no result line):
       prep, and a host-clock breakdown.  The first scan's inputs go to K1
       on a side stream of their own (one CTA on one SM, beside the rest of
       the phase and phases 10-11; the script syncs streams, not the
-      device, for this), held to K2's output in phase 15.
+      device, for this), held to K2's output in phase 14.
       --score 5000, not 2000, bounds the run's length: past both copies
       the loop would keep chains of random short exons across the target,
       each a whole-target scan plus a checkpointed traceback.
@@ -136,57 +157,46 @@ script then exits non-zero and prints no result line):
     the kernels' launch counters above 0 and no engine fallback.
 11. K6/K7 on the est2genome_genomic comparison of phase 3, timed with
     CUDA events; their plain passes in two worker processes, held to the
-    kernels' outputs exactly in phase 15.
-12. K8, the cross-chip band scan (the CROSS instantiation of K6/K7), on
-    a device list that repeats cuda:0 (the distinct cards where there are
-    two or more): the widest comparison of phase 4's scan cut into 2 and
-    4 chunks through cuda_sdp.run_kernel_cross_chip, whose band_end, live
-    and xband must equal its single K6/K7 launch, timed with CUDA events;
-    then, at reduced shapes, the synthetic cases of
-    tests/torch_sdp_cases.py cut 2 and 3 ways, among them span_cut (an
-    intron span frozen in one chunk and thawed in the next) and
-    c2g_split (kernel K9 inside a CROSS forward pass): every CROSS launch
-    must equal its plain version exactly (bits, live, column best, xband,
-    edge planes, span registers) and each chain the single launch.
-13. K5, the sharded locus prescan: phase 6b's first-generation region
-    batch through cuda_wavefront.find_batched_sharded over [cuda:0,
-    cuda:0] (the distinct cards where there are two or more), equal to
-    that generation's results on K1 (find_batched with no K2 launch);
-    the shards' K1 launches of six calm jobs held to the plain version
-    and timed.
-14. genome2genome -E yes on the generic wavefront (torch ops on the card,
+    kernels' outputs exactly in phase 14.
+12. K8 at reduced shapes: the synthetic cases of tests/torch_sdp_cases.py
+    cut 2 and 3 ways, among them span_cut (an intron span frozen in one
+    chunk and thawed in the next) and c2g_split (kernel K9 inside a CROSS
+    forward pass): every CROSS launch must equal its plain version on the
+    card exactly (bits, live, column best, xband, edge planes, span
+    registers) and each chain the single launch.
+13. genome2genome -E yes on the generic wavefront (torch ops on the card,
     the model the kernels refuse): the first 300 bp of cdna_mut.fa against
     genome.fa 2990-3330 with the native traceback budget and --dpmemory at
     1 MB, so that every path DP is checkpointed, forward strands only
     (--revcomp no), through the CLI; only the generic engine counted; its
     bytes must equal the same run on the CPU (a worker process started in
     phase 4).
-15. The plain checks of the worker processes: every slice's plain pass
+14. The plain checks of the worker processes: every slice's plain pass
     must equal the kernels' outputs exactly (bits, live; column best,
     live, xband), and every K1/K2/K4 launch handed to them its plain
-    version (scores, ends, starts; traceback cube, walk-back); the native
-    routes' bytes (phases 6a and 9) and the genome2genome CPU run's
-    (phase 14); K1 at the full shape against K2; the span launches of
-    phases 9d-e.
+    version (scores, ends, starts; traceback cube, walk-back), and every
+    K8 launch handed to them its plain version; phase 3's run_kernel on
+    the CPU; the native routes' bytes (phases 4-6a and 9) and the
+    genome2genome CPU run's (phase 13); K1 at the full shape against K2;
+    the span launches of phases 9d-e.
 
 K5 and K8 are the JAX package's multi-device routes; on one card they
 check every shard, chunk and halo and time the kernels, but cannot show
-the overlap of several cards.  Phases 5-14 run on the card while the
+the overlap of several cards.  Phases 3-13 run on the card while the
 plain checks and the native routes run on the host's cores, so their
 host-clock and plain times share the host with them.
 
 The last three lines are nvidia-smi's name and power limit of the card,
 a JSON object of the kernels (route, source, the TPU kernel each
 replaces, main-path launches, max |kernel - plain|, kernel and plain
-milliseconds (the plain version on the card for K4, the walk-back, K5
-and K8, on one host core in a worker process for K1, K6, K7, K9, K3 and
-K2; K5's and K8's at the reduced shapes of phases 12-13; K2's over
-phase 9e's span of the
-chromosome's diagonals, as the plain loop would take hours over all of
-them), the bound: the larger of
-the bytes moved over 3.35 TB/s and the int32 operations over the int32
-peak, and the
-library call: none computes these DPs), and the result object.
+milliseconds (the plain version on the card for the walk-back, on one
+host core in a worker process for the others; K5's over the widest
+chunk's shards of phase 6c and K8's over the 2-chunk chain of phase 4b,
+each plain launch on its own core and summed; K2's over phase 9e's span
+of the chromosome's diagonals, as the plain loop would take hours over
+all of them), the bound: the larger of the bytes moved over 3.35 TB/s
+and the int32 operations over the int32 peak, and the library call:
+none computes these DPs), and the result object.
 """
 from __future__ import annotations
 
@@ -255,7 +265,7 @@ CH_SPAN_AT, CH_SPAN_DIAGS = 302_000, 1200
 CH_SPAN = CALM_LEN + 2 * CH_INTRON
 LOCUS_ARGV = ["-m", "est2genome", "--bestn", "10", "--maxintron", "20000",
               "--showvulgar", "yes", "--showalignment", "no"]
-# phase 14, genome2genome -E yes on the generic wavefront: the first 300
+# phase 13, genome2genome -E yes on the generic wavefront: the first 300
 # bp of cdna_mut.fa against genome.fa[2990:3330] (where they align), with
 # the native traceback budget and --dpmemory at 1 MB, so that every path
 # DP is past the host's budget and checkpointed (the CPU tests' cut);
@@ -267,9 +277,9 @@ G2G_CUT = (300, 2990, 3330)
 G2G_ARGV = ["-m", "genome2genome", "-E", "yes", "--dpmemory", "1",
             "--score", "1000", "--revcomp", "no", "--showvulgar", "yes"]
 G2G_BUDGET = 1 << 20
-# phase 12, K8: the chunk counts of the widest scan comparison, and the
+# K8: the chunk counts of the widest scan comparison (phase 4b), and the
 # synthetic cases (tests/torch_sdp_cases.py) whose every CROSS launch is
-# held to its plain version, with their chunk counts
+# held to its plain version on the card, with their chunk counts (phase 12)
 K8_SPLITS = (2, 4)
 K8_CASES = (("two_exons_intron", 2), ("ner_joint_span", 3),
             ("span_cut", 2), ("c2g_split", 2))
@@ -285,6 +295,12 @@ def _card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return proc.stdout.strip().splitlines()[0]
+
+
+def _mark(t_start: float, phase: str):
+    """Print when a phase starts, in seconds since the script started."""
+    print(f"-- phase {phase}: at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
 
 def _sync():
@@ -464,14 +480,16 @@ def _plain_check(path: str, forward: bool, idx: list):
             int((bi.dims[:, 0] + bi.dims[:, 1]).max()) + 1)
 
 
-def _start_plain_check(label, bi, outs: dict, tmp: str, tasks: list):
+def _start_plain_check(label, bi, outs: dict, tmp: str, tasks: list,
+                       pool=None):
     """Save the batch and the kernels' outputs under ``tmp`` and start the
     plain passes in worker processes, one per (forward, comparisons)
-    task.  Returns (pool, [(label and pass, idx, async result)])."""
+    task (on ``pool`` when given).  Returns (pool, [(label and pass, idx,
+    async result)])."""
     path = os.path.join(tmp, f"{label.replace(' ', '_')}_band.pt")
     torch.save({"bi": _cpu_fields(bi),
                 **{k: v.cpu() for k, v in outs.items()}}, path)
-    pool = _pool(len(tasks))
+    pool = pool or _pool(len(tasks))
     return pool, [(f"{label} {'K7' if fwd else 'K6'}", [int(b) for b in idx],
                    pool.apply_async(_plain_check,
                                     (path, fwd, [int(b) for b in idx])))
@@ -498,19 +516,26 @@ def _pool(n: int):
     return pool
 
 
-def _native_cli(argv: list, cells: int, n_states: int):
-    """Worker process, CPU only: the port's CLI over ``argv`` on the native
-    route, the kernels' cut-overs raised over ``cells`` and the traceback
-    budget raised to hold their planes, as phase 6a's reference.  Returns
+def _cpu_cli(argv: list, env: dict = None, tpu_cells: int = None,
+             tb_budget: int = None):
+    """Worker process, CPU only: the port's CLI over ``argv`` under the
+    knobs ``env``, with optimal's native cut-over raised over
+    ``tpu_cells`` cells and its native traceback budget at ``tb_budget``
+    bytes when given (the references of phases 4-6, 9 and 13).  Returns
     (output, host seconds, engine counts, fallback counts)."""
+    for knob in ("EXONERATE_TPU_SDP", "EXONERATE_TPU_HEURISTIC"):
+        os.environ.pop(knob, None)
+    os.environ.update(env or {})
     os.environ["EXONERATE_TPU_TORCH_DEVICE"] = "cpu"
     sys.path.insert(0, ROOT)
     from exonerate_tpu_torch import observe
     from exonerate_tpu_torch.cli.exonerate import main as cli_main
     from exonerate_tpu_torch.engine import optimal
     torch.set_num_threads(1)
-    optimal.NATIVE_TPU_CELLS = cells + 1
-    optimal.NATIVE_TB_BUDGET = cells * n_states * 2
+    if tpu_cells is not None:
+        optimal.NATIVE_TPU_CELLS = tpu_cells + 1
+    if tb_budget is not None:
+        optimal.NATIVE_TB_BUDGET = tb_budget
     observe.reset()
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -520,43 +545,36 @@ def _native_cli(argv: list, cells: int, n_states: int):
             dict(observe.engine_counts), dict(observe.fallback_counts))
 
 
-def _g2g_cli(argv: list):
-    """Worker process, CPU only: the port's CLI over ``argv`` with the
-    native traceback budget at G2G_BUDGET (phase 14's reference, on the
-    plain engines).  Returns (output, host seconds, engine counts,
-    fallback counts)."""
-    os.environ["EXONERATE_TPU_TORCH_DEVICE"] = "cpu"
-    sys.path.insert(0, ROOT)
-    from exonerate_tpu_torch import observe
-    from exonerate_tpu_torch.cli.exonerate import main as cli_main
-    from exonerate_tpu_torch.engine import optimal
+def _synthetic_run_kernel(k: int):
+    """Worker process, CPU only: ``cuda_sdp.run_kernel`` on the CPU (the
+    plain passes) over batch ``k`` of ``_synthetic_sdp_jobs``, phase 3's
+    reference for the card's.  Returns its per-job dicts."""
+    from exonerate_tpu_torch.engine import cuda_sdp as cs
     torch.set_num_threads(1)
-    optimal.NATIVE_TB_BUDGET = G2G_BUDGET
-    observe.reset()
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    if cli_main(argv, out=buf) != 0:
-        raise RuntimeError(f"CLI exit status for {argv}")
-    return (buf.getvalue(), time.perf_counter() - t0,
-            dict(observe.engine_counts), dict(observe.fallback_counts))
+    bmodel, jobs = _synthetic_sdp_jobs()[k]
+    return cs.run_kernel(bmodel, jobs, jobs[0][0].args.dropoff,
+                         torch.device("cpu"))
 
 
 def _k8_chain(cs, sd, chunks, plain: bool = False):
     """K8's passes over a comparison's chunks (``cs.cross_chunks``): the
     reverse pass right to left, then the forward pass left to right, each
-    launch on the kernel or, with ``plain``, on its plain version.
-    Returns [(launch, its halo in, its outputs)] in launch order."""
+    launch on the kernel or, with ``plain``, on its plain version, on its
+    chunk's device (the halo moved there).  Returns [(launch, its halo
+    in, its outputs)] in launch order."""
     rev = sd.plain_band_reverse if plain else cs.band_reverse_cross
     fwd = sd.plain_band_forward if plain else cs.band_forward_cross
     out = []
     bits = [None] * len(chunks)
     halo = sd.blank_halo(chunks[-1][2], False)
     for cx in range(len(chunks) - 1, -1, -1):
+        halo = halo.to(chunks[cx][2].dims.device)
         res = rev(chunks[cx][2], halo)
         out.append((("rev", cx), halo, res))
         bits[cx], halo = res[0], res[-1]
     halo = sd.blank_halo(chunks[0][2], True)
     for cx in range(len(chunks)):
+        halo = halo.to(chunks[cx][2].dims.device)
         res = fwd(chunks[cx][2], bits[cx], halo)
         out.append((("fwd", cx), halo, res))
         halo = res[-1]
@@ -568,6 +586,42 @@ def _halo_tensors(res) -> list:
     *main, halo = res
     return list(main) + [t for t in (halo.sc, halo.pm, halo.ln, halo.span)
                          if t is not None]
+
+
+def _save_cross(path: str, bi, halo, bits, res) -> str:
+    """Save one K8 launch for ``_plain_cross_check``: its chunk, the halo
+    it read, K6's bits of the chunk (forward) and its outputs."""
+    torch.save({"bi": _cpu_fields(bi),
+                "halo": [None if t is None else t.cpu()
+                         for t in (halo.sc, halo.pm, halo.ln, halo.span)],
+                "bits": None if bits is None else bits.cpu(),
+                "out": [t.cpu() for t in _halo_tensors(res)]}, path)
+    return path
+
+
+def _plain_cross_check(path: str):
+    """Worker process, CPU only: the plain pass of one K8 launch saved at
+    ``path`` (``_save_cross``) from the same halo, held against the
+    kernel's outputs: bits and live (reverse) or column best, live and
+    xband (forward), and the outgoing edge planes and span registers.
+    Returns (equal, max |kernel - plain|, seconds, diagonals walked)."""
+    from exonerate_tpu_torch.engine import sdp_device as sd
+    torch.set_num_threads(1)
+    saved = torch.load(path, weights_only=True)
+    bi = sd.BandInputs(**saved["bi"])
+    halo = sd.Halo(*saved["halo"])
+    t0 = time.perf_counter()
+    if saved["bits"] is None:
+        res = sd.plain_band_reverse(bi, halo)
+    else:
+        res = sd.plain_band_forward(bi, saved["bits"], halo)
+    secs = time.perf_counter() - t0
+    got, want = _halo_tensors(res), saved["out"]
+    ok = len(got) == len(want) and all(torch.equal(a, b)
+                                       for a, b in zip(got, want))
+    err = max((_max_err(a, b) for a, b in zip(got, want)
+               if a.shape == b.shape), default=0)
+    return ok, err, secs, int((bi.dims[:, 0] + bi.dims[:, 1]).max()) + 1
 
 
 def _k8_work(cs, chunks):
@@ -793,6 +847,7 @@ def main() -> int:
             raise RuntimeError(f"the port imported {mod}")
 
     # -- 2. build (one nvcc per source, all started together) -----------
+    _mark(t_start, "2, build")
     from concurrent.futures import ThreadPoolExecutor
     stems = ("wavefront", "walkback", "sdp_band")
     with ThreadPoolExecutor(len(stems)) as ex:
@@ -873,27 +928,38 @@ def main() -> int:
         return res
 
     # -- 3. K6/K7 vs plain, synthetic pairs ------------------------------
+    _mark(t_start, "3, K6/K7 on synthetic pairs")
+    # the kernels on the card; their plain passes, and run_kernel on the
+    # CPU, in worker processes on host cores (read in phase 14)
+    tmp_dir = _EXIT.enter_context(tempfile.TemporaryDirectory())
+    pools, pending = [], []
+    syn_pool = _pool(2)
+    pools.append(syn_pool)
+    syn_checks = []
     band_err = 0
     split_band = None
-    for bmodel, jobs in _synthetic_sdp_jobs():
+    for k, (bmodel, jobs) in enumerate(_synthetic_sdp_jobs()):
         drop = jobs[0][0].args.dropoff
         bi = cs.band_inputs(bmodel, jobs, drop, dev)
-        err, _, plain_fwd = _band_vs_plain(bi, f"{bmodel.name} x{len(jobs)}")
-        band_err = max(band_err, err)
+        bits, live_r = cs.band_reverse(bi)
+        col, live_f, xb = cs.band_forward(bi, bits)
+        label = f"synthetic {k} {bmodel.name} x{len(jobs)}"
+        _, more = _start_plain_check(
+            label, bi, {"bits": bits, "live_r": live_r, "colbest": col,
+                        "live_f": live_f, "xband": xb}, tmp_dir,
+            [(False, list(range(bi.batch))), (True, list(range(bi.batch)))],
+            syn_pool)
+        pending.extend(more)
         if bi.split and bmodel.name.startswith("protein2genome"):
-            bits0 = cs.band_reverse(bi)[0]
             split_band = (bmodel.name, bi.Qp, bi.Wp, _cuda_ms(
-                lambda: cs.band_forward(bi, bits0), 3), plain_fwd)
-        got = cs.run_kernel(bmodel, jobs, drop, dev)
-        want = cs.run_kernel(bmodel, jobs, drop, cpu)
-        for g, w in zip(got, want):
-            if (g["live"], g["xband"]) != (w["live"], w["xband"]) \
-                    or not np.array_equal(g["band_end"], w["band_end"]):
-                raise RuntimeError(f"K6/K7 {bmodel.name}: run_kernel on "
-                                   f"the card != on the CPU")
+                lambda: cs.band_forward(bi, bits), 3), more[1][2])
+        syn_checks.append((label, cs.run_kernel(bmodel, jobs, drop, dev),
+                           syn_pool.apply_async(_synthetic_run_kernel, (k,))))
         print(f"K6/K7 {bmodel.name} x{len(jobs)}"
-              f"{' (split codons, K9)' if bi.split else ''}: kernel == "
-              f"plain (bits, column best, live, xband, band_end per locus)")
+              f"{' (split codons, K9)' if bi.split else ''}: launched; the "
+              f"plain passes and run_kernel on the CPU started in worker "
+              f"processes")
+        del bi, bits, col
 
     # the est2genome_genomic golden through the CLI on the forced device
     # route (this first heuristic run also builds the host's native
@@ -919,6 +985,7 @@ def main() -> int:
     gmodel, gjobs, _ = captured[0]
 
     # -- 4. the est2genome scan at full width (the band kernels' main path)
+    _mark(t_start, "4, the est2genome scan")
     plain_passes = [0]
     real_pass = sd._run_pass
 
@@ -927,13 +994,19 @@ def main() -> int:
         return real_pass(*args, **kwargs)
 
     real_resolve = hy.HybridSDPPair._resolve
-    route_secs = {}     # scan label -> (route's host s, native route's)
+    route_secs = {}     # scan label -> the route's host seconds
+    # the scans' native routes (EXONERATE_TPU_SDP=native) run in a worker
+    # process beside the card's phases; their bytes are compared in phase
+    # 14: [(label, mode, the route's output, async result)]
+    scan_pool = _pool(1)
+    pools.append(scan_pool)
+    scan_natives = []
 
     def scan(label, argv, mode, want_kernels, force=None, max_crossed=0):
-        """The CLI over ``argv`` on the route ``force`` (None: default)
-        and on the native route; returns (output, engines, captured
-        batches, [(batch, comparison) of each locus cross-check
-        mismatch]).
+        """The CLI over ``argv`` on the route ``force`` (None: default),
+        and on the native route in a worker process; returns (output,
+        engines, captured batches, [(batch, comparison) of each locus
+        cross-check mismatch]).
 
         The hybrid's locus cross-check may disagree on at most
         ``max_crossed`` comparisons: the host's re-run of one locus alone
@@ -965,33 +1038,27 @@ def main() -> int:
             launches = read_counts(label, want_kernels)
             eng = dict(observe.engine_counts)
             falls = dict(observe.fallback_counts)
-            hy.run_device_batch = real_batch
-            hy.HybridSDPPair._resolve = real_resolve
             batches = list(captured)
-            os.environ["EXONERATE_TPU_SDP"] = "native"
-            observe.reset()
-            out_nat, secs_nat = run_cli(argv)
         finally:
             os.environ.pop("EXONERATE_TPU_SDP", None)
             sd._run_pass = real_pass
             hy.run_device_batch = real_batch
             hy.HybridSDPPair._resolve = real_resolve
-        route_secs[label] = (secs_dev, secs_nat)
+        scan_natives.append((label, mode, out_dev, scan_pool.apply_async(
+            _cpu_cli, (argv, {"EXONERATE_TPU_SDP": "native"}))))
+        route_secs[label] = secs_dev
         crossed = [(bx, jx) for bx, (_m, jobs_, _s) in enumerate(batches)
                    for jx, (_p, pl) in enumerate(jobs_)
                    if any(pl is q for q in mismatched)]
-        print(f"{label} [{card}]: {mode} {secs_dev:.2f} s, "
-              f"EXONERATE_TPU_SDP=native {secs_nat:.2f} s (host clock); "
-              f"engines {eng}; launches {launches}; fallbacks {falls}")
+        print(f"{label} [{card}]: {mode} {secs_dev:.2f} s (host clock; the "
+              f"native route runs in a worker process); engines {eng}; "
+              f"launches {launches}; fallbacks {falls}")
         if sum(falls.values()) != len(crossed):
             raise RuntimeError(f"{label}: fallbacks {falls} are not the "
                                f"{len(crossed)} locus cross-checks found")
         if len(crossed) > max_crossed:
             raise RuntimeError(f"{label}: {len(crossed)} locus cross-check "
                                f"mismatches, at most {max_crossed} allowed")
-        if out_dev != out_nat:
-            raise RuntimeError(f"{label}: the {mode} output differs from "
-                               f"the native route's")
         if eng.get(cs.engine_name(dev), 0) < 1:
             raise RuntimeError(f"{label}: no comparison on "
                                f"{cs.engine_name(dev)}: {eng}")
@@ -1000,12 +1067,11 @@ def main() -> int:
                                f"passes ran on the main path")
         return out_dev, eng, batches, crossed
 
-    tmp_dir = _EXIT.enter_context(tempfile.TemporaryDirectory())
     queries, genome = sc.scan_genome((400, 800))
     qf = _write_fasta(os.path.join(tmp_dir, "q.fa"),
                       [(f"q{k}", q) for k, q in enumerate(queries)])
     tf = _write_fasta(os.path.join(tmp_dir, "t.fa"), [("genome", genome)])
-    # phase 14's reference: the genome2genome -E run on the CPU, in a
+    # phase 13's reference: the genome2genome -E run on the CPU, in a
     # worker process beside the card's phases
     g2g_seqs = {f: "".join(open(os.path.join(DATA, f)).read().split(
         "\n", 1)[1].split()) for f in ("cdna_mut.fa", "genome.fa")}
@@ -1016,7 +1082,8 @@ def main() -> int:
                      [("genome_2990", g2g_seqs["genome.fa"][
                          G2G_CUT[1]:G2G_CUT[2]])])]
     g2g_pool = _pool(1)
-    g2g_res = g2g_pool.apply_async(_g2g_cli, (G2G_ARGV + g2g_files,))
+    g2g_res = g2g_pool.apply_async(
+        _cpu_cli, (G2G_ARGV + g2g_files, None, None, G2G_BUDGET))
     scan_label = f"scan {SCAN_QUERIES} x {SCAN_LEN / 1e6:.0f} Mb est2genome"
     out_dev, scan_eng, batches, _ = scan(
         scan_label,
@@ -1053,12 +1120,71 @@ def main() -> int:
     tasks = [(fwd, c) for fwd, n in ((False, SCAN_REV_CHUNKS),
                                      (True, SCAN_FWD_CHUNKS))
              for c in np.array_split(order, min(n, bi.batch))]
-    pool, pending = _start_plain_check(
+    pool, more = _start_plain_check(
         "scan", bi, {"bits": bits_s, "live_r": live_r, "colbest": col_s,
                      "live_f": live_f, "xband": xb_s}, tmp_dir, tasks)
-    pools = [pool, g2g_pool]
+    pools += [pool, g2g_pool]
+    pending.extend(more)
     check_t0 = time.perf_counter()
     del bi, bits_s, col_s
+
+    # b. K8, the cross-chip band scan, at the main path's shape: the
+    # scan's widest comparison cut into 2 and 4 chunks on a device list
+    # of cuda:0 (or the distinct cards), held to its single K6/K7 launch;
+    # the launches of its 2-chunk chain made again, timed, and held to
+    # their plain versions (from the same halos) in worker processes
+    _mark(t_start, "4b, K8 on the scan's widest comparison")
+    xdevs = ([torch.device("cuda", k)
+              for k in range(torch.cuda.device_count())]
+             if torch.cuda.device_count() >= 2 else [dev])
+    pair_x, plan_x = max(sjobs, key=lambda j: j[1].W)
+    drop_x = pair_x.args.dropoff
+    want_x = cs.run_kernel(smodel, [(pair_x, plan_x)], drop_x, dev)[0]
+    zero_counts()
+    k8_ms = {}
+    for n in K8_SPLITS:
+        got_x, k8_ms[n] = _cuda_call(lambda: cs.run_kernel_cross_chip(
+            smodel, pair_x, plan_x, drop_x, n, devices=xdevs))
+        if (got_x["live"], got_x["xband"]) != (want_x["live"],
+                                               want_x["xband"]) \
+                or not np.array_equal(got_x["band_end"],
+                                      want_x["band_end"]):
+            raise RuntimeError(f"K8 ({n} chunks) != the single K6/K7 "
+                               f"launch on the scan's widest comparison")
+    k8_launches = read_counts("K8 on the scan's widest comparison",
+                              ("K8",))
+    chunks_x = cs.cross_chunks(smodel, pair_x, plan_x, drop_x,
+                               K8_SPLITS[0], xdevs)
+    chain_x = _k8_chain(cs, sd, chunks_x)
+    k8_chain_ms = _cuda_ms(lambda: _k8_chain(cs, sd, chunks_x))
+    rev_bits = {cx: res[0] for (kind, cx), _h, res in chain_x
+                if kind == "rev"}
+    k8_pool = _pool(len(chain_x))
+    pools.append(k8_pool)
+    k8_pending = []
+    for (kind, cx), halo, res in chain_x:
+        bi_c = chunks_x[cx][2]
+        path = _save_cross(os.path.join(tmp_dir, f"k8_{kind}_{cx}.pt"),
+                           bi_c, halo,
+                           rev_bits[cx] if kind == "fwd" else None, res)
+        k8_pending.append(k8_pool.apply_async(_plain_cross_check, (path,)))
+        pending.append((f"K8 {'K7' if kind == 'fwd' else 'K6'} pass on "
+                        f"chunk {cx} of {len(chunks_x)} (Qp {bi_c.Qp} x Wpc "
+                        f"{bi_c.Wp}) of the scan's widest comparison", [0],
+                        k8_pending[-1]))
+    k8_work = _k8_work(cs, chunks_x)
+    k8_shape = (f"the est2genome scan's widest comparison, Q "
+                f"{pair_x.region.query_length} x W {plan_x.W}, "
+                f"{len(chunks_x)} chunks of Qp {chunks_x[0][2].Qp} x Wpc "
+                f"{chunks_x[0][2].Wp}")
+    del chain_x, chunks_x, rev_bits
+    print(f"K8 on {k8_shape} over devices {[str(d) for d in xdevs]} "
+          f"[{card}]: " + "; ".join(
+              f"{n} chunks {k8_ms[n]:.3f} ms with host prep" for n in
+              K8_SPLITS) + f" (CUDA events), band_end, live and xband == "
+          f"the single K6/K7 launch; launches {k8_launches}; the "
+          f"{K8_SPLITS[0]}-chunk chain's {2 * K8_SPLITS[0]} launches again "
+          f"{k8_chain_ms:.3f} ms (CUDA events), plain checks started")
 
     def check_launches(label, model_, jobs_, check):
         """K6/K7 again on each launch that the main path made of the band
@@ -1105,6 +1231,7 @@ def main() -> int:
                 [jx for _, jx in crossed] or [int(np.argmax(widths))])
 
     # -- 5. the split-codon paths (K9) -----------------------------------
+    _mark(t_start, "5, the split-codon paths")
     # a. coding2genome scan, default routing
     squeries, sgenome = sc.scan_genome(sc.CUTS)
     sqf = _write_fasta(os.path.join(tmp_dir, "sq.fa"),
@@ -1210,6 +1337,7 @@ def main() -> int:
                         res))
 
     # -- 6. the SubOpt mask (kernel K3) ----------------------------------
+    _mark(t_start, "6, the SubOpt mask")
     # a. est2genome -E yes Waterman-Eggert: calm against two interleaved
     # spliced copies of itself in a 30 kb window
     calm_s = sc.calm()
@@ -1223,11 +1351,12 @@ def main() -> int:
     we_cells = (len(calm_s) + 1) * (len(we_locus) + 1)
     # the native routes of this phase and of phase 9 run in worker
     # processes on host cores (the native dense DP needs no card), beside
-    # the card's phases; their outputs are compared in phase 15
+    # the card's phases; their outputs are compared in phase 14
     nat_pool = _pool(1 + len(CH_STARTS))
     pools.append(nat_pool)
     nat_we_res = nat_pool.apply_async(
-        _native_cli, (argv_we, we_cells, len(model.states)))
+        _cpu_cli, (argv_we, None, we_cells,
+                   we_cells * len(model.states) * 2))
     chrom = sc.chromosome_locus(calm_s, CH_LEN, CH_STARTS, CH_INTRON)
     ctf = _write_fasta(os.path.join(tmp_dir, "chrom.fa"),
                        [("chromosome", chrom)])
@@ -1236,8 +1365,8 @@ def main() -> int:
 
     def argv_ch(target):
         return ["-m", "est2genome", "-E", "yes", "--bestn", "2", "--score",
-                str(CH_SCORE), cqf, target, "--showvulgar", "yes",
-                "--showalignment", "no"]
+                str(CH_SCORE), "--revcomp", "no", cqf, target,
+                "--showvulgar", "yes", "--showalignment", "no"]
 
     ch_windows = []
     for k, start in enumerate(CH_STARTS):
@@ -1246,9 +1375,10 @@ def main() -> int:
         w0 = start + CH_SPAN // 2 - CH_WIN // 2
         wf_k = _write_fasta(os.path.join(tmp_dir, f"chrom_win{k}.fa"),
                             [("chromosome", chrom[w0:w0 + CH_WIN])])
-        ch_windows.append((w0, nat_pool.apply_async(_native_cli, (
-            argv_ch(wf_k), (len(calm_s) + 1) * (CH_WIN + 1),
-            len(model.states)))))
+        win_cells = (len(calm_s) + 1) * (CH_WIN + 1)
+        ch_windows.append((w0, nat_pool.apply_async(_cpu_cli, (
+            argv_ch(wf_k), None, win_cells,
+            win_cells * len(model.states) * 2))))
     we_kis, iters = [], [0]
     real_fp = optimal.find_path
 
@@ -1283,7 +1413,7 @@ def main() -> int:
           f"{len(we_locus)} bp, two interleaved spliced copies [{card}]: "
           f"{iters[0]} iterations; kernels {secs_we:.2f} s (host clock; "
           f"the native route runs in a worker process, compared in phase "
-          f"12); engines {we_eng}; launches {we_launches}; K1/K4 launches "
+          f"14); engines {we_eng}; launches {we_launches}; K1/K4 launches "
           f"{we_shapes}")
     print(f"  where the kernel route's {secs_we:.2f} s go (host clock): "
           f"{_breakdown(we_time, secs_we)}; K1 batches by the JAX package's "
@@ -1331,6 +1461,7 @@ def main() -> int:
           f"started")
     k3_work = _wave_work(we_main, 5 * we_main.batch * 4)
 
+    _mark(t_start, "6b, the locus pool")
     # b. the pooled locus heuristic at the flagship's shape: phase 4's
     # scan with EXONERATE_TPU_HEURISTIC=locus and --bestn 10, so that no
     # comparison is full after the first generation
@@ -1341,10 +1472,12 @@ def main() -> int:
         lo_kis.append(real_tki(*args, **kwargs))
         return lo_kis[-1]
 
-    def count_gen(model_, jobs_, mode="region", device=None, subopt=None):
+    def count_gen(model_, jobs_, mode="region", device=None, subopt=None,
+                  **kwargs):
         lo_gens.append((len(jobs_), any(
             x is not None and x.points for x in subopt or [])))
-        res = real_fb(model_, jobs_, mode, device=device, subopt=subopt)
+        res = real_fb(model_, jobs_, mode, device=device, subopt=subopt,
+                      **kwargs)
         if not lo_gen0:
             lo_gen0.extend([model_, list(jobs_), res])
         return res
@@ -1371,7 +1504,7 @@ def main() -> int:
     print(f"locus pool {SCAN_QUERIES} x {SCAN_LEN / 1e6:.0f} Mb est2genome "
           f"(EXONERATE_TPU_HEURISTIC=locus, --bestn 10) [{card}]: "
           f"{secs_lo:.2f} s host clock (phase 4's default SDP route "
-          f"{route_secs[scan_label][0]:.2f} s); {len(lo_gens)} generations "
+          f"{route_secs[scan_label]:.2f} s); {len(lo_gens)} generations "
           f"(jobs, masked) {lo_gens}; engines {lo_eng}; launches "
           f"{lo_launches}; {len(spliced_lo)}/{SCAN_QUERIES} queries spliced;"
           f" K1/K4 launches (mode, B, Qp, Tp, masked) "
@@ -1426,7 +1559,77 @@ def main() -> int:
     print(f"  locus pool: launches {lo_checked} (launch, mode, B, Qp, Tp, "
           f"pairs) equal the full batch's results; plain checks started")
 
+    # c. K5, the sharded locus prescan: 6b's first generation through
+    # find_batched_sharded over [cuda:0, cuda:0] (or the distinct cards),
+    # equal to that generation's results on K1 on one device (6b ran no
+    # K2); the shards of its chunk with the most cells launched again,
+    # timed, and held to the plain version in worker processes
+    _mark(t_start, "6c, K5 on the locus pool's first generation")
+    lo_model, lo_jobs, want5 = lo_gen0
+    if lo_launches.get("K2"):
+        raise RuntimeError("the locus pool ran K2: its first generation is "
+                           "no find_batched(stream=False) reference")
+    k5_devs = ([torch.device("cuda", k)
+                for k in range(torch.cuda.device_count())]
+               if torch.cuda.device_count() >= 2 else [dev, dev])
+    k5_kis = []
+
+    def capture5(*args, **kwargs):
+        k5_kis.append(real_tki(*args, **kwargs))
+        return k5_kis[-1]
+
+    zero_counts()
+    cw.to_kernel_inputs = capture5
+    try:
+        got5, ms5 = _cuda_call(lambda: cw.find_batched_sharded(
+            lo_model, lo_jobs, k5_devs, "region"))
+    finally:
+        cw.to_kernel_inputs = real_tki
+    k5_launches = read_counts("K5 on the locus pool's first generation",
+                              ("K5", "K1"))
+
+    def _dp(r):
+        return (r.score, r.query_start, r.target_start, r.query_end,
+                r.target_end)
+
+    if [_dp(r) for r in got5] != [_dp(r) for r in want5]:
+        raise RuntimeError("K5 != find_batched(stream=False) on the locus "
+                           "pool's first generation")
+    if len(k5_kis) != k5_launches["K5"]:
+        raise RuntimeError(f"K5: {len(k5_kis)} shards built, "
+                           f"{k5_launches['K5']} launched")
+    # find_batched builds a chunk's shards one after another
+    k5_groups = [k5_kis[k:k + len(k5_devs)]
+                 for k in range(0, len(k5_kis), len(k5_devs))]
+    k5_sel = max(k5_groups, key=lambda g: sum(
+        int(((ki.dims[:, 2].long() + 1) * (ki.dims[:, 3].long() + 1)).sum())
+        for ki in g))
+    del k5_kis, k5_groups
+    k5_outs = [cw.wavefront_scan(ki) for ki in k5_sel]
+    k5_ms = _cuda_ms(lambda: [cw.wavefront_scan(ki) for ki in k5_sel], 3)
+    k5_pending = []
+    for n, (ki, out) in enumerate(zip(k5_sel, k5_outs)):
+        path = _save_wave(os.path.join(tmp_dir, f"k5_{n}.pt"), ki,
+                          {"out": out})
+        k5_pending.append(lo_pool.apply_async(_plain_wave_check, (path,)))
+        pending.append((f"K5 shard {n} on {ki.dims.device} (region, Qp "
+                        f"{ki.Qp} x Tp {ki.Tp} x{ki.batch})",
+                        list(range(ki.batch)), k5_pending[-1]))
+    k5_work = [_wave_work(ki, 5 * ki.batch * 4) for ki in k5_sel]
+    k5_work = (sum(w[0] for w in k5_work), sum(w[1] for w in k5_work))
+    k5_shape = (f"the locus pool's first generation, {len(lo_jobs)} jobs; "
+                f"the {len(k5_sel)} shards of its widest chunk, "
+                + ", ".join(f"Qp {ki.Qp} x Tp {ki.Tp} x{ki.batch}"
+                            for ki in k5_sel))
+    del k5_sel, k5_outs
+    print(f"K5 on {k5_shape}, over {[str(d) for d in k5_devs]} [{card}]: "
+          f"the generation {ms5:.3f} ms with host prep (CUDA events), == "
+          f"its K1 results in phase 6b; launches {k5_launches}; the widest "
+          f"chunk's shards again {k5_ms:.3f} ms (CUDA events), plain checks "
+          f"started")
+
     # -- 7. K1 vs plain --------------------------------------------------
+    _mark(t_start, "7, K1 vs plain")
     # the plain versions run on host cores (worker processes) beside the
     # card's phases; region mode's time is K1's plain time
     k1_pool = _pool(2)
@@ -1528,14 +1731,19 @@ def main() -> int:
     k9_work = _wave_work(e_main, 5 * e_main.batch * 4)
 
     # -- 8. K4 + walk-back vs plain and the native dense DP --------------
+    # K4's plain version (with the walk-back's over the kernel's cube) on
+    # a host core (worker process, read in phase 14); the walk-back's on
+    # the card
+    _mark(t_start, "8, K4 and the walk-back")
     ki = cw.to_kernel_inputs(model, [inputs], kinds, dev, "path")
-    (stats, tb), (p_stats, p_tb), path_ms, path_plain_ms = _turns(
-        lambda: wf.plain_wavefront(ki), lambda: cw.wavefront_path(ki), 2)
+    k4_outs = _wave_outputs(cw, ki)
+    stats, tb = k4_outs["out"], k4_outs["tb"]
+    path_ms = _cuda_ms(lambda: cw.wavefront_path(ki), 2)
+    k4_res = w_pool.apply_async(_plain_wave_check, (_save_wave(
+        os.path.join(tmp_dir, "k4_calm.pt"), ki, k4_outs),))
+    del k4_outs
+    pending.append((f"K4 path calm {CALM_LEN}^2 x1", [0], k4_res))
     D, W = Qp + Tp + 1, Qp + 1
-    valid = _tb_valid(ki, tb)
-    tb_err = _max_err(tb[valid], p_tb[valid])
-    if tb_err or not torch.equal(stats, p_stats):
-        raise RuntimeError(f"K4: kernel != plain (tb max err {tb_err})")
     cap = D + cw.WALK_SLACK
     (ops, res), (p_ops, p_res), walk_ms, walk_plain_ms = _turns(
         lambda: wf.plain_walkback(tb, stats, ki.walk, ki.end_id, cap),
@@ -1545,7 +1753,7 @@ def main() -> int:
                                                       p_ops[:, :k]):
         raise RuntimeError("walk-back: kernel != plain")
     walk_err = _max_err(res, p_res)
-    del tb, p_tb, valid
+    del tb
     got = cw.find_path_batched(model, [(full, data)], device=dev)[0]
     t0 = time.perf_counter()
     nat = sdp_native.run_viterbi(model, full, data, "path")
@@ -1560,19 +1768,19 @@ def main() -> int:
     if got.score != CALM_SELF_SCORE or len(got.path) != len(nat.path) \
             or any(a is not b for a, b in zip(got.path, nat.path)):
         raise RuntimeError("K4 vs native: paths differ")
-    print(f"K4 path calm {CALM_LEN}^2 x1 [{card}]: kernel {path_ms:.3f} ms,"
-          f" plain {path_plain_ms:.3f} ms; walk-back kernel {walk_ms:.4f} ms"
-          f", plain {walk_plain_ms:.3f} ms ({k} ops); native dense DP "
+    print(f"K4 path calm {CALM_LEN}^2 x1 [{card}]: kernel {path_ms:.3f} ms "
+          f"(its plain check started); walk-back kernel {walk_ms:.4f} ms, "
+          f"plain {walk_plain_ms:.3f} ms ({k} ops); native dense DP "
           f"{nat_s * 1e3:.1f} ms (host clock); path equals native")
     S, B1 = ki.S, 1
-    report["K4"] = (tb_err, path_ms, path_plain_ms,
-                    _wave_work(ki, 5 * 4 + B1 * D * S * W))
+    k4_work = _wave_work(ki, 5 * 4 + B1 * D * S * W)
     # per step the walk reads one cube byte and one id-table column and
     # writes one op
     report["walkback"] = (walk_err, walk_ms, walk_plain_ms,
                           (k * (1 + 16 + 4) + _nbytes(stats) + 12, 6 * k))
 
     # -- 9. chromosome-scale -E yes (kernel K2) ----------------------------
+    _mark(t_start, "9, chromosome-scale -E yes")
     # a. K2 against the plain version on forced stream=True batches (the
     # plain checks run in worker processes on one host core each); these
     # launches also load every K2 instantiation the -E run uses before K1
@@ -1664,6 +1872,7 @@ def main() -> int:
                              (0, ki.Qp + ki.Tp + 1))
     _sync()
 
+    _mark(t_start, "9b, the chromosome-scale CLI run")
     # b. est2genome -E yes --bestn 2 --score 5000 through the CLI: calm
     # against CH_LEN bp with two spliced copies; every whole-target region
     # scan (Qp 2304 x Tp 1356288, B=1) runs on K2, the copies' boxes on K1
@@ -1793,6 +2002,7 @@ def main() -> int:
     k2_shape = (f"Qp {whole[0]['shape'][1]} x Tp {whole[0]['shape'][2]} "
                 f"x{whole[0]['shape'][0]}, {len(calm_s)} x {len(chrom)}")
 
+    _mark(t_start, "9d, the checkpointed traceback")
     # d. the third forward iteration's path DP at --score 2000
     # (CH_PATH_SCORE): under both copies' masks the third scan's box is a
     # chain across most of the target, its traceback cube (D x S x Qp+1,
@@ -1918,6 +2128,7 @@ def main() -> int:
     del ki_m, ring, before
 
     # -- 10. the port's CLI, end to end (the exhaustive main path) ------
+    _mark(t_start, "10, the exhaustive CLI")
     golden = dict((n, argv) for n, _prog, argv in cases.CASES)[
         "exhaustive_est2genome"]
     engines.clear()
@@ -1951,13 +2162,14 @@ def main() -> int:
         raise RuntimeError(f"the CLI did not use {cw.engine_name(dev)}")
 
     # -- 11. K6/K7 vs plain on est2genome_genomic's comparison, timed ---
+    _mark(t_start, "11, K6/K7 on est2genome_genomic")
     pair_g, plan_g = max(gjobs, key=lambda j: (j[0].region.query_length + 1)
                          * (j[1].W + 1))
     q_g, w_g = pair_g.region.query_length, plan_g.W
     bi = cs.band_inputs(gmodel, [(pair_g, plan_g)], pair_g.args.dropoff, dev)
     bits_g, live_r_g = cs.band_reverse(bi)
     col_g, live_f_g, xb_g = cs.band_forward(bi, bits_g)
-    # the plain passes on host cores (worker processes), read in phase 15
+    # the plain passes on host cores (worker processes), read in phase 14
     g_pool, g_pending = _start_plain_check(
         name_g, bi, {"bits": bits_g, "live_r": live_r_g, "colbest": col_g,
                      "live_f": live_f_g, "xband": xb_g}, tmp_dir,
@@ -1973,53 +2185,17 @@ def main() -> int:
           f"({n_diag_g} diagonals) [{card}]: K6 kernel {k_rev:.3f} ms, "
           f"K7 kernel {k_fwd:.3f} ms; plain checks started")
     genomic_work = (_band_work(bi, False), _band_work(bi, True))
-    if split_band is not None:
-        print(f"K7 on the split-codon synthetic batch {split_band[0]} (Qp "
-              f"{split_band[1]}, Wp {split_band[2]}) [{card}]: kernel "
-              f"{split_band[3]:.3f} ms, plain {split_band[4]:.3f} ms")
     print(f"K6/K7 at the scans' batches [{card}]: est2genome {s_rev:.3f} / "
           f"{s_fwd:.3f} ms; coding2genome {c_rev:.3f} / {c_fwd:.3f} ms; "
           f"protein2genome {pk_rev:.3f} / {pk_fwd:.3f} ms (summed over "
           f"{len(p_shapes)} launches)")
 
-    # -- 12. K8, the cross-chip band scan, on one card ------------------
-    # the widest comparison of phase 4's scan, cut into 2 and 4 chunks on
-    # a device list of cuda:0 (or the distinct cards), held to its single
-    # K6/K7 launch; the span-cut case on both routes; every CROSS launch
-    # of the synthetic cases held to its plain version on the same chunk
+    # -- 12. K8, the cross-chip band scan, on synthetic cases -----------
+    # every CROSS launch of the synthetic cases held to its plain version
+    # on the same chunk and halo, on the card; each chain to the single
+    # launch (the span-cut case among them)
+    _mark(t_start, "12, K8 on synthetic cases")
     import torch_sdp_cases as tcases
-    xdevs = ([torch.device("cuda", k)
-              for k in range(torch.cuda.device_count())]
-             if torch.cuda.device_count() >= 2 else [dev])
-    pair_x, plan_x = max(sjobs, key=lambda j: j[1].W)
-    drop_x = pair_x.args.dropoff
-    want_x = cs.run_kernel(smodel, [(pair_x, plan_x)], drop_x, dev)[0]
-    zero_counts()
-    k8_ms = {}
-    for n in K8_SPLITS:
-        got_x, ms_x = _cuda_call(lambda: cs.run_kernel_cross_chip(
-            smodel, pair_x, plan_x, drop_x, n, devices=xdevs))
-        if (got_x["live"], got_x["xband"]) != (want_x["live"],
-                                               want_x["xband"]) \
-                or not np.array_equal(got_x["band_end"],
-                                      want_x["band_end"]):
-            raise RuntimeError(f"K8 ({n} chunks) != the single K6/K7 "
-                               f"launch on the scan's widest comparison")
-        k8_ms[n] = [ms_x]
-    k8_launches = read_counts("K8 on the scan's widest comparison",
-                              ("K8",))
-    for n in K8_SPLITS:
-        chunks_x = cs.cross_chunks(smodel, pair_x, plan_x, drop_x, n, xdevs)
-        k8_ms[n].append(_cuda_ms(lambda: _k8_chain(cs, sd, chunks_x)))
-        del chunks_x
-    print(f"K8 on the est2genome scan's widest comparison (Q "
-          f"{pair_x.region.query_length} x W {plan_x.W}) over devices "
-          f"{[str(d) for d in xdevs]} [{card}]: "
-          + "; ".join(f"{n} chunks {k8_ms[n][1]:.3f} ms for its {2 * n} "
-                      f"launches (CUDA events; {k8_ms[n][0]:.3f} ms with "
-                      f"host prep)" for n in K8_SPLITS)
-          + f"; band_end, live and xband == the single K6/K7 launch; "
-          f"launches {k8_launches}")
     k8_err = 0
     k8_cases = []
     for cname, n in K8_CASES:
@@ -2027,7 +2203,7 @@ def main() -> int:
         chunks_c = cs.cross_chunks(cmodel, cpair, cplan, cpair.args.dropoff,
                                    n, [dev])
         kern = _k8_chain(cs, sd, chunks_c)
-        plain, p_ms = _cuda_call(lambda: _k8_chain(cs, sd, chunks_c, True))
+        plain = _k8_chain(cs, sd, chunks_c, True)
         for (lab, _h, kres), (_l, _h2, pres) in zip(kern, plain):
             for a, b in zip(_halo_tensors(kres), _halo_tensors(pres)):
                 k8_err = max(k8_err, _max_err(a, b))
@@ -2043,75 +2219,13 @@ def main() -> int:
                                                        want_c["xband"]):
             raise RuntimeError(f"K8 {cname}: != the single launch")
         k8_cases.append((cname, n, len(kern)))
-        if cname == "span_cut":
-            k_ms = _cuda_ms(lambda: _k8_chain(cs, sd, chunks_c), 3)
-            k8_row = (k8_err, k_ms, p_ms, _k8_work(cs, chunks_c),
-                      f"Q {cpair.region.query_length} x W {cplan.W}, "
-                      f"{n} chunks")
-    report["K8"] = (k8_err,) + k8_row[1:4]
     print(f"K8 vs plain (case, chunks, launches) {k8_cases} [{card}]: every "
           f"CROSS launch == its plain version (bits, live, column best, "
           f"xband, edge planes, span registers), each chain == the single "
-          f"launch; span_cut ({k8_row[4]}): kernel {k8_row[1]:.3f} ms, "
-          f"plain {k8_row[2]:.3f} ms (CUDA events)")
+          f"launch")
 
-    # -- 13. K5, the sharded locus prescan, on one card -----------------
-    # phase 6b's first generation through find_batched_sharded over
-    # [cuda:0, cuda:0] (or the distinct cards), held to that generation's
-    # results on K1 on one device (phase 6b ran no K2)
-    lo_model, lo_jobs, want5 = lo_gen0
-    if lo_launches.get("K2"):
-        raise RuntimeError("the locus pool ran K2: its first generation is "
-                           "no find_batched(stream=False) reference")
-    k5_devs = xdevs if len(xdevs) >= 2 else [dev, dev]
-    zero_counts()
-    got5, ms5 = _cuda_call(lambda: cw.find_batched_sharded(
-        lo_model, lo_jobs, k5_devs, "region"))
-    k5_launches = read_counts("K5 on the locus pool's first generation",
-                              ("K5", "K1"))
-    def _dp(r):
-        return (r.score, r.query_start, r.target_start, r.query_end,
-                r.target_end)
-
-    if [_dp(r) for r in got5] != [_dp(r) for r in want5]:
-        raise RuntimeError("K5 != find_batched(stream=False) on the locus "
-                           "pool's first generation")
-    # the shards' K1 launches again, timed, and held to the plain version
-    # on the calm jobs of tests/test_torch_sharded.py (6 pairs, 2 shards)
-    calm_jobs = [(Region(0, k * 7, 100, 150 + k), data) for k in range(6)]
-    k5_kis = []
-    real_tki5 = cw.to_kernel_inputs
-
-    def capture5(*args, **kwargs):
-        k5_kis.append(real_tki5(*args, **kwargs))
-        return k5_kis[-1]
-
-    cw.to_kernel_inputs = capture5
-    try:
-        cw.find_batched_sharded(model, calm_jobs, k5_devs, "region")
-    finally:
-        cw.to_kernel_inputs = real_tki5
-    k5_err = 0
-    for ki in k5_kis:
-        got, want, _, _ = _turns(lambda: wf.plain_wavefront(ki)[0],
-                                 lambda: cw.wavefront_scan(ki), 1)
-        k5_err = max(k5_err, _max_err(got, want))
-        if not torch.equal(got, want):
-            raise RuntimeError("K5 shard: kernel != plain")
-    k5_ms = _cuda_ms(lambda: [cw.wavefront_scan(ki) for ki in k5_kis], 3)
-    _, k5_plain = _cuda_call(lambda: [wf.plain_wavefront(ki)
-                                      for ki in k5_kis])
-    k5_work = [_wave_work(ki, 5 * ki.batch * 4) for ki in k5_kis]
-    report["K5"] = (k5_err, k5_ms, k5_plain,
-                    (sum(w[0] for w in k5_work), sum(w[1] for w in k5_work)))
-    print(f"K5 on the locus pool's first generation ({len(lo_jobs)} jobs) "
-          f"over {[str(d) for d in k5_devs]} [{card}]: {ms5:.3f} ms with host"
-          f" prep (CUDA events), == that generation's K1 results in phase "
-          f"6b; launches "
-          f"{k5_launches}; calm x 6 in {len(k5_kis)} shards: kernel "
-          f"{k5_ms:.3f} ms, plain {k5_plain:.3f} ms, kernel == plain")
-
-    # -- 14. genome2genome -E yes on the generic wavefront --------------
+    # -- 13. genome2genome -E yes on the generic wavefront --------------
+    _mark(t_start, "13, genome2genome -E yes on the generic wavefront")
     steps = [0]
     real_step = gw.Engine.step
 
@@ -2141,9 +2255,10 @@ def main() -> int:
           f"wavefront [{card}]: {secs_g2g:.2f} s host clock, engines "
           f"{g2g_eng}, {steps[0]} diagonal steps "
           f"({secs_g2g / max(steps[0], 1) * 1e3:.3f} ms each); its bytes are "
-          f"compared with the CPU run's in phase 15")
+          f"compared with the CPU run's in phase 14")
 
-    # -- 15. the plain checks and native routes (started in phases 4 to 14)
+    # -- 14. the plain checks and native routes (started in phases 3-13)
+    _mark(t_start, "14, the plain checks and native routes")
     wait_t0 = time.perf_counter()
     for pname, idx, res in pending:
         left = DEADLINE_S - (time.perf_counter() - t_start)
@@ -2165,8 +2280,41 @@ def main() -> int:
           f"masked K1 and first masked K4, the locus pool's sampled pairs"
           f" and K2's forced batches (scores, ends, starts; cube, "
           f"walk-back), {time.perf_counter() - check_t0:.1f} s after they "
-          f"started, {time.perf_counter() - wait_t0:.1f} s of it waited for")
-    # phase 14's reference: the genome2genome -E run on the CPU
+          f"started, {time.perf_counter() - wait_t0:.1f} s of it waited for; "
+          f"the last read at {time.perf_counter() - t_start:.1f} s into the "
+          f"script (deadline {DEADLINE_S} s)")
+    # phase 3's run_kernel on the CPU (worker process)
+    for label, got, res in syn_checks:
+        want = res.get(timeout=max(
+            DEADLINE_S - (time.perf_counter() - t_start), 1.0))
+        for g, w in zip(got, want):
+            if (g["live"], g["xband"]) != (w["live"], w["xband"]) \
+                    or not np.array_equal(g["band_end"], w["band_end"]):
+                raise RuntimeError(f"K6/K7 {label}: run_kernel on the card "
+                                   f"!= on the CPU")
+    print(f"K6/K7 on the synthetic pairs (phase 3): kernel == plain (bits, "
+          f"column best, live, xband) and run_kernel on the card == on the "
+          f"CPU (band_end per locus, live, xband) on all {len(syn_checks)} "
+          f"batches")
+    if split_band is not None:
+        print(f"K7 on the split-codon synthetic batch {split_band[0]} (Qp "
+              f"{split_band[1]}, Wp {split_band[2]}) [{card}]: kernel "
+              f"{split_band[3]:.3f} ms, plain "
+              f"{split_band[4].get()[2] * 1e3:.3f} ms on one host core")
+    # the scans' native routes (phases 4-5, a worker process)
+    for label, mode, out_dev, res in scan_natives:
+        out_nat, secs_nat, eng_nat, falls_nat = res.get(timeout=max(
+            DEADLINE_S - (time.perf_counter() - t_start), 1.0))
+        if falls_nat or any(not e.startswith("native") for e in eng_nat):
+            raise RuntimeError(f"{label} native route: engines {eng_nat}, "
+                               f"fallbacks {falls_nat}")
+        if out_dev != out_nat:
+            raise RuntimeError(f"{label}: the {mode} output differs from "
+                               f"the native route's")
+        print(f"{label}: the {mode} output == EXONERATE_TPU_SDP=native's "
+              f"({secs_nat:.2f} s host clock in a worker process; engines "
+              f"{eng_nat})")
+    # phase 13's reference: the genome2genome -E run on the CPU
     left = DEADLINE_S - (time.perf_counter() - t_start)
     cpu_g2g, cpu_g2g_s, cpu_g2g_eng, cpu_g2g_falls = g2g_res.get(
         timeout=max(left, 1.0))
@@ -2175,7 +2323,7 @@ def main() -> int:
         raise RuntimeError(f"genome2genome -E yes: the card's output differs"
                            f" from the CPU run's (engines {cpu_g2g_eng}, "
                            f"fallbacks {cpu_g2g_falls})")
-    print(f"genome2genome -E yes (phase 14): byte-equal to the CPU run "
+    print(f"genome2genome -E yes (phase 13): byte-equal to the CPU run "
           f"(engines {cpu_g2g_eng}; {cpu_g2g_s:.2f} s host clock in a worker "
           f"process, against the card's {secs_g2g:.2f} s)")
     # the native routes of phases 6a and 9 (worker processes)
@@ -2246,7 +2394,9 @@ def main() -> int:
             raise RuntimeError(f"{label}: kernel != plain (max err "
                                f"{span_err[key]})")
     k2_err = max(k2_err, *span_err.values())
-    report["K4"] = (max(report["K4"][0], span_err["K4"]),) + report["K4"][1:]
+    _, k4_err, k4_plain_s, _ = k4_res.get()
+    report["K4"] = (max(k4_err, span_err["K4"]), path_ms, k4_plain_s * 1e3,
+                    k4_work)
     # K6/K7's and K1's plain times: the plain versions on one host core
     # (worker processes, checked above with the rest)
     p_rev, p_fwd = (res.get()[2] * 1e3 for _n, _ix, res in g_pending)
@@ -2263,6 +2413,14 @@ def main() -> int:
     report["K3"] = (k3_err, k3_ms, k3_plain_s * 1e3, k3_work)
     # K2's plain time: the ragged forced batch on one host core
     report["K2"] = (k2_err, sp_ms, span_s["K2"] * 1e3, k2_work)
+    # K5's and K8's at the main path's shapes: the plain versions of the
+    # launches checked (worker processes, one host core each), summed
+    k5_res = [r.get() for r in k5_pending]
+    report["K5"] = (max(r[1] for r in k5_res), k5_ms,
+                    sum(r[2] for r in k5_res) * 1e3, k5_work)
+    k8_res = [r.get() for r in k8_pending]
+    report["K8"] = (max(k8_err, *(r[1] for r in k8_res)), k8_chain_ms,
+                    sum(r[2] for r in k8_res) * 1e3, k8_work)
 
     src = "exonerate_tpu_torch/csrc/"
     pw = "exonerate_tpu/engine/pallas_wavefront.py"
@@ -2271,7 +2429,8 @@ def main() -> int:
         ("K1 wavefront_scan (region, calm 2175^2 x64; plain ms on one host "
          "core)", "K1", "K1_region",
          src + "wavefront.cu", pw + ":427"),
-        ("K4 wavefront_path (calm 2175^2 x1)", "K4", "K4",
+        ("K4 wavefront_path (calm 2175^2 x1; plain ms on one host core)",
+         "K4", "K4",
          src + "wavefront.cu", pw + ":1147"),
         ("walkback (calm 2175^2 x1)", "walkback", "walkback",
          src + "walkback.cu", pw + ":1550"),
@@ -2296,13 +2455,15 @@ def main() -> int:
          f"the checkpointed traceback's end segment; a whole-target scan: "
          f"{k2_ms:.3f} ms)", "K2", "K2", src + "wavefront.cu",
          pw + ":438"),
-        (f"K5 find_batched_sharded: K1 per device shard (region, calm x 6 "
-         f"in 2 shards; the locus pool's first generation {ms5:.3f} ms)",
+        (f"K5 find_batched_sharded: K1 per device shard (region, "
+         f"{k5_shape}; plain ms on one host core per shard, summed; the "
+         f"whole generation {ms5:.3f} ms with host prep)",
          "K5", "K5", src + "wavefront.cu", pw + ":1470"),
         (f"K8 band_reverse_cross / band_forward_cross: the CROSS "
-         f"instantiation of K6/K7 (every launch of the {k8_row[4]} chain; "
-         f"the scan's widest comparison: " + ", ".join(
-             f"{n} chunks {k8_ms[n][1]:.3f} ms" for n in K8_SPLITS) + ")",
+         f"instantiation of K6/K7 (the chain of {k8_shape}, reverse then "
+         f"forward; plain ms on one host core per launch, summed; with "
+         f"host prep: " + ", ".join(
+             f"{n} chunks {k8_ms[n]:.3f} ms" for n in K8_SPLITS) + ")",
          "K8", "K8", src + "sdp_band.cu", sp + ":904"),
     ]
     rows = []

@@ -839,18 +839,31 @@ def _sub(subopt, n: int):
     return subopt[n] if isinstance(subopt, (list, tuple)) else subopt
 
 
+# kernel K5 (the sharded locus prescan): the shards find_batched runs over
+# a device list, one K1 launch each (no CUDA source of its own)
+K5 = _LaunchCount()
+
+
 def find_batched(model: Model, jobs: list, mode: str = "region",
                  device: Optional[torch.device] = None,
-                 subopt=None, stream: Optional[bool] = None) -> list:
+                 subopt=None, stream: Optional[bool] = None,
+                 devices: Optional[list] = None) -> list:
     """Score or region DP of (region, data) jobs, under ``subopt`` (one
     SubOpt mask or a per-job list) when given.  Each chunk of a bucket
     runs on K2 when ``stream`` is True, on K1 when it is False, and by the
     JAX package's streaming test (``streams``) when it is None; a bucket
     the kernels refuse runs the generic wavefront in region mode.
-    Returns one DPResult per job (starts are 0 in score mode on the
-    kernels)."""
-    dev = device if device is not None else default_device()
+
+    With ``devices`` (kernel K5, ``find_batched_sharded``) a chunk holds up
+    to ``max_batch * len(devices)`` pairs, padded to a device multiple
+    with copies of its last pair and cut into contiguous shards, shard k
+    run by K1 on ``devices[k]`` (its current stream).  Every launch is
+    made before any result is fetched.  Returns one DPResult per job
+    (starts are 0 in score mode on the kernels)."""
+    devs = devices or [device if device is not None else default_device()]
+    dev = devs[0]
     out: list = [None] * len(jobs)
+    pending = []
     for (Qp, Tp, kinds), items in _buckets(model, jobs, subopt).items():
         reason = fallback_reason(model, kinds, items[0][1])
         if reason is not None:
@@ -869,63 +882,28 @@ def find_batched(model: Model, jobs: list, mode: str = "region",
                     out[n] = r
             continue
         cap = max(1, max_batch(model, Qp, Tp, mode, _masked(kinds)))
-        for lo in range(0, len(items), cap):
-            chunk = items[lo:lo + cap]
-            ki = to_kernel_inputs(model, [inp for _, inp in chunk], kinds,
-                                  dev, mode)
-            use_stream = (streams(kinds, len(chunk), Qp, Tp)
-                          if stream is None else stream)
-            scan = wavefront_stream_scan if use_stream else wavefront_scan
-            res = scan(ki).cpu().tolist()
-            observe.count_engine(engine_name(dev), len(chunk))
-            for b, (n, _) in enumerate(chunk):
-                out[n] = DPResult(score=res[0][b], query_end=res[1][b],
-                                  target_end=res[2][b],
-                                  query_start=res[3][b],
-                                  target_start=res[4][b])
-    return out
-
-
-# kernel K5 (the sharded locus prescan): the shards find_batched_sharded
-# runs, one K1 launch each on a card (no CUDA source of its own)
-K5 = _LaunchCount()
-
-
-def find_batched_sharded(model: Model, jobs: list, devices: list,
-                         mode: str = "region") -> list:
-    """K1's score/region DP data-parallel over ``devices``
-    (``pallas_wavefront.find_batched_sharded:1470``, the JAX package's
-    ``shard_map`` over a ``dp`` mesh): jobs bucketed by (Qp, Tp, kinds),
-    each chunk of up to ``max_batch * len(devices)`` pairs padded to a
-    device multiple with copies of its last pair and cut into contiguous
-    shards, shard k built and launched on ``devices[k]`` (its current
-    stream).  Every shard is launched before any result is fetched; the
-    results merge in job order.  A bucket the kernels refuse runs on the
-    generic wavefront, as the JAX package's goes to XLA.  Mask-free, like
-    the locus pool's first generation that calls it."""
-    n_dev = len(devices)
-    out: list = [None] * len(jobs)
-    pending = []
-    for (Qp, Tp, kinds), items in _buckets(model, jobs).items():
-        if fallback_reason(model, kinds, items[0][1]) is not None:
-            res = gw.find_region_batched(model, [jobs[n] for n, _ in items],
-                                         device=devices[0])
-            for (n, _), r in zip(items, res):
-                out[n] = r
-            continue
-        cap = max(1, max_batch(model, Qp, Tp, mode)) * n_dev
+        cap *= len(devs)
         for lo in range(0, len(items), cap):
             chunk = items[lo:lo + cap]
             per_pair = [inp for _, inp in chunk]
-            per_pair += [per_pair[-1]] * ((-len(per_pair)) % n_dev)
-            step = len(per_pair) // n_dev
+            per_pair += [per_pair[-1]] * ((-len(per_pair)) % len(devs))
+            step = len(per_pair) // len(devs)
             shards = []
-            for k, dev in enumerate(devices):
+            for k, d in enumerate(devs):
                 ki = to_kernel_inputs(model, per_pair[k * step:(k + 1) * step],
-                                      kinds, dev, mode)
-                shards.append(wavefront_scan(ki))
-                K5.launches += 1
-                observe.count_engine(engine_name(dev), step)
+                                      kinds, d, mode)
+                if devices:
+                    scan = wavefront_scan
+                    K5.launches += 1
+                else:
+                    use_stream = (streams(kinds, len(chunk), Qp, Tp)
+                                  if stream is None else stream)
+                    scan = (wavefront_stream_scan if use_stream
+                            else wavefront_scan)
+                shards.append(scan(ki))
+                n_real = len(chunk[k * step:(k + 1) * step])
+                if n_real:
+                    observe.count_engine(engine_name(d), n_real)
             pending.append((chunk, shards))
     for chunk, shards in pending:
         res = torch.cat([s.cpu() for s in shards], dim=1).tolist()
@@ -934,6 +912,16 @@ def find_batched_sharded(model: Model, jobs: list, devices: list,
                               target_end=res[2][b], query_start=res[3][b],
                               target_start=res[4][b])
     return out
+
+
+def find_batched_sharded(model: Model, jobs: list, devices: list,
+                         mode: str = "region") -> list:
+    """K1's score/region DP data-parallel over ``devices``
+    (``pallas_wavefront.find_batched_sharded:1470``, the JAX package's
+    ``shard_map`` over a ``dp`` mesh): ``find_batched`` on K1 with the
+    device list.  Mask-free, like the locus pool's first generation that
+    calls it."""
+    return find_batched(model, jobs, mode, stream=False, devices=devices)
 
 
 def find_path_batched(model: Model, jobs: list, subopt=None,

@@ -67,23 +67,26 @@ def unported_tier() -> Optional[str]:
     return None
 
 
-def _devices() -> list:
-    """The cards PyTorch sees."""
+def _devices(device: torch.device) -> list:
+    """The devices a cross-chip scan may use for a caller on ``device``:
+    the cards PyTorch sees when it is a card, none on the CPU."""
+    if device.type != "cuda":
+        return []
     return [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
 
 
-def _cross_chip_config(plan) -> int:
+def _cross_chip_config(plan, device: torch.device) -> int:
     """Cross-chip routing (``exonerate_tpu/engine/sdp_hybrid.py:366-389``):
     with ``EXONERATE_TPU_CROSS_CHIP=N`` (N >= 2), a comparison whose
     compressed band has at least ``EXONERATE_TPU_CROSS_CHIP_MIN_W``
-    (default 1M) columns runs across N devices when N are visible.
-    Returns N, or 0 for the single-device path."""
+    (default 1M) columns runs across N of ``_devices(device)`` when there
+    are N.  Returns N, or 0 for the single-device path."""
     n = int(os.environ.get("EXONERATE_TPU_CROSS_CHIP", "0") or 0)
     if n < 2 or plan is None:
         return 0
     min_w = int(os.environ.get("EXONERATE_TPU_CROSS_CHIP_MIN_W",
                                str(1 << 20)))
-    if plan.W < min_w or len(_devices()) < n:
+    if plan.W < min_w or len(_devices(device)) < n:
         return 0
     return n
 
@@ -290,13 +293,13 @@ def run_device_batch(model: Model, jobs: list,
     by_drop: dict = {}
     for ix, (pair, plan) in enumerate(jobs):
         reason = cuda_sdp.unsupported_reason(model, pair, plan)
-        n_chips = _cross_chip_config(plan) if reason is None else 0
+        n_chips = _cross_chip_config(plan, device) if reason is None else 0
         if reason is not None:
             out[ix] = {"fallback": "sdp device->host: band kernel "
                                    f"unsupported ({reason})"}
         elif n_chips:
             # a chromosome-scale comparison alone across the devices
-            devs = _devices()[:n_chips]
+            devs = _devices(device)[:n_chips]
             observe.count_engine(cuda_sdp.engine_name(devs[0]) + "-xchip")
             out[ix] = cuda_sdp.run_kernel_cross_chip(
                 model, pair, plan, pair.args.dropoff, n_chips, devices=devs)

@@ -97,12 +97,29 @@ def test_hybrid_routes_a_wide_band_across_devices(monkeypatch):
         _same(got, w)
     monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP", "2")
     monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP_MIN_W", str(plan.W))
-    monkeypatch.setattr(thy, "_devices", lambda: [CPU, CPU])
+    monkeypatch.setattr(thy, "_devices", lambda device: [CPU, CPU])
     observe.reset()
     out = thy.run_device_batch(model, jobs, CPU)
     assert observe.engine_counts == {"torch-sdp-xchip": 1, "torch-sdp": 2}
     for got, w in zip(out, want):
         _same(got, w)
+
+
+def test_hybrid_on_the_cpu_keeps_a_wide_band_off_the_cards(monkeypatch):
+    """A caller on the CPU gets no cross-chip route, however many cards
+    are visible: ``EXONERATE_TPU_CROSS_CHIP=2`` leaves the comparison on
+    the CPU's batch."""
+    from exonerate_tpu_torch import observe
+    from exonerate_tpu_torch.engine import sdp_hybrid as thy
+    model, pair, plan = _job("two_exons_intron")
+    monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP", "2")
+    monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP_MIN_W", "1")
+    monkeypatch.setattr(thy.torch.cuda, "device_count", lambda: 2)
+    observe.reset()
+    out = thy.run_device_batch(model, [(pair, plan)], CPU)
+    assert observe.engine_counts == {"torch-sdp": 1}
+    _same(out[0], cuda_sdp.run_kernel(model, [(pair, plan)],
+                                      pair.args.dropoff, CPU)[0])
 
 
 def test_cross_chunks_cut_the_band_with_context_columns():

@@ -12,7 +12,8 @@ where they align, with both packages' ``NATIVE_TB_BUDGET`` and
   go to the generic engine, with the JAX package's fallback reason (its
   Pallas prescan forced, one device).
 
-``--score 1000`` bounds each run to the cut's best alignments.
+``--score 1000`` bounds each run to the cut's best alignments, and
+``--revcomp no`` to the forward strands (a third of the DPs).
 """
 import io
 import os
@@ -86,10 +87,11 @@ def test_genome2genome_exhaustive_matches_jax_cli(monkeypatch, tmp_path):
     """``-E yes``: each path DP is over the native budget and its cube over
     --dpmemory, so both packages take the checkpointed traceback (XLA's,
     the generic engine's); --score 1000 keeps the loop to the cut's
-    two best alignments per strand pair."""
+    best alignments on the forward strands."""
     (jout, jeng, jfb), (out, eng, fb) = _both_clis(
-        monkeypatch, ["-m", "genome2genome", "-E", "yes", "--score", "1000"]
-        + _cli_files(tmp_path), prescan=False)
+        monkeypatch, ["-m", "genome2genome", "-E", "yes", "--score", "1000",
+                      "--revcomp", "no"] + _cli_files(tmp_path),
+        prescan=False)
     assert out == jout
     assert "vulgar: q 0 300 + t 10 310 + 1455 M 300 300" in out
     assert set(jeng) == {"xla"} and eng == {"torch-generic": jeng["xla"]}
@@ -104,8 +106,8 @@ def test_genome2genome_locus_matches_jax_cli(monkeypatch, tmp_path):
     after its first generation of alignments."""
     monkeypatch.setenv("EXONERATE_TPU_HEURISTIC", "locus")
     (jout, jeng, jfb), (out, eng, fb) = _both_clis(
-        monkeypatch, ["-m", "genome2genome", "--score", "1000"]
-        + _cli_files(tmp_path), prescan=True)
+        monkeypatch, ["-m", "genome2genome", "--score", "1000", "--revcomp",
+                      "no"] + _cli_files(tmp_path), prescan=True)
     assert out == jout
     assert "1455 M 300 300" in out
     assert set(fb) == set(jfb) == {"pallas->xla: unsupported input kinds"}

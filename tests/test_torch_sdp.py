@@ -231,14 +231,19 @@ def test_device_tier_gates_and_refusals(monkeypatch):
     # the cross-chip tier (K8): N devices, and a band of MIN_W columns
     monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP", "4")
     assert thy.unported_tier() is None
-    assert thy._cross_chip_config(plan) == 0          # W under 1M
+    assert thy._cross_chip_config(plan, CPU) == 0     # W under 1M
     monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP_MIN_W", "1")
-    monkeypatch.setattr(thy, "_devices", lambda: [CPU] * 3)
-    assert thy._cross_chip_config(plan) == 0          # too few devices
-    monkeypatch.setattr(thy, "_devices", lambda: [CPU] * 4)
-    assert thy._cross_chip_config(plan) == 4
+    # a caller on the CPU gets no cards, however many are visible
+    monkeypatch.setattr(thy.torch.cuda, "device_count", lambda: 4)
+    assert thy._devices(CPU) == []
+    assert thy._cross_chip_config(plan, CPU) == 0
+    assert len(thy._devices(torch.device("cuda", 0))) == 4
+    monkeypatch.setattr(thy, "_devices", lambda device: [CPU] * 3)
+    assert thy._cross_chip_config(plan, CPU) == 0     # too few devices
+    monkeypatch.setattr(thy, "_devices", lambda device: [CPU] * 4)
+    assert thy._cross_chip_config(plan, CPU) == 4
     monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP_MIN_W", str(plan.W + 1))
-    assert thy._cross_chip_config(plan) == 0
+    assert thy._cross_chip_config(plan, CPU) == 0
 
 
 def test_cuda_source_declares_the_python_constants():
