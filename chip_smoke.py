@@ -43,6 +43,14 @@ second of the script at which it starts:
    four launches made again, timed with CUDA events, and each held in a
    worker process to its plain version from the same halo (bits, live,
    column best, xband, edge planes, span registers).
+   c. --cores 2: the same scan through the CLI with --cores 2 (the thread
+   pool over comparisons, each worker on a CUDA stream of its own, the
+   band scan's device tier once per comparison): its bytes must equal
+   phase 4's, with the 16 comparisons on cuda-sdp, K6/K7 launched, no
+   fallback and the launches on two streams; prints its wall time beside
+   phase 4's and how long the workers' kernels ran beside each other
+   (the host clock from each launch to its stream's end, on one
+   timeline).
 5. The split-codon paths (kernel K9), each through the port's CLI
    against the native route (the scans' in a worker process), byte for
    byte, with its kernels launched and
@@ -94,12 +102,13 @@ second of the script at which it starts:
       through cuda_wavefront.find_batched_sharded over [cuda:0, cuda:0]
       (the distinct cards where there are two or more), equal to that
       generation's results on K1 (find_batched with no K2 launch); the
-      shards of its chunk with the most cells launched again, timed, and
-      held to the plain version in 6b's worker processes.
+      widest shard of its chunk with the most cells launched again,
+      timed, and held to the plain version in a 6b worker process.
 7. K1 vs plain: est2genome, calm (tests/golden/data/all4.fa record 1)
    against itself, 2175x2175, B=64, score and region modes (the plain
    versions in worker processes, read in phase 14), plus a ragged
-   batch and the model zoo; the split-codon plans: the calm protein
+   batch and the model zoo (its plain versions in a worker process,
+   read in phase 14); the split-codon plans: the calm protein
    against 8 windows of the 12 kb locus (score, region, path; plain in
    worker processes), the coding2genome and cdna2genome split pairs; the
    protein2genome -E run's first widest region scan on its own inputs
@@ -159,8 +168,9 @@ second of the script at which it starts:
     CUDA events; their plain passes in two worker processes, held to the
     kernels' outputs exactly in phase 14.
 12. K8 at reduced shapes: the synthetic cases of tests/torch_sdp_cases.py
-    cut 2 and 3 ways, among them span_cut (an intron span frozen in one
-    chunk and thawed in the next) and c2g_split (kernel K9 inside a CROSS
+    that phase 4b's est2genome comparison does not cover, cut 2 and 3
+    ways: ner_joint_span, span_cut (an intron span frozen in one chunk
+    and thawed in the next) and c2g_split (kernel K9 inside a CROSS
     forward pass): every CROSS launch must equal its plain version on the
     card exactly (bits, live, column best, xband, edge planes, span
     registers) and each chain the single launch.
@@ -178,7 +188,16 @@ second of the script at which it starts:
     K8 launch handed to them its plain version; phase 3's run_kernel on
     the CPU; the native routes' bytes (phases 4-6a and 9) and the
     genome2genome CPU run's (phase 13); K1 at the full shape against K2;
-    the span launches of phases 9d-e.
+    the span launches of phases 9d-e; phase 7's model zoo.
+15. T1, the elementwise-throughput probe (exonerate_tpu_torch/tools/
+    vpu16.py, on no CLI path): each of its nine (dtype, op mix) cases
+    held to the plain loop of torch ops on the card exactly at the full
+    B x W and 64 steps, int32 mix also at the full 4352 steps (timed
+    beside the kernel); then every case timed through the tool's own
+    entry (best of 5, CUDA events) and its launches counted; a rate over
+    the card's peak for the dtype fails (the compiler removed work), and
+    so does a build that issues fewer instructions than the ops it counts
+    (the SASS of each instantiation, from cuobjdump).
 
 K5 and K8 are the JAX package's multi-device routes; on one card they
 check every shard, chunk and halo and time the kernels, but cannot show
@@ -196,7 +215,9 @@ each plain launch on its own core and summed; K2's over phase 9e's span
 of the chromosome's diagonals, as the plain loop would take hours over
 all of them), the bound: the larger of the bytes moved over 3.35 TB/s
 and the int32 operations over the int32 peak, and the library call:
-none computes these DPs), and the result object.
+none computes these DPs; T1's row, int32 mix, with 0 main-path launches
+and its tool's launches beside them, its plain loop on the card), and
+the result object.
 """
 from __future__ import annotations
 
@@ -222,10 +243,14 @@ SCAN_QUERIES, SCAN_LEN = 16, 1_000_000
 SCAN_REV_CHUNKS, SCAN_FWD_CHUNKS = 2, 3  # plain-check worker processes
 DEADLINE_S = 1100                        # the plain checks' last moment
 # the card's peaks for the bound (NVIDIA H100 SXM data sheet: 3.35 TB/s
-# of HBM3; Hopper white paper: 64 INT32 lanes per SM x 132 SMs x 1.98
-# GHz boost = 16.7 T int32 operations/s)
+# of HBM3; 132 SMs at 1.98 GHz boost): 32-bit integer adds issue on the
+# integer pipe (IADD3) and on the multiply-add pipe (IMAD.IADD), 64 a
+# clock per SM each in the CUDA C++ Programming Guide's table for compute
+# capability 9.0, so 128 int32 operations a clock per SM (T1's int32 add
+# chain, one instruction per add, ran at 91 a clock, over the 64 of
+# either pipe alone): 33.5 T int32 operations/s
 HBM_BYTES_S = 3.35e12
-INT32_OPS_S = 64 * 132 * 1.98e9
+INT32_OPS_S = 128 * 132 * 1.98e9
 # worker pools and temporary directories, closed when the script ends
 _EXIT = contextlib.ExitStack()
 SCAN_ARGV = ["-m", "est2genome", "--bestn", "1", "--maxintron", "20000",
@@ -277,12 +302,14 @@ G2G_CUT = (300, 2990, 3330)
 G2G_ARGV = ["-m", "genome2genome", "-E", "yes", "--dpmemory", "1",
             "--score", "1000", "--revcomp", "no", "--showvulgar", "yes"]
 G2G_BUDGET = 1 << 20
+# phase 15, T1: the steps at which each case is held to the plain loop on
+# the card (int32 mix also at tools/vpu16.py's full 4352)
+T1_CHECK_STEPS = 64
 # K8: the chunk counts of the widest scan comparison (phase 4b), and the
 # synthetic cases (tests/torch_sdp_cases.py) whose every CROSS launch is
 # held to its plain version on the card, with their chunk counts (phase 12)
 K8_SPLITS = (2, 4)
-K8_CASES = (("two_exons_intron", 2), ("ner_joint_span", 3),
-            ("span_cut", 2), ("c2g_split", 2))
+K8_CASES = (("ner_joint_span", 3), ("span_cut", 2), ("c2g_split", 2))
 CROSSCHECK = "sdp device->host: locus score mismatch"
 # the one comparison of the coding2genome scan whose locus cross-check
 # disagrees (query 9, 2008 != 2007), as in the JAX package's device tier
@@ -807,6 +834,67 @@ def _vulgar_ops(out: str) -> list:
             if ln.startswith("vulgar:")]
 
 
+def _zoo_jobs() -> list:
+    """Phase 7's model zoo: [(model, jobs)] of the models the wavefront
+    kernels serve beyond est2genome: every start/end scope, the K=4/6
+    carry rings of codon models, NER, and the split-codon pairs of
+    coding2genome and cdna2genome."""
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_split_cases as sc
+    from exonerate_tpu_torch.engine.region import Region
+    from exonerate_tpu_torch.model import registry
+    from exonerate_tpu_torch.model.data import AlignData
+    from exonerate_tpu_torch.seqio import Annotation, Sequence, iter_fasta
+    calm = next(iter(iter_fasta(os.path.join(DATA, "all4.fa"))))
+    calm.strand = "+"
+    dna_q, dna_t = calm.subseq(0, 300), calm.subseq(20, 330)
+    pep = Sequence("p", None, "MADQLTEEQIAEFKEAFSLFDKDGDGTITTKELGTVMRSL")
+    zoo = [("AFFINE_GLOBAL", dna_q, dna_t), ("AFFINE_BESTFIT", dna_q, dna_t),
+           ("AFFINE_OVERLAP", dna_q, dna_t), ("NER", dna_q, dna_t),
+           ("CODING2CODING", dna_q, dna_t), ("PROTEIN2DNA", pep, dna_t)]
+    for mt, cuts in (("CODING2GENOME", sc.C2G_CUTS), ("CDNA2GENOME", sc.CUTS)):
+        q, t = sc.small_pair("cdna", cuts=cuts)
+        qs = Sequence("q", None, q)
+        if mt == "CDNA2GENOME":
+            qs.annotation = Annotation(0, len(q))
+        zoo.append((mt, qs, Sequence("t", None, t)))
+    out = []
+    for mt, q, t in zoo:
+        mtype = getattr(registry.ModelType, mt)
+        m = registry.get_model(mtype, q.alphabet.type, t.alphabet.type)
+        out.append((m, [(Region(0, 0, len(q), len(t)),
+                         AlignData(q, t, registry.translate_both(mtype)))]))
+    return out
+
+
+def _zoo_results(device) -> dict:
+    """K1 (score, region) and K4 with the walk-back on ``device`` over the
+    zoo: {model name: [(score, ends, starts, path's transition ids)]}."""
+    from exonerate_tpu_torch.engine import cuda_wavefront as cw
+
+    def key(r):
+        return (r.score, r.query_end, r.target_end, r.query_start,
+                r.target_start,
+                None if r.path is None else tuple(t.id for t in r.path))
+
+    out = {}
+    for m, jobs in _zoo_jobs():
+        res = (cw.find_batched(m, jobs, "score", device=device)
+               + cw.find_batched(m, jobs, "region", device=device)
+               + cw.find_path_batched(m, jobs, device=device))
+        out[m.name] = [key(r) for r in res]
+    return out
+
+
+def _zoo_plain():
+    """Worker process, CPU only: ``_zoo_results`` on the plain versions.
+    Returns (results, seconds)."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    return _zoo_results(torch.device("cpu")), time.perf_counter() - t0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. device -------------------------------------------------------
@@ -841,7 +929,7 @@ def main() -> int:
                                                   affine_create)
     from exonerate_tpu_torch.model.data import AlignData
     from exonerate_tpu_torch.model.est2genome import est2genome_create
-    from exonerate_tpu_torch.seqio import Annotation, Sequence, iter_fasta
+    from exonerate_tpu_torch.seqio import Sequence, iter_fasta
     for mod in ("jax", "exonerate_tpu"):
         if sys.modules.get(mod) is not None:
             raise RuntimeError(f"the port imported {mod}")
@@ -849,7 +937,7 @@ def main() -> int:
     # -- 2. build (one nvcc per source, all started together) -----------
     _mark(t_start, "2, build")
     from concurrent.futures import ThreadPoolExecutor
-    stems = ("wavefront", "walkback", "sdp_band")
+    stems = ("wavefront", "walkback", "sdp_band", "vpu16")
     with ThreadPoolExecutor(len(stems)) as ex:
         list(ex.map(_cudabuild.load, stems))
     for stem in stems:
@@ -1185,6 +1273,58 @@ def main() -> int:
           f"the single K6/K7 launch; launches {k8_launches}; the "
           f"{K8_SPLITS[0]}-chunk chain's {2 * K8_SPLITS[0]} launches again "
           f"{k8_chain_ms:.3f} ms (CUDA events), plain checks started")
+
+    # c. --cores 2: phase 4's scan through the CLI's thread pool, each
+    # comparison in a worker thread with a stream of its own, the device
+    # tier once per comparison; its bytes must equal phase 4's.  Each band
+    # launch is timed on the host clock from its enqueue to its stream's
+    # end (CUDA timing events on the workers' streams run the kernels one
+    # after another: PERF.md), so the kernels' overlap reads off one
+    # timeline
+    _mark(t_start, "4c, the est2genome scan with --cores 2")
+    spans4c = []          # (stream, host start, host end) per launch
+    real_band_launch = cs._launch
+
+    def timed_band_launch(*args, **kwargs):
+        t0 = time.perf_counter()
+        res = real_band_launch(*args, **kwargs)
+        stream = torch.cuda.current_stream()
+        stream.synchronize()
+        spans4c.append((stream.cuda_stream, t0, time.perf_counter()))
+        return res
+
+    observe.reset()
+    zero_counts()
+    cs._launch = timed_band_launch
+    try:
+        out_cores, secs_cores = run_cli(SCAN_ARGV + ["--cores", "2", qf, tf])
+    finally:
+        cs._launch = real_band_launch
+    cores_launches = read_counts(f"{scan_label} --cores 2", ("K6", "K7"))
+    cores_eng = dict(observe.engine_counts)
+    if out_cores.replace(" --cores 2", "", 1) != out_dev:
+        raise RuntimeError("--cores 2: the scan's output differs from phase "
+                           "4's")
+    if cores_eng.get(cs.engine_name(dev)) != SCAN_QUERIES:
+        raise RuntimeError(f"--cores 2: want {SCAN_QUERIES} comparisons on "
+                           f"{cs.engine_name(dev)}, got {cores_eng}")
+    ivals = sorted((a, e) for _st, a, e in spans4c)
+    busy, covered, reach = sum(e - a for a, e in ivals), 0.0, 0.0
+    for a, e in ivals:
+        covered += max(0.0, e - max(a, reach))
+        reach = max(reach, e)
+    n_streams = len({st for st, _a, _e in spans4c})
+    print(f"{scan_label} with --cores 2 [{card}]: {secs_cores:.2f} s host "
+          f"clock (phase 4's pooled route {route_secs[scan_label]:.2f} s); "
+          f"byte-equal to phase 4's output; engines {cores_eng}; launches "
+          f"{cores_launches}; no fallback; {len(ivals)} K6/K7 launches on "
+          f"{n_streams} worker streams: {busy:.2f} s from enqueue to end, "
+          f"summed, over {covered:.2f} s with one or more running (host "
+          f"clock), so {busy - covered:.2f} s ran beside another")
+    if n_streams < 2:
+        raise RuntimeError(f"--cores 2: the band launches ran on {n_streams}"
+                           f" stream(s), want one per worker thread")
+    del spans4c
 
     def check_launches(label, model_, jobs_, check):
         """K6/K7 again on each launch that the main path made of the band
@@ -1605,27 +1745,28 @@ def main() -> int:
         int(((ki.dims[:, 2].long() + 1) * (ki.dims[:, 3].long() + 1)).sum())
         for ki in g))
     del k5_kis, k5_groups
-    k5_outs = [cw.wavefront_scan(ki) for ki in k5_sel]
-    k5_ms = _cuda_ms(lambda: [cw.wavefront_scan(ki) for ki in k5_sel], 3)
-    k5_pending = []
-    for n, (ki, out) in enumerate(zip(k5_sel, k5_outs)):
-        path = _save_wave(os.path.join(tmp_dir, f"k5_{n}.pt"), ki,
-                          {"out": out})
-        k5_pending.append(lo_pool.apply_async(_plain_wave_check, (path,)))
-        pending.append((f"K5 shard {n} on {ki.dims.device} (region, Qp "
-                        f"{ki.Qp} x Tp {ki.Tp} x{ki.batch})",
-                        list(range(ki.batch)), k5_pending[-1]))
-    k5_work = [_wave_work(ki, 5 * ki.batch * 4) for ki in k5_sel]
-    k5_work = (sum(w[0] for w in k5_work), sum(w[1] for w in k5_work))
+    # the shard with the most cells is timed and held to the plain version
+    # (one host core; the others equal K1's results above)
+    n_shards = len(k5_sel)
+    k5_sel = max(k5_sel, key=lambda ki: int(
+        ((ki.dims[:, 2].long() + 1) * (ki.dims[:, 3].long() + 1)).sum()))
+    k5_out = cw.wavefront_scan(k5_sel)
+    k5_ms = _cuda_ms(lambda: cw.wavefront_scan(k5_sel), 3)
+    path = _save_wave(os.path.join(tmp_dir, "k5.pt"), k5_sel,
+                      {"out": k5_out})
+    k5_pending = [lo_pool.apply_async(_plain_wave_check, (path,))]
+    pending.append((f"K5 shard on {k5_sel.dims.device} (region, Qp "
+                    f"{k5_sel.Qp} x Tp {k5_sel.Tp} x{k5_sel.batch})",
+                    list(range(k5_sel.batch)), k5_pending[-1]))
+    k5_work = _wave_work(k5_sel, 5 * k5_sel.batch * 4)
     k5_shape = (f"the locus pool's first generation, {len(lo_jobs)} jobs; "
-                f"the {len(k5_sel)} shards of its widest chunk, "
-                + ", ".join(f"Qp {ki.Qp} x Tp {ki.Tp} x{ki.batch}"
-                            for ki in k5_sel))
-    del k5_sel, k5_outs
+                f"the widest of the {n_shards} shards of its widest chunk, "
+                f"Qp {k5_sel.Qp} x Tp {k5_sel.Tp} x{k5_sel.batch}")
+    del k5_sel, k5_out
     print(f"K5 on {k5_shape}, over {[str(d) for d in k5_devs]} [{card}]: "
           f"the generation {ms5:.3f} ms with host prep (CUDA events), == "
           f"its K1 results in phase 6b; launches {k5_launches}; the widest "
-          f"chunk's shards again {k5_ms:.3f} ms (CUDA events), plain checks "
+          f"shard again {k5_ms:.3f} ms (CUDA events), its plain check "
           f"started")
 
     # -- 7. K1 vs plain --------------------------------------------------
@@ -1667,34 +1808,14 @@ def main() -> int:
     print("K1 ragged batches (est2genome x3, affine:local protein): equal")
     # the rest of the zoo the kernels serve: every start/end scope, the
     # K=4/6 carry rings of codon models, NER; region and path modes; the
-    # split-codon pairs of coding2genome and cdna2genome
-    dna_q, dna_t = calm.subseq(0, 300), calm.subseq(20, 330)
-    pep = Sequence("p", None, "MADQLTEEQIAEFKEAFSLFDKDGDGTITTKELGTVMRSL")
-    zoo = [(mt, q, t) for mt, q, t in (
-        ("AFFINE_GLOBAL", dna_q, dna_t), ("AFFINE_BESTFIT", dna_q, dna_t),
-        ("AFFINE_OVERLAP", dna_q, dna_t), ("NER", dna_q, dna_t),
-        ("CODING2CODING", dna_q, dna_t), ("PROTEIN2DNA", pep, dna_t))]
-    for mt, cuts in (("CODING2GENOME", sc.C2G_CUTS), ("CDNA2GENOME", sc.CUTS)):
-        q, t = sc.small_pair("cdna", cuts=cuts)
-        qs = Sequence("q", None, q)
-        if mt == "CDNA2GENOME":
-            qs.annotation = Annotation(0, len(q))
-        zoo.append((mt, qs, Sequence("t", None, t)))
-    names = []
-    for mt, q, t in zoo:
-        mtype = getattr(registry.ModelType, mt)
-        m = registry.get_model(mtype, q.alphabet.type, t.alphabet.type)
-        jobs = [(Region(0, 0, len(q), len(t)),
-                 AlignData(q, t, registry.translate_both(mtype)))]
-        for mode in ("score", "region"):
-            if cw.find_batched(m, jobs, mode, device=dev) != \
-                    cw.find_batched(m, jobs, mode, device=cpu):
-                raise RuntimeError(f"K1 {mode} != plain on {m.name}")
-        if cw.find_path_batched(m, jobs, device=dev) != \
-                cw.find_path_batched(m, jobs, device=cpu):
-            raise RuntimeError(f"K4 + walk-back != plain on {m.name}")
-        names.append(m.name)
-    print(f"K1/K4 model zoo ({', '.join(names)}): equal")
+    # split-codon pairs of coding2genome and cdna2genome.  The plain
+    # versions run in a worker process (read in phase 14)
+    zoo_pool = _pool(1)
+    pools.append(zoo_pool)
+    zoo_plain = zoo_pool.apply_async(_zoo_plain)
+    zoo_card = _zoo_results(dev)
+    print(f"K1/K4 model zoo ({', '.join(zoo_card)}) [{card}]: launched; "
+          f"the plain versions started in a worker process")
     # the split-codon plans at width: the calm protein against 8 windows
     # of the 12 kb locus (each holds the whole gene)
     p2g = registry.get_model(registry.ModelType.PROTEIN2GENOME,
@@ -2283,6 +2404,15 @@ def main() -> int:
           f"started, {time.perf_counter() - wait_t0:.1f} s of it waited for; "
           f"the last read at {time.perf_counter() - t_start:.1f} s into the "
           f"script (deadline {DEADLINE_S} s)")
+    # phase 7's model zoo on the plain versions (worker process)
+    zoo_want, zoo_secs = zoo_plain.get(timeout=max(
+        DEADLINE_S - (time.perf_counter() - t_start), 1.0))
+    bad = [n for n in zoo_card if zoo_card[n] != zoo_want.get(n)]
+    if bad or set(zoo_want) != set(zoo_card):
+        raise RuntimeError(f"K1/K4 + walk-back != plain on the zoo models "
+                           f"{bad}")
+    print(f"K1/K4 model zoo (phase 7): kernel == plain on every model "
+          f"(score, region, path; {zoo_secs:.1f} s on one host core)")
     # phase 3's run_kernel on the CPU (worker process)
     for label, got, res in syn_checks:
         want = res.get(timeout=max(
@@ -2422,6 +2552,66 @@ def main() -> int:
     report["K8"] = (max(k8_err, *(r[1] for r in k8_res)), k8_chain_ms,
                     sum(r[2] for r in k8_res) * 1e3, k8_work)
 
+    # -- 15. T1, the elementwise-throughput probe ------------------------
+    # off every CLI path: held to the plain version on the card at the full
+    # B x W, then timed through the tool's own entry (tools/vpu16.py's
+    # cases and best-of-5 timing), each rate against its dtype's peak
+    _mark(t_start, "15, T1 (the elementwise-throughput probe)")
+    from exonerate_tpu_torch.tools import vpu16 as t1
+
+    def t1_err_of(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    t1_err = 0.0
+    for dtype, mix in t1.CASES:
+        x = t1.inputs(dtype, 0, dev)
+        got = t1.vpu16(x, mix, T1_CHECK_STEPS)
+        want = t1.plain(x, mix, T1_CHECK_STEPS)
+        t1_err = max(t1_err, t1_err_of(got, want))
+        if not torch.equal(got, want):
+            raise RuntimeError(f"T1 {t1.case_name(dtype, mix)} at "
+                               f"{T1_CHECK_STEPS} steps: kernel != plain")
+    x32 = t1.inputs(torch.int32, 0, dev)
+    got, t1_kernel_full = _cuda_call(lambda: t1.vpu16(x32, "mix"))
+    want, t1_plain_ms = _cuda_call(lambda: t1.plain(x32, "mix"))
+    t1_err = max(t1_err, t1_err_of(got, want))
+    if not torch.equal(got, want):
+        raise RuntimeError("T1 int32 mix at the full steps: kernel != plain")
+    print(f"T1 [{card}]: the nine cases == the plain version at B {t1.B} x "
+          f"W {t1.W}, {T1_CHECK_STEPS} steps of {t1.ITERS} rounds; int32 mix"
+          f" at {t1.STEPS} steps too: kernel {t1_kernel_full:.3f} ms, plain "
+          f"{t1_plain_ms:.3f} ms on the card (CUDA events)")
+    del x, x32, got, want
+    t1.vpu16.launches = 0
+    t1_rows = t1.run()
+    t1_launches = t1.vpu16.launches
+    if t1_launches != len(t1.CASES) * (1 + t1.REPS):
+        raise RuntimeError(f"T1: {t1_launches} launches, want "
+                           f"{len(t1.CASES) * (1 + t1.REPS)}")
+    over = [r["name"] for r in t1_rows if r["rate"] > r["peak"]]
+    if over:
+        raise RuntimeError(f"T1: {over} over the card's peak for the dtype:"
+                           f" the compiler removed work")
+    # the build must issue an instruction per counted op at least: fewer
+    # means the compiler folded or merged rounds, as a rate over the peak
+    sass = t1.sass()
+    for dtype, mix in t1.CASES:
+        n_ins = t1.issued(sass, dtype, mix)
+        want = t1.OPS_PER_ITER[mix] * t1.UNROLL
+        print(f"  SASS {t1.case_name(dtype, mix)}: {n_ins} instructions for "
+              f"{want} counted ops of {t1.UNROLL} rounds")
+        if n_ins < want:
+            raise RuntimeError(f"T1 {t1.case_name(dtype, mix)}: the build "
+                               f"issues {n_ins} instructions for {want} ops")
+    for fn_name, ops in sass.items():
+        print(f"  SASS {fn_name}: " + ", ".join(
+            f"{k} {v}" for k, v in ops.most_common()))
+    t1_main = next(r for r in t1_rows
+                   if (r["dtype"], r["mix"]) == (torch.int32, "mix"))
+    report["T1"] = (t1_err, t1_main["ms"], t1_plain_ms,
+                    (2 * t1.B * t1.W * 4, t1_main["ops"]))
+    del t1_rows
+
     src = "exonerate_tpu_torch/csrc/"
     pw = "exonerate_tpu/engine/pallas_wavefront.py"
     sp = "exonerate_tpu/engine/sdp_pallas.py"
@@ -2456,8 +2646,8 @@ def main() -> int:
          f"{k2_ms:.3f} ms)", "K2", "K2", src + "wavefront.cu",
          pw + ":438"),
         (f"K5 find_batched_sharded: K1 per device shard (region, "
-         f"{k5_shape}; plain ms on one host core per shard, summed; the "
-         f"whole generation {ms5:.3f} ms with host prep)",
+         f"{k5_shape}; plain ms on one host core; the whole generation "
+         f"{ms5:.3f} ms with host prep)",
          "K5", "K5", src + "wavefront.cu", pw + ":1470"),
         (f"K8 band_reverse_cross / band_forward_cross: the CROSS "
          f"instantiation of K6/K7 (the chain of {k8_shape}, reverse then "
@@ -2475,6 +2665,19 @@ def main() -> int:
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None})
+    err, ms, plain_ms, (n_bytes, n_ops) = report["T1"]
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    rows.append({"name": f"T1 vpu16: the elementwise-throughput probe "
+                         f"(int32 mix, B {t1.B} x W {t1.W}, {t1.STEPS} steps "
+                         f"of {t1.ITERS} rounds, best of {t1.REPS}; plain ms: "
+                         f"the same loop of torch ops on the card; on no "
+                         f"CLI path: its own entry launched it "
+                         f"{t1_launches} times)",
+                 "route": "cuda", "source": src + "vpu16.cu",
+                 "replaces": "tools/vpu16.py:60", "launches": 0,
+                 "tool_launches": t1_launches, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None})
     for label, (rev, fwd), k6, k7 in (("est2genome scan", scan_work, s_rev,
                                        s_fwd),
                                       ("coding2genome scan", c2g_work, c_rev,

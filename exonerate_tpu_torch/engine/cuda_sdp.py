@@ -46,7 +46,7 @@ from ..model.ir import Model
 
 from . import sdp_device as sd
 from .. import device as default_device
-from .cuda_wavefront import K9, _LaunchCount, _lib
+from .cuda_wavefront import K9, _LaunchCount, _lib, count
 from .wavefront import _bucket
 from .sdp_device import (BF_EVENT, BF_P_OVER, BF_P_UNDER, BF_SH_Q, BF_SH_T,
                          BP_AQ, BP_AT, BP_C0, BP_C1, BP_C2, BP_C3, BP_C4,
@@ -617,7 +617,7 @@ def band_reverse(bi: BandInputs):
     bits = torch.zeros((bi.batch, bi.Dp, bi.n_words), dtype=torch.int32,
                        device=bi.dims.device)
     live = _launch(bi, False, bits)
-    band_reverse.launches += 1
+    count(band_reverse)
     return bits, live
 
 
@@ -636,8 +636,8 @@ def band_forward(bi: BandInputs, bits: torch.Tensor):
     if bi.dims.device.type == "cpu":
         return sd.plain_band_forward(bi, bits)
     out = _launch(bi, True, bits)
-    band_forward.launches += 1
-    K9.launches += bi.split
+    count(band_forward)
+    count(K9, bi.split)
     return out
 
 
@@ -671,7 +671,7 @@ def band_reverse_cross(bi: BandInputs, halo: sd.Halo):
     bits = torch.zeros((bi.batch, bi.Dp, bi.n_words), dtype=torch.int32,
                        device=bi.dims.device)
     live, out = _launch(bi, False, bits, halo)
-    K8.launches += 1
+    count(K8)
     return bits, live, out
 
 
@@ -690,8 +690,8 @@ def band_forward_cross(bi: BandInputs, bits: torch.Tensor, halo: sd.Halo):
     if bi.dims.device.type == "cpu":
         return sd.plain_band_forward(bi, bits, halo)
     out = _launch(bi, True, bits, halo)
-    K8.launches += 1
-    K9.launches += bi.split
+    count(K8)
+    count(K9, bi.split)
     return out
 
 

@@ -59,6 +59,7 @@ runs the plain PyTorch version (``wavefront.plain_wavefront`` /
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import numpy as np
@@ -98,6 +99,18 @@ PORTABLE_CLUSTER = 8
 
 class _LaunchCount:
     launches = 0
+
+
+# the launch counters are read-modify-writes: under --cores several worker
+# threads launch at once, so every count goes through ``count``
+_count_lock = threading.Lock()
+
+
+def count(counter, n: int = 1) -> None:
+    """Add ``n`` launches to ``counter`` (a wrapper or a _LaunchCount)."""
+    if n:
+        with _count_lock:
+            counter.launches += n
 
 
 # kernel K9 (the split-codon calc kind): launches of K1/K4 (here) and of
@@ -528,16 +541,19 @@ def streams(kinds: tuple, B: int, Qp: int, Tp: int) -> bool:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _typed: set = set()
+_typed_lock = threading.Lock()
 
 
 def _lib(stem: str, fn: str, argtypes: list):
     """Entry point ``fn`` of csrc/<stem>.cu, typed once per (stem, fn):
-    a library with several entry points types each of them."""
+    a library with several entry points types each of them (under a
+    lock: worker threads may reach an entry point first together)."""
     lib = _cudabuild.load(stem)
-    if (stem, fn) not in _typed:
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-        _typed.add((stem, fn))
+    with _typed_lock:
+        if (stem, fn) not in _typed:
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+            _typed.add((stem, fn))
     return getattr(lib, fn)
 
 
@@ -659,9 +675,9 @@ def wavefront_scan(ki: KernelInputs) -> torch.Tensor:
     if ki.dims.device.type == "cpu":
         return wf.plain_wavefront(ki)[0]
     out, _, _ = _launch(ki)
-    wavefront_scan.launches += 1
-    K9.launches += ki.split
-    K3.launches += ki.masked
+    count(wavefront_scan)
+    count(K9, ki.split)
+    count(K3, ki.masked)
     return out
 
 
@@ -681,9 +697,9 @@ def wavefront_stream_scan(ki: KernelInputs) -> torch.Tensor:
     if ki.dims.device.type == "cpu":
         return wf.plain_wavefront(ki)[0]
     out, _, _ = _launch(ki, 0)
-    K2.launches += 1
-    K9.launches += ki.split
-    K3.launches += ki.masked
+    count(K2)
+    count(K9, ki.split)
+    count(K3, ki.masked)
     return out
 
 
@@ -714,11 +730,11 @@ def wavefront_segment(ki: KernelInputs, ring: tuple, span: tuple):
         return wf.plain_wavefront(ki, span, ring)
     out, tb, _ = _launch(ki, 0, span, ring)
     if ki.mode == "path":
-        wavefront_path.launches += 1
+        count(wavefront_path)
     else:
-        K2.launches += 1
-    K9.launches += ki.split
-    K3.launches += ki.masked
+        count(K2)
+    count(K9, ki.split)
+    count(K3, ki.masked)
     return out, tb
 
 
@@ -732,9 +748,9 @@ def wavefront_path(ki: KernelInputs):
     if ki.dims.device.type == "cpu":
         return wf.plain_wavefront(ki)
     out, tb, _ = _launch(ki)
-    wavefront_path.launches += 1
-    K9.launches += ki.split
-    K3.launches += ki.masked
+    count(wavefront_path)
+    count(K9, ki.split)
+    count(K3, ki.masked)
     return out, tb
 
 
@@ -773,7 +789,7 @@ def walkback(tb: torch.Tensor, stats: torch.Tensor, walk: torch.Tensor,
                 res.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"walk-back kernel launch failed: CUDA error {rc}")
-    walkback.launches += 1
+    count(walkback)
     return ops, res
 
 
@@ -894,7 +910,7 @@ def find_batched(model: Model, jobs: list, mode: str = "region",
                                       kinds, d, mode)
                 if devices:
                     scan = wavefront_scan
-                    K5.launches += 1
+                    count(K5)
                 else:
                     use_stream = (streams(kinds, len(chunk), Qp, Tp)
                                   if stream is None else stream)

@@ -30,6 +30,8 @@ each diagonal is a few thousand small launches; it is correct, not fast
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -452,17 +454,20 @@ class Engine:
 
 
 _CACHE: dict = {}
+_CACHE_LOCK = threading.Lock()
 
 
 def build_wavefront(model: Model, Q: int, T: int, mode: str = "score",
                     kinds: tuple = ()) -> Engine:
     """The engine of (model, Q, T, mode, kinds), kept per model
-    fingerprint like the JAX package's jit cache."""
+    fingerprint like the JAX package's jit cache (filled under a lock:
+    the --cores worker threads share it)."""
     from ..model.ir import model_fingerprint
     key = (model_fingerprint(model), Q, T, mode, kinds)
-    if key not in _CACHE:
-        _CACHE[key] = Engine(model, Q, T, mode, kinds)
-    return _CACHE[key]
+    with _CACHE_LOCK:
+        if key not in _CACHE:
+            _CACHE[key] = Engine(model, Q, T, mode, kinds)
+        return _CACHE[key]
 
 
 def run(engine: Engine, per_pair: list, device: torch.device,

@@ -143,7 +143,8 @@ class HybridSDPPair:
                                            np.empty(0, np.int32))
             return
         if self.plan is None or self.device_out is None:
-            plan = make_plan(self.model, pair)
+            plan = (self.plan if self.plan is not None
+                    else make_plan(self.model, pair))
             if not device_worthwhile(plan, pair.region.query_length):
                 observe.count_fallback(
                     "sdp device->host: below device size floor")

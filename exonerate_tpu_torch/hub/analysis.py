@@ -10,10 +10,14 @@ them to the GAM (ref: analysis.c:102-138).
 The Analysis takes the port's device and hands it to the port's GAM.
 Under ``EXONERATE_TPU_HEURISTIC=locus`` it defers every gapped
 comparison to the GAM's pooled locus heuristic and flushes them at the
-end of the scan, on the card and on the CPU alike.  The routes of the
-JAX package that are not ported yet are refused with a clear error:
-``--cores N`` with N > 1 (one device per worker thread) and the SDP
-row-scan tier (``sdp_hybrid.unported_tier``).  The cross-chip band scan
+end of the scan, on the card and on the CPU alike.  With ``--cores N``
+(N > 1) it runs each comparison in a pool of N worker threads instead,
+as the JAX package does: no deferral, the GAM's ``devices`` set to the
+visible cards (up to N; ``[cpu]`` for a caller on the CPU), each worker
+launching on CUDA streams of its own, and the results submitted strictly
+in comparison order, so the bytes are those of ``--cores 1``.  The SDP
+row-scan tier (``sdp_hybrid.unported_tier``) is not ported and is
+refused with a clear error.  The cross-chip band scan
 (``EXONERATE_TPU_CROSS_CHIP``) runs where that many cards are visible
 and is ignored elsewhere, as in the JAX package.
 """
@@ -22,6 +26,8 @@ from __future__ import annotations
 import os
 import sys
 
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional
 
@@ -72,9 +78,6 @@ class Analysis:
                  out=None, verbosity: int = 0,
                  device: Optional[torch.device] = None):
         from ..engine import sdp_hybrid
-        if aas is not None and aas.cores > 1:
-            raise SystemExit("exonerate: --cores > 1 is not ported to "
-                             "exonerate_tpu_torch yet")
         tier = sdp_hybrid.unported_tier()
         if tier is not None:
             raise SystemExit(tier)
@@ -131,6 +134,41 @@ class Analysis:
         self.gam.geneseed_threshold = self.hsp_args.geneseed_threshold
         self._sdp_pending: list = []
         self._locus_pending: list = []
+        self._pool = None
+        self._pending = None
+        self._streams: list = []
+        if self.aas.cores > 1:
+            # a thread pool over comparisons (exonerate_tpu/hub/
+            # analysis.py:114-124): the native engines and the kernels'
+            # ctypes launches release the GIL, so -c N runs per-pair work
+            # in parallel; results are submitted strictly in comparison
+            # order (_drain)
+            self.gam.devices = self._pool_devices()
+            self._pool = ThreadPoolExecutor(
+                max_workers=self.aas.cores, initializer=self._worker_streams)
+            self._pending = deque()
+
+    def _pool_devices(self) -> list:
+        """The devices of --cores: the visible cards, up to --cores of
+        them, for a caller on a card (one on a one-card host, as the JAX
+        package gets its one TPU chip); the CPU for a caller there."""
+        if self.device.type != "cuda":
+            return [self.device]
+        n = min(self.aas.cores, torch.cuda.device_count())
+        return [torch.device("cuda", k) for k in range(n)]
+
+    def _worker_streams(self):
+        """Pool initializer: the worker thread launches on a stream of its
+        own on each card of ``gam.devices``, for the life of the pool, so
+        that the threads' kernels can run at once (on the device's default
+        stream they would run one after another).  The tensors a worker
+        allocates are then its stream's, and the caching allocator hands
+        a block it frees to that stream only."""
+        for dev in self.gam.devices:
+            if dev.type == "cuda":
+                stream = torch.cuda.Stream(device=dev)
+                self._streams.append(stream)
+                torch.cuda.set_stream(stream)
 
     # -- data -------------------------------------------------------------
 
@@ -209,6 +247,12 @@ class Analysis:
             self._process_bigseq()
         else:
             self._process_seeded()
+        if self._pool is not None:
+            try:
+                while self._pending:
+                    self.gam.submit(self._pending.popleft().result())
+            finally:
+                self._pool.shutdown(cancel_futures=True)
         self._flush_locus_pool()
         self._flush_sdp_pool()
         self.gam.report()
@@ -424,7 +468,8 @@ class Analysis:
                 and not self.translate_both):
             self._comparison_revcomp(comparison)
         gapped = registry.is_gapped(self.gas.model_type)
-        if gapped and self.gas.use_gapped_extension \
+        if gapped and self._pool is None \
+                and self.gas.use_gapped_extension \
                 and os.environ.get("EXONERATE_TPU_HEURISTIC") == "locus":
             # pooled locus mode: defer so every comparison's loci share
             # each generation's kernel batches; flushed by
@@ -432,7 +477,8 @@ class Analysis:
             # completion order -> same output bytes)
             self._locus_pending.append(comparison)
             return
-        if gapped and self.gas.use_gapped_extension \
+        if gapped and self._pool is None \
+                and self.gas.use_gapped_extension \
                 and not self.aas.use_bigseq \
                 and self.gam.sdp_device_active():
             # device SDP mode: defer so every comparison's passes share
@@ -444,7 +490,11 @@ class Analysis:
             return
         fn = (self.gam.result_heuristic if gapped
               else self.gam.result_ungapped)
-        self.gam.submit(fn(comparison))
+        if self._pool is not None:
+            self._pending.append(self._pool.submit(fn, comparison))
+            self._drain(block=len(self._pending) >= self.aas.cores * 4)
+        else:
+            self.gam.submit(fn(comparison))
 
     def _flush_locus_pool(self):
         if not self._locus_pending:
@@ -458,6 +508,16 @@ class Analysis:
             return
         pending, self._sdp_pending = self._sdp_pending, []
         self.gam.run_sdp_pool(pending)
+
+    def _drain(self, block: bool = False):
+        """Submit finished comparison results in order."""
+        while self._pending:
+            f = self._pending[0]
+            if not block and not f.done():
+                break
+            self._pending.popleft()
+            self.gam.submit(f.result())
+            block = False
 
     @staticmethod
     def _comparison_revcomp(comparison):

@@ -25,13 +25,18 @@ with K3) and one masked path batch (K4 with K3), on the plain versions
 on the CPU.  With two or more cards visible (``_scan_devices``) the first
 generation's mask-free scan runs data-parallel over them
 (``cuda_wavefront.find_batched_sharded``, K5), as the JAX package's
-runs over its ``_scan_mesh``.
+runs over its ``_scan_mesh``.  Under ``--cores N`` the Analysis calls the
+GAM from worker threads and sets ``devices``: the locus heuristic then
+takes the JAX package's per-locus route, each locus's path DPs on the
+next device in turn, and the band scan's device tier runs per
+comparison.
 """
 from __future__ import annotations
 
 import enum
 import os
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional
@@ -114,6 +119,12 @@ class GAM:
         self.bestn_store: dict[str, list[_Stored]] = {}
         self._order = 0
         self.geneseed_threshold = 0
+        # --cores N: the devices the locus route's path DPs take in turn
+        # (exonerate_tpu/hub/gam.py:97-101), set by the Analysis's pool;
+        # the turn is taken under a lock by the pool's worker threads
+        self.devices: list = []
+        self._dev_rr = 0
+        self._dev_lock = threading.Lock()
 
     def _sdp_args(self) -> SdpArgs:
         return SdpArgs(self.gas.extension_threshold, self.gas.single_pass)
@@ -452,13 +463,24 @@ class GAM:
             hs.hsps = keep
 
     def _make_sdp_pair(self, comparison, data):
-        """The device-hybrid pair when the device tier is active, else
-        the host pair (native C++ scheduler)."""
+        """The device-hybrid pair when the device tier is active and the
+        comparison passes the default routing's size gates
+        (``sdp_hybrid.device_worthwhile``), else the host pair (native C++
+        scheduler).  A comparison under the gates goes to the host
+        directly, as ``run_sdp_pool`` sends it, and counts no fallback:
+        this is the route of every comparison under ``--cores``."""
         from ..engine import sdp_hybrid
         if self.sdp_device_active():
+            gpair = SDPPair(self.model, comparison, data, SubOpt(),
+                            self._sdp_args())
+            plan = (sdp_hybrid.make_plan(self.model, gpair)
+                    if gpair.seeds else None)
+            if plan is not None and not sdp_hybrid.device_worthwhile(
+                    plan, gpair.region.query_length):
+                return gpair
             return sdp_hybrid.HybridSDPPair(
-                self.model, comparison, data, SubOpt(), self._sdp_args(),
-                device=self.device)
+                self.model, comparison, data, gpair.subopt,
+                self._sdp_args(), plan=plan, gpair=gpair, device=self.device)
         if os.environ.get("EXONERATE_TPU_SDP", "") == "device":
             observe.count_fallback(
                 "sdp device->host: model unsupported on device")
@@ -564,12 +586,65 @@ class GAM:
                                 ) -> list[tuple[Alignment, AlignData]]:
         """Batched locus-region fallback (dense kernel Waterman-Eggert;
         not byte-parity with the reference SDP).  The port's kernels are
-        the prescan on any device, so every comparison takes the JAX
-        package's pooled route (``_locus_pool_run``)."""
+        the prescan on any device, so a comparison takes the JAX package's
+        pooled route (``_locus_pool_run``), or under ``--cores`` its
+        per-locus route (``_locus_per_device``)."""
         grp = self._locus_regions(comparison, data)
         if grp is None:
             return []
+        if self.devices:
+            return self._locus_per_device(grp)
         return self._locus_pool_run([grp])[0]
+
+    def _next_device(self) -> torch.device:
+        """The next device of ``devices`` in turn."""
+        with self._dev_lock:
+            dev = self.devices[self._dev_rr % len(self.devices)]
+            self._dev_rr += 1
+        return dev
+
+    def _locus_per_device(self, grp: dict) -> list:
+        """The locus heuristic of one comparison under ``--cores``
+        (``exonerate_tpu/hub/gam.py:586-650``): one region scan of every
+        cluster region (K1, or K5 over two or more cards) drops the loci
+        under the threshold before any path DP; then each locus runs its
+        Waterman-Eggert loop of path DPs on the next device of
+        ``devices`` (no batched first path DP under the round-robin)."""
+        from ..engine import cuda_wavefront, optimal
+        data, regions, subopt = grp["data"], grp["regions"], grp["subopt"]
+        threshold = self.query_threshold(grp["query"], data)
+        if self.model.is_local:
+            threshold = max(threshold, 1)
+        if len(regions) > 1:
+            jobs = [(r, data) for r in regions]
+            devices = self._scan_devices()
+            if devices is not None and len(jobs) >= len(devices):
+                scans = cuda_wavefront.find_batched_sharded(
+                    self.model, jobs, devices, "region")
+            else:
+                scans = cuda_wavefront.find_batched(
+                    self.model, jobs, "region", device=self.device)
+            # filter only: the whole locus region stays for the
+            # Waterman-Eggert re-runs (find_path shrinks each iteration)
+            regions = [r for r, scan in zip(regions, scans)
+                       if scan.score >= threshold]
+        out = []
+        for region in regions:
+            device = self._next_device()
+            while True:
+                alignment = optimal.find_path(self.model, region, data,
+                                              subopt=subopt, device=device)
+                if alignment is None or alignment.score < threshold:
+                    break
+                out.append((alignment, data))
+                if subopt is None or not self.model.is_local:
+                    break
+                subopt.add_alignment(alignment)
+                if self.gas.best_n and len(out) >= max(
+                        self.gas.best_n * 4, 16):
+                    break
+        out.sort(key=lambda ad: -ad[0].score)
+        return out
 
     def _locus_regions(self, comparison: Comparison,
                        data: AlignData) -> Optional[dict]:

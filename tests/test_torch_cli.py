@@ -93,10 +93,24 @@ def test_est2genome_subregion_path_on_the_wavefront(cpu_device,
     assert not observe.fallback_counts
 
 
-def test_unported_routes_are_refused(cpu_device):
+def test_cores_matches_jax_cli(cpu_device, monkeypatch):
+    """--cores 2 (the JAX package's thread pool; -E yes runs its pairs in
+    the main thread) prints what the JAX CLI's --cores 2 prints, and
+    what the port's --cores 1 prints but for the echoed command line.
+    The native cut-over is lowered so that the pair runs on the
+    wavefront (its plain version on the CPU)."""
+    from exonerate_tpu.cli.exonerate import main as jax_main
+    monkeypatch.setattr(optimal, "NATIVE_TPU_CELLS", 40_000)
     argv = list(CASES["exhaustive_affine_local"])
-    with pytest.raises(SystemExit, match="--cores"):
-        main(argv + ["--cores", "2"], out=io.StringIO())
+    one, two, jax_two = io.StringIO(), io.StringIO(), io.StringIO()
+    assert main(argv, out=one) == 0
+    observe.reset()
+    assert main(argv + ["--cores", "2"], out=two) == 0
+    assert observe.engine_counts["torch-wavefront"] >= 1
+    assert not observe.fallback_counts
+    assert jax_main(argv + ["--cores", "2"], out=jax_two) == 0
+    assert two.getvalue() == jax_two.getvalue()
+    assert two.getvalue().replace(" --cores 2]", "]", 1) == one.getvalue()
 
 
 def _p2g_split_argv(tmp_path):

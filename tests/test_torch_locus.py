@@ -145,10 +145,55 @@ def test_locus_route_runs_without_jax(monkeypatch, three_copies):
     assert proc.stdout == _jax_pool(argv, monkeypatch)
 
 
-def test_locus_route_keeps_its_refusals(monkeypatch, tmp_path):
-    """--cores > 1 (one device per worker thread) stays refused."""
+def _two_loci_argv(tmp_path):
+    """The affine:local query twice in a 55.3 kb target, 52 kb apart: two
+    clusters (HSPs join within the 50 kb NER span), so two locus
+    regions."""
+    rng = np.random.default_rng(17)
+    base = "".join(rng.choice(list("ACGT"), 55000))
+    query = base[100:400]
+    target = base[400:2400] + query + base[2400:54400] + query \
+        + base[54400:55000]
+    qf, tf = tmp_path / "q2.fa", tmp_path / "t2.fa"
+    qf.write_text(">q\n" + query + "\n")
+    tf.write_text(">t\n" + target + "\n")
+    return ["-m", "affine:local", "--showvulgar", "yes", "--showalignment",
+            "no", str(qf), str(tf)]
+
+
+def test_locus_route_with_cores_matches_jax_cli(monkeypatch, tmp_path):
+    """--cores 2 on the locus route (the JAX package's per-locus route:
+    every region scanned first, then each locus's path DPs on the next
+    device in turn) prints what the JAX CLI's --cores 2 prints, and what
+    the port's pooled route prints with --cores 1.  The
+    native cut-over is lowered so that the path DPs run on the wavefront
+    (its plain version on the CPU) and not on the native dense DP."""
+    from exonerate_tpu.cli.exonerate import main as jax_main
     from exonerate_tpu_torch.cli.exonerate import main
+    from exonerate_tpu_torch.engine import optimal
     monkeypatch.setenv("EXONERATE_TPU_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("EXONERATE_TPU_HEURISTIC", "locus")
-    with pytest.raises(SystemExit, match="--cores"):
-        main(_locus_argv(tmp_path, 1) + ["--cores", "2"], out=io.StringIO())
+    monkeypatch.setattr(optimal, "NATIVE_TPU_CELLS", 40_000)
+    argv = _two_loci_argv(tmp_path) + ["--cores", "2"]
+    scans = []
+    real = cw.find_batched
+
+    def spy(model, jobs, mode="region", device=None, subopt=None, **kw):
+        scans.append(len(jobs))
+        return real(model, jobs, mode, device=device, subopt=subopt, **kw)
+
+    monkeypatch.setattr(cw, "find_batched", spy)
+    observe.reset()
+    got = io.StringIO()
+    assert main(argv, out=got) == 0
+    assert not observe.fallback_counts
+    assert observe.engine_counts["torch-wavefront"] >= 1
+    assert scans[0] == 2            # the prescan of both loci
+    want = io.StringIO()
+    assert jax_main(argv, out=want) == 0
+    assert got.getvalue() == want.getvalue()
+    assert got.getvalue().count(" 1500 M 300 300") == 2
+    # the pooled route of --cores 1 prints the same alignments
+    one = io.StringIO()
+    assert main(argv[:-2], out=one) == 0
+    assert got.getvalue().replace(" --cores 2]", "]", 1) == one.getvalue()

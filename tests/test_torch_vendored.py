@@ -5,7 +5,9 @@ with ``exonerate_tpu`` (sequences, matrices, models, seeding, oracles,
 native C++ engines, output formats), under the same relative paths.  The
 first test walks the syntax tree of every module of the port, of
 ``chip_smoke.py`` and of the band-scan cases that script shares with the
-tests, and finds no import of ``jax`` or of ``exonerate_tpu``.  The
+tests, and finds no import of ``jax``, of ``exonerate_tpu`` or of the
+repository's ``tools`` (whose ``vpu16.py`` the port's ``tools/vpu16.py``
+replaces).  The
 second holds each copy's text equal to its JAX-package module's text
 after the package-name rewrite, both read as files, never imported.  The
 port's own counterparts of modules that reach JAX there are the
@@ -65,10 +67,11 @@ def test_no_module_imports_jax_or_the_jax_package():
     for path in paths:
         for name in _imports(path):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "exonerate_tpu"):
+            if top in ("jax", "jaxlib", "exonerate_tpu", "tools"):
                 bad.append((os.path.relpath(path, ROOT), name))
     assert not bad, bad
     assert len(paths) > 60
+    assert os.path.join(PORT, "tools", "vpu16.py") in paths
 
 
 def test_copy_list_covers_the_host_layer():
