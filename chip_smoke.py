@@ -76,21 +76,26 @@ second of the script at which it starts:
       The run's K1/K4 inputs are captured; each launch is made again and
       its plain version (with the walk-back's) starts in one more worker
       process.
-6. The SubOpt mask (kernel K3, the MASKED instantiation of K1/K4), each
-   run through the port's CLI with no fallback:
+6. The SubOpt mask (kernel K3, the MASKED instantiation of K1/K4 and of
+   the cluster kernel K2), each run through the port's CLI with no
+   fallback:
    a. est2genome -E yes --bestn 2 --score 2000: calm (2175 bp) against a
       30 kb window holding two spliced copies of it, interleaved
       (tests/torch_split_cases.py two_copy_locus: exons at thirds, ~1%
       mutated, GT..AG gaps of 1200 bp, so each copy spans 8,425 bp and
       its box holds cells of the other's path).  The whole pair (65 M
-      cells) and each copy's box (over 16 M) take the kernel route, so
-      the second iteration runs K3 inside K1 and K4; both copies spliced.
+      cells) and each copy's box (over 16 M) take the kernel route; every
+      masked DP is B=1, whose cluster fits the card, so K3 runs inside the
+      cluster kernel with its ring in shared memory (region scans as K2,
+      path DPs as K4 on a cluster), the mask-free ones on K1 / K4, each
+      counted by its route; both copies spliced.
       The native dense DP route of the same CLI (cut-overs raised) runs
       in a worker process on a host core beside the card's phases, and
       its bytes are compared in phase 14.
-      The widest masked region scan is timed (kernel K3's row) and, with
-      the first masked K4 launch and its walk-back, held to the plain
-      version in two more worker processes.
+      The widest masked region scan is timed on the cluster (kernel K3's
+      row), mask-free there and once on K1 (the route it took until now,
+      equal), and, with the first masked path DP on the cluster and its
+      walk-back, held to the plain version in two more worker processes.
    b. The pooled locus heuristic (EXONERATE_TPU_HEURISTIC=locus) on
       phase 4's 16 cDNAs x 1 Mb genome with --bestn 10: at least one
       masked generation, K3 launched, 16/16 queries spliced, its time
@@ -121,7 +126,11 @@ second of the script at which it starts:
       est2genome B=3 at Qp 2304 (C = 9), a Qp 256 pair (C = 1), a Qp 768
       pair of 601 rows (a part-filled last CTA), the protein2genome split
       pair (FULL, K9) and a small masked pair (K3); each launch is held to
-      the plain version in a worker process.
+      the plain version in a worker process: the est2genome ones with the
+      carry ring in shared memory, the protein2genome region pair with it
+      in global memory (both ring routes must appear).  Then every
+      cluster instantiation that steps b-e launch is launched once, so
+      that none loads beside K1's side check.
    b. est2genome -E yes --bestn 2 --score 5000 --revcomp no through the
       CLI (the forward strands: the reverse strand's one scan finds
       nothing over 5000): calm against a 1.2 Mb random genome holding two
@@ -132,7 +141,8 @@ second of the script at which it starts:
       whole-target region scan (Qp 2304 x Tp 1,356,288, B=1, 26 MB by the
       JAX package's streaming test) must run on K2 with C > 1, masked
       after the first of its strand (K3 inside K2); the copies' boxes on
-      K1 and K4; two spliced vulgar lines; no fallback.  Per scan: K2 ms
+      K1 and K4 when mask-free, on the cluster when masked; two spliced
+      vulgar lines; no fallback.  Per scan: K2 ms
       (CUDA events), C, the footprint, the host seconds of input and mask
       prep, and a host-clock breakdown.  The first scan's inputs go to K1
       on a side stream of their own (one CTA on one SM, beside the rest of
@@ -157,7 +167,10 @@ second of the script at which it starts:
       version: the first masked whole-target scan's inputs over 1,200
       diagonals through the first copy's cells, continuing the carry
       rings of a launch over the diagonals before them; the plain version
-      runs the same span from the same rings in a worker.
+      runs the same span from the same rings in a worker.  The same span
+      is timed with the ring in global memory (equal), and with an empty
+      plan: the per-diagonal floor of the cluster barrier, the cells'
+      state and ring writes and the halo copy.
    Each copy's vulgar line must equal the native route's (the same CLI
    with the cut-overs raised, in worker processes started in phase 6a)
    on a 20 kb window around it, target coordinates shifted.
@@ -730,12 +743,14 @@ def _plain_span_check(path: str):
     return ok and not err, err, secs, span[1] - span[0]
 
 
-def _wave_outputs(cw, ki) -> dict:
-    """K1 on ``ki`` (K4 and the walk-back in path mode): the outputs that
-    ``_plain_wave_check`` holds to the plain version."""
+def _wave_outputs(cw, ki, cluster: bool = False) -> dict:
+    """K1 on ``ki`` (K4 and the walk-back in path mode), or the cluster
+    kernel when ``cluster``: the outputs that ``_plain_wave_check`` holds
+    to the plain version."""
     if ki.mode != "path":
-        return {"out": cw.wavefront_scan(ki)}
-    stats, tb = cw.wavefront_path(ki)
+        return {"out": (cw.wavefront_stream_scan if cluster
+                        else cw.wavefront_scan)(ki)}
+    stats, tb = cw.wavefront_path(ki, cluster=cluster)
     cap = ki.Qp + ki.Tp + 1 + cw.WALK_SLACK
     ops, res = cw.walkback(tb, stats, ki.walk, ki.end_id, cap)
     return {"out": stats, "tb": tb, "ops": ops, "res": res, "cap": cap}
@@ -801,6 +816,19 @@ WAVE_CLOCKS = {
     "_launch": lambda ki, cluster=None, span=None, ring=None: (
         "K4" if ki.mode == "path" else "K2" if cluster is not None
         else "K1") + (" masked" if ki.masked else "")}
+
+
+@contextlib.contextmanager
+def _global_ring(cw):
+    """While active, the cluster kernel keeps every ring in global memory
+    (``cuda_wavefront.ring_in_smem`` answers no): the cluster body as it
+    was before the shared ring, for a comparison on the same card."""
+    real = cw._smem_ring
+    cw._smem_ring = lambda ki, cluster=0: False
+    try:
+        yield
+    finally:
+        cw._smem_ring = real
 
 
 def _k2_mb(kis: list) -> list:
@@ -988,7 +1016,8 @@ def main() -> int:
     counters = {"K1": cw.wavefront_scan, "K4": cw.wavefront_path,
                 "walkback": cw.walkback, "K6": cs.band_reverse,
                 "K7": cs.band_forward, "K9": cw.K9, "K3": cw.K3,
-                "K2": cw.K2, "K8": cs.K8, "K5": cw.K5}
+                "K2": cw.K2, "K8": cs.K8, "K5": cw.K5,
+                "ring smem": cw.RING_SMEM, "ring global": cw.RING_GLOBAL}
     main_launches = dict.fromkeys(counters, 0)
 
     def zero_counts():
@@ -1545,7 +1574,8 @@ def main() -> int:
         cw.to_kernel_inputs = real_tki
         optimal.find_path = real_fp
     we_launches = read_counts("est2genome -E yes Waterman-Eggert",
-                              ("K1", "K4", "walkback", "K3"))
+                              ("K1", "K2", "K4", "walkback", "K3",
+                               "ring smem"))
     we_eng = dict(observe.engine_counts)
     we_shapes = [(k.mode, k.batch, k.Qp, k.Tp, "masked" if k.masked
                   else "mask-free") for k in we_kis]
@@ -1562,16 +1592,27 @@ def main() -> int:
     if len(ops_we) != 2 or any(o.count("I") != 2 for o in ops_we):
         raise RuntimeError(f"est2genome -E yes: want both copies with two "
                            f"introns each, got {ops_we}")
+    # every masked DP of the run is B=1, whose cluster fits the card: K3
+    # runs inside the cluster kernel with its ring in shared memory, the
+    # region scans as K2 and the path DPs as K4 on a cluster; the
+    # mask-free ones stay on K1 / K4
     n_masked = sum(k.masked for k in we_kis)
-    if not any(k.masked and k.mode == "region" for k in we_kis) \
+    n_masked_region = sum(k.masked and k.mode == "region" for k in we_kis)
+    n_free_region = sum(not k.masked and k.mode == "region" for k in we_kis)
+    if not n_masked_region \
             or not any(k.masked and k.mode == "path" for k in we_kis) \
-            or we_launches["K3"] != n_masked:
-        raise RuntimeError(f"est2genome -E yes: K3 must run inside K1 and "
-                           f"K4 ({we_shapes}; K3 launches "
-                           f"{we_launches['K3']})")
-    # the widest masked region scan (kernel K3's row, timed here) and the
-    # first masked path DP are held to their plain versions in worker
-    # processes
+            or we_launches["K3"] != n_masked \
+            or we_launches.get("K2", 0) != n_masked_region \
+            or we_launches.get("K1", 0) != n_free_region \
+            or we_launches.get("ring smem", 0) != n_masked \
+            or we_launches.get("ring global", 0):
+        raise RuntimeError(f"est2genome -E yes: every masked DP must run "
+                           f"on the cluster kernel with its ring in shared "
+                           f"memory, the mask-free ones on K1/K4 "
+                           f"({we_shapes}; launches {we_launches})")
+    # the widest masked region scan (kernel K3's row, timed here on the
+    # cluster, and once on K1, the route it took until now) and the first
+    # masked path DP are held to their plain versions in worker processes
     we_main = max((k for k in we_kis if k.masked and k.mode == "region"),
                   key=lambda k: k.batch * (k.Qp + 1) * (k.Tp + 1))
     we_path = next(k for k in we_kis if k.masked and k.mode == "path")
@@ -1581,24 +1622,31 @@ def main() -> int:
     we_pool = _pool(2)
     pools.append(we_pool)
     we_pending = {}
-    for tag, ki in (("K1", we_main), ("K4", we_path)):
-        outs = _wave_outputs(cw, ki)
-        if tag == "K1":
-            k3_ms = _cuda_ms(lambda: cw.wavefront_scan(we_main), 2)
-            free_ms = _cuda_ms(lambda: cw.wavefront_scan(we_free), 1)
+    for tag, ki in (("K3", we_main), ("K4", we_path)):
+        outs = _wave_outputs(cw, ki, cluster=True)
+        if tag == "K3":
+            k3_ms = _cuda_ms(lambda: cw._launch(we_main, 0), 2)
+            free_ms = _cuda_ms(lambda: cw._launch(we_free, 0), 1)
+            k3_k1, k3_k1_ms = _cuda_call(lambda: cw._launch(we_main)[0])
+            if not torch.equal(k3_k1, outs["out"]):
+                raise RuntimeError(f"K3's row: K1 {k3_k1.tolist()} != the "
+                                   f"cluster's {outs['out'].tolist()}")
         path = _save_wave(os.path.join(tmp_dir, f"we_{tag}.pt"), ki, outs)
         del outs
         we_pending[tag] = we_pool.apply_async(_plain_wave_check, (path,))
-        pending.append((f"est2genome -E yes masked {tag} ({ki.mode}, Qp "
-                        f"{ki.Qp} x Tp {ki.Tp} x{ki.batch})",
+        pending.append((f"est2genome -E yes masked {tag} on the cluster "
+                        f"({ki.mode}, Qp {ki.Qp} x Tp {ki.Tp} x{ki.batch})",
                         list(range(ki.batch)), we_pending[tag]))
     k3_shape = (f"Qp {we_main.Qp} x Tp {we_main.Tp} x{we_main.batch}, "
                 f"{len(calm_s)} x {len(we_locus)}")
-    print(f"K1 region with K3, the -E run's widest masked scan ({k3_shape})"
-          f" [{card}]: kernel {k3_ms:.3f} ms, the same pair mask-free "
-          f"{free_ms:.3f} ms (CUDA events); its plain check"
-          f" and the first masked K4's (Qp {we_path.Qp} x Tp {we_path.Tp}) "
-          f"started")
+    print(f"K2 region with K3, the -E run's widest masked scan ({k3_shape}, "
+          f"C={cw.cluster_capacity(we_main)[0]}, {cw.cluster_capacity(we_main)[1]} "
+          f"clusters resident, the ring in shared memory "
+          f"{cw._smem_ring(we_main)}) [{card}]: kernel {k3_ms:.3f} ms, the "
+          f"same pair mask-free {free_ms:.3f} ms; on K1 (one CTA) "
+          f"{k3_k1_ms:.3f} ms, equal (CUDA events); its plain check and the "
+          f"first masked path DP's on the cluster (Qp {we_path.Qp} x Tp "
+          f"{we_path.Tp}) started")
     k3_work = _wave_work(we_main, 5 * we_main.batch * 4)
 
     _mark(t_start, "6b, the locus pool")
@@ -1616,10 +1664,12 @@ def main() -> int:
                   **kwargs):
         lo_gens.append((len(jobs_), any(
             x is not None and x.points for x in subopt or [])))
+        k2_before = cw.K2.launches
         res = real_fb(model_, jobs_, mode, device=device, subopt=subopt,
                       **kwargs)
         if not lo_gen0:
-            lo_gen0.extend([model_, list(jobs_), res])
+            lo_gen0.extend([model_, list(jobs_), res,
+                            cw.K2.launches - k2_before])
         return res
 
     argv_lo = LOCUS_ARGV + [qf, tf]
@@ -1701,14 +1751,14 @@ def main() -> int:
 
     # c. K5, the sharded locus prescan: 6b's first generation through
     # find_batched_sharded over [cuda:0, cuda:0] (or the distinct cards),
-    # equal to that generation's results on K1 on one device (6b ran no
-    # K2); the shards of its chunk with the most cells launched again,
+    # equal to that generation's results on K1 on one device (mask-free,
+    # it ran no K2); the shards of its chunk with the most cells launched again,
     # timed, and held to the plain version in worker processes
     _mark(t_start, "6c, K5 on the locus pool's first generation")
-    lo_model, lo_jobs, want5 = lo_gen0
-    if lo_launches.get("K2"):
-        raise RuntimeError("the locus pool ran K2: its first generation is "
-                           "no find_batched(stream=False) reference")
+    lo_model, lo_jobs, want5, gen0_k2 = lo_gen0
+    if gen0_k2:
+        raise RuntimeError("the locus pool's first generation ran K2: it "
+                           "is no find_batched(stream=False) reference")
     k5_devs = ([torch.device("cuda", k)
                 for k in range(torch.cuda.device_count())]
                if torch.cuda.device_count() >= 2 else [dev, dev])
@@ -1969,9 +2019,10 @@ def main() -> int:
         path = _save_wave(os.path.join(tmp_dir, f"k2_{len(k2_checks)}.pt"),
                           ki, {"out": out})
         res = k2_pool.apply_async(_plain_wave_check, (path,))
-        name = (f"K2 forced {label} (C={last_c['C']}, masked "
-                f"{ki.masked}, split {ki.split}, Qp {ki.Qp} x Tp {ki.Tp} "
-                f"x{ki.batch})")
+        ring = "shared" if cw._smem_ring(ki) else "global"
+        name = (f"K2 forced {label} (C={last_c['C']}, ring in {ring} "
+                f"memory, masked {ki.masked}, split {ki.split}, Qp {ki.Qp} x "
+                f"Tp {ki.Tp} x{ki.batch})")
         k2_checks.append((name, ms, res))
         pending.append((name, list(range(ki.batch)), res))
 
@@ -1979,11 +2030,18 @@ def main() -> int:
         forced_k2(label, m, jobs, sub)
         print(f"{k2_checks[-1][0]} [{card}]: {k2_checks[-1][1]:.3f} ms; "
               f"plain check started")
-    # the instantiations of step d's checkpointed traceback (masked, on a
-    # cluster: score mode forward, path mode for the walk back), launched
-    # once on the masked pair so that CUDA loads them now: a kernel loads
-    # at its first launch, and that load waits for the kernels running
-    # then, K1's side check below among them
+    # both ring routes are held to the plain version: est2genome's ring in
+    # shared memory, the protein2genome region pair's in global memory
+    if not any("ring in shared" in n for n, _ms, _r in k2_checks) \
+            or not any("ring in global" in n for n, _ms, _r in k2_checks):
+        raise RuntimeError(f"K2 forced batches: want both ring routes, got "
+                           f"{[n for n, _ms, _r in k2_checks]}")
+    # the instantiations of steps b-e (masked, on a cluster: score mode
+    # forward and path mode for the walk back and the copies' path DPs,
+    # region mode with its ring in global memory for e's comparison),
+    # launched once on the masked pair so that CUDA loads them now: a
+    # kernel loads at its first launch, and that load waits for the
+    # kernels running then, K1's side check below among them
     (warm_key, warm_items), = cw._buckets(model, [(small, cdata)],
                                           small_sub).items()
     warm = cw.to_kernel_inputs(model, [warm_items[0][1]], warm_key[2], dev,
@@ -1991,6 +2049,10 @@ def main() -> int:
     for ki in (dataclasses.replace(warm, mode="score"), warm):
         cw.wavefront_segment(ki, cw.ring_buffers(ki),
                              (0, ki.Qp + ki.Tp + 1))
+    warm_region = cw.to_kernel_inputs(model, [warm_items[0][1]], warm_key[2],
+                                      dev, "region")
+    with _global_ring(cw):
+        real_launch(warm_region, 0)
     _sync()
 
     _mark(t_start, "9b, the chromosome-scale CLI run")
@@ -2077,7 +2139,8 @@ def main() -> int:
           f"{[k for k in ch_kis if k[3] < len(chrom)]}")
     for n, s in enumerate(ch_scans):
         s["ms"] = s["ev"][0].elapsed_time(s["ev"][1])
-        print(f"  K2 scan {n} (B, Qp, Tp) {s['shape']}, masked {s['masked']}"
+        print(f"  K2 scan {n} ({'the whole target' if s['whole'] else 'a box'}"
+              f"; B, Qp, Tp) {s['shape']}, masked {s['masked']}"
               f": {s['ms']:.3f} ms (CUDA events), C={s['C']}, footprint "
               f"{s['mb']} MB by the JAX package's K2 test (24 MB); host "
               f"prep {s['prep']:.3f} s (of it the mask plane "
@@ -2089,16 +2152,17 @@ def main() -> int:
         raise RuntimeError(f"chromosome-scale -E yes: want both copies with "
                            f"two introns each, got {ops_ch}")
     scans = [(s["whole"], s["masked"], s["C"]) for s in ch_scans]
-    if len(whole) != len(ch_scans) or ch_launches["K2"] != len(whole) \
+    if ch_launches["K2"] != len(ch_scans) \
             or len(whole) < 3 or any(s["masked"] != bool(s["points"])
                                      for s in whole) \
             or sum(s["masked"] for s in whole) < 2 \
-            or any(s["C"] < 2 for s in whole):
-        raise RuntimeError(f"chromosome-scale -E yes: want every region "
-                           f"scan on K2 a whole-target scan, C > 1, masked "
-                           f"after the first of its strand: (whole, "
-                           f"masked, C) {scans}; K2 launches "
-                           f"{ch_launches['K2']}")
+            or any(s["C"] < 2 for s in ch_scans) \
+            or any(not s["masked"] for s in ch_scans if not s["whole"]):
+        raise RuntimeError(f"chromosome-scale -E yes: want every whole-"
+                           f"target scan on K2, C > 1, masked after the "
+                           f"first of its strand, and only the copies' "
+                           f"masked boxes there besides: (whole, masked, C)"
+                           f" {scans}; K2 launches {ch_launches['K2']}")
     if any(k[3] >= len(chrom) for k in ch_kis if k[0] == "path") \
             or not any(k[0] == "path" for k in ch_kis):
         raise RuntimeError(f"chromosome-scale -E yes: the copies' boxes must "
@@ -2241,9 +2305,27 @@ def main() -> int:
     k2_work = _wave_work(ki_m, 5 * 4, span)
     k2_span_shape = (f"the first masked whole-target scan, Qp {ki_m.Qp} x Tp"
                      f" {ki_m.Tp} x1, diagonals {span[0]}-{span[1]}, C="
-                     f"{sp_c}")
+                     f"{sp_c}, the ring in shared memory "
+                     f"{cw._smem_ring(ki_m)}")
+    # the same span from the same rings with the ring in global memory
+    # (the cluster body before the shared ring), and with an empty plan:
+    # the cluster barrier, the cells' state and ring writes and the halo
+    # copy alone, the per-diagonal floor of the shared-ring body
+    with _global_ring(cw):
+        (g_out, _, _), g_ms = _cuda_call(lambda: real_launch(
+            ki_m, 0, span, tuple(t.clone() for t in before)))
+    if not torch.equal(g_out, sp_out):
+        raise RuntimeError(f"K2 over the span: the global ring's "
+                           f"{g_out.tolist()} != the shared ring's "
+                           f"{sp_out.tolist()}")
+    empty = dataclasses.replace(ki_m, plan=ki_m.plan[:0].contiguous())
+    barrier_ms = _cuda_ms(lambda: real_launch(
+        empty, 0, span, tuple(t.clone() for t in before)), 3)
     print(f"K2 region, masked, over {k2_span_shape} [{card}]: {sp_ms:.3f} ms"
-          f" (CUDA events); plain check started")
+          f"; with the ring in global memory {g_ms:.3f} ms, equal; an empty "
+          f"plan (the floor: barrier, cell state, halo) {barrier_ms:.3f} ms, "
+          f"{barrier_ms / CH_SPAN_DIAGS * 1e3:.3f} us per diagonal (CUDA "
+          f"events); plain check started")
     for s_ in whole:
         del s_["ki"]
     del ki_m, ring, before
@@ -2398,7 +2480,8 @@ def main() -> int:
           f"(bits, live; column best, live, xband) and on the protein2genome"
           f" -E run's other K1/K4 launches, K1 at calm x64, the "
           f"est2genome_genomic comparison, the est2genome -E run's widest "
-          f"masked K1 and first masked K4, the locus pool's sampled pairs"
+          f"masked scan and first masked path DP (on the cluster), the "
+          f"locus pool's sampled pairs"
           f" and K2's forced batches (scores, ends, starts; cube, "
           f"walk-back), {time.perf_counter() - check_t0:.1f} s after they "
           f"started, {time.perf_counter() - wait_t0:.1f} s of it waited for; "
@@ -2539,7 +2622,7 @@ def main() -> int:
     # processes)
     _, k9_err, k9_plain_s, _ = e_pending.get()
     report["K9"] = (k9_err, e_ms, k9_plain_s * 1e3, k9_work)
-    _, k3_err, k3_plain_s, _ = we_pending["K1"].get()
+    _, k3_err, k3_plain_s, _ = we_pending["K3"].get()
     report["K3"] = (k3_err, k3_ms, k3_plain_s * 1e3, k3_work)
     # K2's plain time: the ragged forced batch on one host core
     report["K2"] = (k2_err, sp_ms, span_s["K2"] * 1e3, k2_work)
@@ -2634,16 +2717,19 @@ def main() -> int:
          f"-E yes run's scan, {e_shape}; plain ms on one host core)", "K9",
          "K9",
          src + "wavefront.cu", "exonerate_tpu/model/phase.py:305"),
-        (f"K3 SubOpt mask: the MASKED instantiation of K1 (region, the "
-         f"est2genome -E yes run's widest masked scan, {k3_shape}; plain ms "
-         f"on one host core)", "K3", "K3", src + "wavefront.cu",
-         pw + ":1129"),
+        (f"K3 SubOpt mask: the MASKED instantiation of the cluster kernel "
+         f"(K2, region, the ring in shared memory; the est2genome -E yes "
+         f"run's widest masked scan, {k3_shape}; plain ms on one host core;"
+         f" on K1, its route until now, {k3_k1_ms:.3f} ms)", "K3", "K3",
+         src + "wavefront.cu", pw + ":1129"),
         (f"K2 wavefront_stream_scan: the cluster instantiation of K1 "
          f"(region, masked, {k2_span_shape}, continuing the rings of "
          f"diagonals 0-{CH_SPAN_AT}; plain ms on one host core; max err "
          f"also over the forced batches, K1 at the whole scan's shape and "
          f"the checkpointed traceback's end segment; a whole-target scan: "
-         f"{k2_ms:.3f} ms)", "K2", "K2", src + "wavefront.cu",
+         f"{k2_ms:.3f} ms; the span with the ring in global memory "
+         f"{g_ms:.3f} ms; with an empty plan, the cluster barrier's floor, "
+         f"{barrier_ms:.3f} ms)", "K2", "K2", src + "wavefront.cu",
          pw + ":438"),
         (f"K5 find_batched_sharded: K1 per device shard (region, "
          f"{k5_shape}; plain ms on one host core; the whole generation "

@@ -9,7 +9,10 @@ kernels, each behind a wrapper with a launch counter:
   replaces the streamed build (``stream=True``, ``:438``): the same
   function, each pair run by a thread-block cluster of several CTAs, for
   the batches the JAX package streams (``stream_bytes`` over
-  ``STREAM_VMEM_BYTES``, the rule of ``find_batched``, ``:1437-1445``);
+  ``STREAM_VMEM_BYTES``, the rule of ``find_batched``, ``:1437-1445``)
+  and the masked batches whose clusters all fit the card at once
+  (``on_cluster``); its carry ring lives in shared memory where it fits
+  (``ring_in_smem``), else in global memory;
 - K4 ``wavefront_path`` (the same source, mode path) replaces its path
   mode (``:1147``), which writes each state's winning plan id per cell;
 - ``walkback`` (``csrc/walkback.cu``) replaces ``_build_walkback:1550``.
@@ -46,8 +49,12 @@ K1/K2/K4, which bars the plan's match rows (``F_MATCH``) at blocked
 cells.
 ``find_batched`` and ``find_path_batched`` take ``subopt`` as one mask
 or a per-job list, like the JAX package's; masked and mask-free jobs
-fall into different buckets.  ``K3.launches`` counts the K1/K2/K4
-launches that carry a mask plane.
+fall into different buckets.  A masked chunk runs on the cluster kernel
+(score/region, and path mode over all its diagonals) when its B clusters
+are all resident on the card at once (``cluster_capacity``), else on
+K1/K4.  ``K3.launches`` counts the K1/K2/K4 launches that carry a mask
+plane; ``RING_SMEM`` and ``RING_GLOBAL`` count the cluster kernel's
+launches by where their carry ring lives.
 
 The model is not compiled into the kernels: ``to_kernel_inputs``
 flattens ``_build_plan(model)`` into an int32 plan table and the
@@ -121,9 +128,15 @@ K9 = _LaunchCount()
 K3 = _LaunchCount()
 
 # kernel K2 (the streamed wavefront): launches of the cluster kernel in
-# score and region modes (whole scans and the checkpointed traceback's
-# forward segments)
+# score and region modes (whole scans, masked batches and the
+# checkpointed traceback's forward segments)
 K2 = _LaunchCount()
+
+# the cluster kernel's launches (every mode) by the home of their carry
+# ring: shared memory (``ring_in_smem``), or global memory where the ring
+# is over the shared memory of a CTA
+RING_SMEM = _LaunchCount()
+RING_GLOBAL = _LaunchCount()
 
 # above this many bytes of reversed target vectors per call the JAX
 # package streams them from HBM (``pallas_wavefront.STREAM_VMEM_BYTES``);
@@ -277,12 +290,55 @@ def unsupported_reason(model: Model, kinds: tuple = ()) -> Optional[str]:
     return None
 
 
-def smem_bytes(S: int, L: int, n_plan: int, mode: str) -> int:
-    """Shared memory of one K1/K4 block (``launch`` in csrc/wavefront.cu):
-    the plan table, the storage map and S scores, S*L lanes (and S plan
-    ids in path mode) per thread."""
+def smem_bytes(S: int, L: int, n_plan: int, mode: str,
+               threads: int = THREADS) -> int:
+    """Shared memory of one K1/K4 block (``smem_bytes`` in
+    csrc/wavefront.cu): the plan table, the storage map and S scores, S*L
+    lanes (and S plan ids in path mode) per thread."""
     cell_vars = max(S + S * L + (S if mode == "path" else 0), 5)
-    return 4 * (n_plan * PLAN_COLS + S + S * max(L, 1) + cell_vars * THREADS)
+    return 4 * (n_plan * PLAN_COLS + S + S * max(L, 1) + cell_vars * threads)
+
+
+def ring_smem_bytes(R: int, NR: int, NL: int, rows_per_thread: int,
+                    masked: bool, threads: int = THREADS) -> int:
+    """The cluster kernel's shared carry ring beyond ``smem_bytes``
+    (``ring_smem_bytes`` in csrc/wavefront.cu): R slots of the NR + NL
+    ring rows over a CTA's ``rows_per_thread * threads`` rows and the R - 1
+    halo rows below them, each row's mask byte (an int32) when
+    ``masked``, and the cell variable of each ring row."""
+    rb = rows_per_thread * threads
+    return 4 * (R * (NR + NL) * (rb + R - 1) + (rb if masked else 0)
+                + NR + NL)
+
+
+def _ring_fits(S: int, L: int, n_plan: int, mode: str, R: int, NR: int,
+               NL: int, rows: int, threads: int, cluster: int) -> bool:
+    """``ring_in_smem`` on the numbers of a launch: with C CTAs per pair
+    (``cluster``, or 0 for the kernel's rule, which gives each thread as
+    many rows as MAX_CLUSTER CTAs would: ceil(rows / (C * threads))) a
+    CTA's cell state and ring, its mask bytes included, fit its shared
+    memory."""
+    k = max(-(-rows // ((cluster or MAX_CLUSTER) * threads)), 1)
+    return (smem_bytes(S, L, n_plan, mode, threads)
+            + ring_smem_bytes(R, NR, NL, k, True, threads)) <= SMEM_BYTES
+
+
+def ring_in_smem(model: Model, mode: str, rows: int,
+                 threads: int = THREADS, cluster: int = 0) -> bool:
+    """Where the cluster kernel keeps a batch's carry ring: in shared
+    memory (True; each CTA its rows' ring, the neighbour's rows read
+    through distributed shared memory) when it fits beside the cell
+    state, else in global memory.  ``rows`` is the batch's widest
+    diagonal (its largest qlen + 1), ``cluster`` the CTAs per pair asked
+    of the launcher (0: its rule).  A capacity route, chosen per launch:
+    est2genome fits in every mode at Qp 2304; protein2genome and
+    coding2genome in region mode do not."""
+    ring_states, lane_slots, _ = _storage(model, mode)
+    L = model.total_shadow_designations + (2 if mode == "region" else 0)
+    return _ring_fits(len(model.states), L, len(_plan_transitions(model)),
+                      mode, _max_advance(model) + 1,
+                      max(len(ring_states), 1), max(len(lane_slots), 1),
+                      rows, threads, cluster)
 
 
 # ---------------------------------------------------------------------------
@@ -534,6 +590,24 @@ def streams(kinds: tuple, B: int, Qp: int, Tp: int) -> bool:
     return stream_bytes(kinds, B, Qp, Tp) > STREAM_VMEM_BYTES
 
 
+def masked_on_cluster(B: int, resident: int) -> bool:
+    """A masked chunk of ``B`` pairs runs on the cluster kernel when its B
+    clusters are all resident on the card at once (``resident`` of them
+    fit, ``cluster_capacity``): each pair then has C SMs, where K1/K4
+    give it one."""
+    return 0 < B <= resident
+
+
+def on_cluster(kinds: tuple, B: int, Qp: int, Tp: int,
+               resident: int) -> bool:
+    """Whether ``find_batched`` runs a chunk on the cluster kernel (K2):
+    the JAX package's streaming test, or a masked chunk whose clusters
+    all fit the card (``masked_on_cluster``).  A mask-free chunk follows
+    ``streams`` alone."""
+    return streams(kinds, B, Qp, Tp) or (
+        _masked(kinds) and masked_on_cluster(B, resident))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -612,18 +686,66 @@ def _rows(ki: KernelInputs) -> int:
     return (ki.qmax if ki.qmax else int(ki.dims[:, 2].max())) + 1
 
 
+def _smem_ring(ki: KernelInputs, cluster: int = 0) -> bool:
+    """``ring_in_smem`` for the batch of ``ki`` at ``cluster`` CTAs per
+    pair (0: the kernel's rule)."""
+    return _ring_fits(ki.S, ki.L, ki.plan.shape[0], ki.mode, ki.K + 1,
+                      max(ki.NR, 1), max(ki.NL, 1), _rows(ki), THREADS,
+                      cluster)
+
+
+_capacity: dict = {}
+_capacity_lock = threading.Lock()
+
+
+def cluster_capacity(ki: KernelInputs) -> tuple:
+    """(C, resident): the cluster size the cluster kernel takes for the
+    batch of ``ki`` by its rule, and how many clusters of that size are
+    resident on the card at once (``cudaOccupancyMaxActiveClusters`` at
+    the launch's shared memory; cached per instantiation and shape).  On
+    the CPU no cluster is resident: (the rule's C at MAX_CLUSTER, 0)."""
+    dev = ki.dims.device
+    rows = _rows(ki)
+    if dev.type != "cuda":
+        return min(max(-(-rows // THREADS), 1), MAX_CLUSTER), 0
+    mode = {"score": 0, "region": 1, "path": 2}[ki.mode]
+    key = (dev.index, mode, int(ki.split), int(ki.masked),
+           int(_smem_ring(ki)), ki.plan.shape[0], ki.S, ki.L,
+           max(ki.NR, 1), max(ki.NL, 1), ki.K + 1, rows)
+    with _capacity_lock:
+        hit = _capacity.get(key)
+    if hit is not None:
+        return hit
+    fn = _lib("wavefront", "wavefront_stream_capacity",
+              [_I] * 12 + [ctypes.POINTER(_I)] * 2)
+    used, resident = _I(0), _I(0)
+    with torch.cuda.device(dev):
+        rc = fn(*key[1:], 0, ctypes.byref(used), ctypes.byref(resident))
+    if rc != 0:
+        raise RuntimeError(f"cluster kernel ({ki.mode}): no cluster size "
+                           f"launches: CUDA error {rc}")
+    with _capacity_lock:
+        _capacity[key] = (used.value, resident.value)
+    return used.value, resident.value
+
+
 def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
             ring=None):
     """Launch csrc/wavefront.cu on the current stream of the tensors'
     card: K1/K4 (``wavefront_launch``), or the cluster kernel
     (``wavefront_stream_launch``) when ``cluster`` is given, with that
     many CTAs per pair (0: the kernel's rule), over the diagonals ``span``
-    = (d0, d1) continuing the carry rings ``ring`` when given.  Returns
-    (out (5, B) int32, tb or None, CTAs per pair)."""
+    = (d0, d1) continuing the carry rings ``ring`` when given (and leaving
+    its last diagonals in them), the ring in shared memory where it fits
+    (``ring_in_smem``).  Returns (out (5, B) int32, tb or None, CTAs per
+    pair)."""
     dev = ki.dims.device
     B, W, D, R = ki.batch, ki.Qp + 1, ki.Qp + ki.Tp + 1, ki.K + 1
     d0, d1 = span if span is not None else (0, D)
     out = torch.empty((5, B), dtype=torch.int32, device=dev)
+    # a launch given rings loads its carry from them and leaves its last
+    # diagonals in them (the shared ring's bits 1, 2 of ring_io)
+    ring_io = 0 if ring is None else 3
     if ring is None:
         ring = (torch.empty((B, R, max(ki.NR, 1), W), dtype=torch.int32,
                             device=dev),
@@ -654,9 +776,9 @@ def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
             rc = fn(*head, *tail, stream)
         else:
             fn = _lib("wavefront", "wavefront_stream_launch",
-                      args + [_I] * 4 + [ctypes.POINTER(_I), _P])
-            rc = fn(*head, *tail, cluster, _rows(ki), d0,
-                    d1 if span is not None else 2**31 - 1,
+                      args + [_I] * 6 + [ctypes.POINTER(_I), _P])
+            rc = fn(*head, *tail, cluster, _rows(ki), d0, d1,
+                    int(_smem_ring(ki, cluster)), ring_io,
                     ctypes.byref(used), stream)
     if rc != 0:
         kernel = "cluster" if cluster is not None else "wavefront"
@@ -698,9 +820,16 @@ def wavefront_stream_scan(ki: KernelInputs) -> torch.Tensor:
         return wf.plain_wavefront(ki)[0]
     out, _, _ = _launch(ki, 0)
     count(K2)
+    _count_cluster(ki)
+    return out
+
+
+def _count_cluster(ki: KernelInputs) -> None:
+    """The counters of a cluster kernel launch beside its mode's: its ring
+    route, K9 and K3."""
+    count(RING_SMEM if _smem_ring(ki) else RING_GLOBAL)
     count(K9, ki.split)
     count(K3, ki.masked)
-    return out
 
 
 def wavefront_segment(ki: KernelInputs, ring: tuple, span: tuple):
@@ -729,28 +858,29 @@ def wavefront_segment(ki: KernelInputs, ring: tuple, span: tuple):
     if ki.dims.device.type == "cpu":
         return wf.plain_wavefront(ki, span, ring)
     out, tb, _ = _launch(ki, 0, span, ring)
-    if ki.mode == "path":
-        count(wavefront_path)
-    else:
-        count(K2)
-    count(K9, ki.split)
-    count(K3, ki.masked)
+    count(wavefront_path if ki.mode == "path" else K2)
+    _count_cluster(ki)
     return out, tb
 
 
-def wavefront_path(ki: KernelInputs):
-    """K4: the wavefront in path mode.  Returns (out, tb): out as for
-    wavefront_scan (starts 0), tb the (B, Qp+Tp+1, S, Qp+1) uint8 cube
-    of winning plan ids (row + 1; 0 = unset)."""
+def wavefront_path(ki: KernelInputs, cluster: bool = False):
+    """K4: the wavefront in path mode, on the cluster kernel over all the
+    diagonals when ``cluster`` (a masked chunk whose clusters fit the
+    card).  Returns (out, tb): out as for wavefront_scan (starts 0), tb
+    the (B, Qp+Tp+1, S, Qp+1) uint8 cube of winning plan ids (row + 1; 0
+    = unset)."""
     if ki.mode != "path":
         raise ValueError(f"wavefront_path runs path mode, not {ki.mode}")
     _check_inputs(ki)
     if ki.dims.device.type == "cpu":
         return wf.plain_wavefront(ki)
-    out, tb, _ = _launch(ki)
+    out, tb, _ = _launch(ki, 0 if cluster else None)
     count(wavefront_path)
-    count(K9, ki.split)
-    count(K3, ki.masked)
+    if cluster:
+        _count_cluster(ki)
+    else:
+        count(K9, ki.split)
+        count(K3, ki.masked)
     return out, tb
 
 
@@ -866,9 +996,10 @@ def find_batched(model: Model, jobs: list, mode: str = "region",
                  devices: Optional[list] = None) -> list:
     """Score or region DP of (region, data) jobs, under ``subopt`` (one
     SubOpt mask or a per-job list) when given.  Each chunk of a bucket
-    runs on K2 when ``stream`` is True, on K1 when it is False, and by the
-    JAX package's streaming test (``streams``) when it is None; a bucket
-    the kernels refuse runs the generic wavefront in region mode.
+    runs on K2 when ``stream`` is True, on K1 when it is False, and by
+    ``on_cluster`` when it is None (the JAX package's streaming test, or a
+    masked chunk whose clusters all fit the card); a bucket the kernels
+    refuse runs the generic wavefront in region mode.
 
     With ``devices`` (kernel K5, ``find_batched_sharded``) a chunk holds up
     to ``max_batch * len(devices)`` pairs, padded to a device multiple
@@ -912,8 +1043,12 @@ def find_batched(model: Model, jobs: list, mode: str = "region",
                     scan = wavefront_scan
                     count(K5)
                 else:
-                    use_stream = (streams(kinds, len(chunk), Qp, Tp)
-                                  if stream is None else stream)
+                    use_stream = stream
+                    if use_stream is None:
+                        resident = (cluster_capacity(ki)[1]
+                                    if _masked(kinds) else 0)
+                        use_stream = on_cluster(kinds, len(chunk), Qp, Tp,
+                                                resident)
                     scan = (wavefront_stream_scan if use_stream
                             else wavefront_scan)
                 shards.append(scan(ki))
@@ -943,8 +1078,9 @@ def find_batched_sharded(model: Model, jobs: list, devices: list,
 def find_path_batched(model: Model, jobs: list, subopt=None,
                       device: Optional[torch.device] = None) -> list:
     """Full-path DP on K4 plus the walk-back, under ``subopt`` (one SubOpt
-    mask or a per-job list) when given; a bucket the kernels refuse runs
-    the generic wavefront's path DP.  Returns DPResults with ``.path``;
+    mask or a per-job list) when given, a masked chunk whose clusters all
+    fit the card on the cluster kernel (``masked_on_cluster``); a bucket
+    the kernels refuse runs the generic wavefront's path DP.  Returns DPResults with ``.path``;
     an entry is None when the job's traceback cube is over the budget or
     its path is longer than the walk cap (the caller then runs it on the
     host, or on the checkpointed traceback)."""
@@ -976,7 +1112,8 @@ def find_path_batched(model: Model, jobs: list, subopt=None,
             chunk = items[lo:lo + cap_b]
             ki = to_kernel_inputs(model, [inp for _, inp in chunk], kinds,
                                   dev, "path")
-            stats, tb = wavefront_path(ki)
+            stats, tb = wavefront_path(ki, cluster=_masked(kinds) and (
+                masked_on_cluster(ki.batch, cluster_capacity(ki)[1])))
             ops, res = walkback(tb, stats, ki.walk, ki.end_id, wcap)
             del tb
             stats, ops, res = (stats.cpu().numpy(), ops.cpu().numpy(),

@@ -499,6 +499,58 @@ def test_k2_equals_plain_and_k1_at_every_cluster_size(masked, monkeypatch):
 
 
 @pytest.mark.gpu
+def test_masked_chunks_run_on_the_cluster(monkeypatch):
+    """A masked B=1 est2genome chunk, whose cluster fits the card, runs
+    on the cluster kernel with its ring in shared memory, in region mode
+    (K2) and in path mode over all its diagonals (K4 on a cluster), and
+    equals K1 and K4; a masked protein2genome split pair in region mode
+    runs there with its ring in global memory.  Every launch is counted
+    by its route."""
+    from exonerate_tpu_torch.engine.optimal import _to_alignment
+    dev = _need_card()
+    model = est2genome_create()
+    calm = _calm()
+    data = AlignData(calm, calm)
+    region = Region(0, 0, 600, 900)
+    sub = SubOpt()
+    path = cw.find_path_batched(model, [(region, data)], device=dev)[0]
+    sub.add_alignment(_to_alignment(model, region, path))
+    counters = (cw.wavefront_scan, cw.K2, cw.K3, cw.wavefront_path,
+                cw.RING_SMEM, cw.RING_GLOBAL)
+
+    def counts():
+        return [c.launches for c in counters]
+
+    n = counts()
+    got = cw.find_batched(model, [(region, data)], device=dev, subopt=sub)
+    p_got = cw.find_path_batched(model, [(region, data)], subopt=sub,
+                                 device=dev)
+    assert [a - b for a, b in zip(counts(), n)] == [0, 1, 2, 1, 2, 0]
+    assert got == cw.find_batched(model, [(region, data)], device=dev,
+                                  subopt=sub, stream=False)
+    real = cw.cluster_capacity
+    monkeypatch.setattr(cw, "cluster_capacity", lambda ki: (real(ki)[0], 0))
+    n = counts()
+    want = cw.find_path_batched(model, [(region, data)], subopt=sub,
+                                device=dev)
+    assert [a - b for a, b in zip(counts(), n)] == [0, 0, 1, 1, 0, 0]
+    assert [(r.score, r.query_start, r.target_start, r.query_end,
+             r.target_end, r.path) for r in p_got] == [
+        (r.score, r.query_start, r.target_start, r.query_end,
+         r.target_end, r.path) for r in want]
+    monkeypatch.setattr(cw, "cluster_capacity", real)
+    p2g, whole, p_data = _split_job("PROTEIN2GENOME")
+    p_sub = SubOpt()
+    p_sub.add_alignment(_to_alignment(p2g, whole, cw.find_path_batched(
+        p2g, [(whole, p_data)], device=dev)[0]))
+    n = counts()
+    got = cw.find_batched(p2g, [(whole, p_data)], device=dev, subopt=p_sub)
+    assert [a - b for a, b in zip(counts(), n)] == [0, 1, 1, 0, 0, 1]
+    assert got == cw.find_batched(p2g, [(whole, p_data)], device=dev,
+                                  subopt=p_sub, stream=False)
+
+
+@pytest.mark.gpu
 def test_k2_largest_cluster_admitted(monkeypatch):
     """A pair whose diagonals are wider than MAX_CLUSTER x THREADS cells
     runs on the largest cluster the card admits (16, or the portable 8),
