@@ -98,11 +98,15 @@ second of the script at which it starts:
       walk-back, held to the plain version in two more worker processes.
    b. The pooled locus heuristic (EXONERATE_TPU_HEURISTIC=locus) on
       phase 4's 16 cDNAs x 1 Mb genome with --bestn 10: at least one
-      masked generation, K3 launched, 16/16 queries spliced, its time
-      beside phase 4's SDP route.  The first masked region batch and its
-      path batch are launched again on a sub-batch of their two widest
-      pairs, held to the full batch's results for those pairs and, in two
-      more worker processes, to the plain versions.
+      masked generation, K3 launched, K2 launched with its ring in shared
+      memory (the masked batches whose clusters fit the card), 16/16
+      queries spliced, its time beside phase 4's SDP route.  The first
+      masked region batch, the first masked region batch of two or more
+      pairs on the cluster kernel, and the first masked path batch are
+      launched again, each on the route its launch took on the main path
+      (the cluster kernel or K1/K4), whole and on a sub-batch of their two
+      widest pairs, held to the full batch's results for those pairs and,
+      in two more worker processes, to the plain versions.
    c. K5, the sharded locus prescan: 6b's first-generation region batch
       through cuda_wavefront.find_batched_sharded over [cuda:0, cuda:0]
       (the distinct cards where there are two or more), equal to that
@@ -121,7 +125,7 @@ second of the script at which it starts:
    runs in phase 5c's worker process).  Times with CUDA events.
 8. K4 + walk-back vs plain and vs the native dense DP, calm 2175^2 path
    (K4's plain version in a worker process, the walk-back's on the card).
-9. Chromosome-scale -E yes (kernel K2, the cluster instantiation of K1):
+9. Chromosome-scale -E yes (kernel K2, the cluster kernel ring_kernel):
    a. K2 through find_batched(stream=True) on forced batches: a ragged
       est2genome B=3 at Qp 2304 (C = 9), a Qp 256 pair (C = 1), a Qp 768
       pair of 601 rows (a part-filled last CTA), the protein2genome split
@@ -821,14 +825,14 @@ WAVE_CLOCKS = {
 @contextlib.contextmanager
 def _global_ring(cw):
     """While active, the cluster kernel keeps every ring in global memory
-    (``cuda_wavefront.ring_in_smem`` answers no): the cluster body as it
-    was before the shared ring, for a comparison on the same card."""
-    real = cw._smem_ring
-    cw._smem_ring = lambda ki, cluster=0: False
+    (``cuda_wavefront.ring_in_smem`` answers no): ring_kernel's SMEM_RING
+    flag false, for a comparison on the same card."""
+    real = cw.ring_in_smem
+    cw.ring_in_smem = lambda ki, cluster=0: False
     try:
         yield
     finally:
-        cw._smem_ring = real
+        cw.ring_in_smem = real
 
 
 def _k2_mb(kis: list) -> list:
@@ -1642,7 +1646,7 @@ def main() -> int:
     print(f"K2 region with K3, the -E run's widest masked scan ({k3_shape}, "
           f"C={cw.cluster_capacity(we_main)[0]}, {cw.cluster_capacity(we_main)[1]} "
           f"clusters resident, the ring in shared memory "
-          f"{cw._smem_ring(we_main)}) [{card}]: kernel {k3_ms:.3f} ms, the "
+          f"{cw.ring_in_smem(we_main)}) [{card}]: kernel {k3_ms:.3f} ms, the "
           f"same pair mask-free {free_ms:.3f} ms; on K1 (one CTA) "
           f"{k3_k1_ms:.3f} ms, equal (CUDA events); its plain check and the "
           f"first masked path DP's on the cluster (Qp {we_path.Qp} x Tp "
@@ -1655,10 +1659,18 @@ def main() -> int:
     # comparison is full after the first generation
     lo_kis, lo_gens, lo_gen0 = [], [], []
     real_fb = cw.find_batched
+    lo_real_launch = cw._launch
+    # each launch's route on the main path (by its KernelInputs): the
+    # cluster kernel, or K1/K4
+    lo_route = {}
 
     def capture_lo(*args, **kwargs):
         lo_kis.append(real_tki(*args, **kwargs))
         return lo_kis[-1]
+
+    def route_lo(ki, cluster=None, span=None, ring=None):
+        lo_route[id(ki)] = cluster is not None
+        return lo_real_launch(ki, cluster, span, ring)
 
     def count_gen(model_, jobs_, mode="region", device=None, subopt=None,
                   **kwargs):
@@ -1680,13 +1692,18 @@ def main() -> int:
     try:
         cw.to_kernel_inputs = capture_lo
         cw.find_batched = count_gen
+        cw._launch = route_lo
         with _timed(cw, WAVE_CLOCKS, lo_time):
             out_lo, secs_lo = run_cli(argv_lo)
     finally:
         os.environ.pop("EXONERATE_TPU_HEURISTIC")
         cw.to_kernel_inputs = real_tki
         cw.find_batched = real_fb
-    lo_launches = read_counts("locus pool", ("K1", "K4", "walkback", "K3"))
+        cw._launch = lo_real_launch
+    # the masked generations' batches whose clusters fit the card run on
+    # the cluster kernel, their rings in shared memory
+    lo_launches = read_counts("locus pool", ("K1", "K4", "walkback", "K3",
+                                             "K2", "ring smem"))
     lo_eng = dict(observe.engine_counts)
     spliced_lo = {v[1] for v in (ln.split() for ln in out_lo.splitlines()
                                  if ln.startswith("vulgar:"))
@@ -1708,24 +1725,31 @@ def main() -> int:
     if len(spliced_lo) != SCAN_QUERIES:
         raise RuntimeError(f"locus pool: {len(spliced_lo)}/{SCAN_QUERIES} "
                            f"queries with a spliced alignment")
-    # the first masked region batch and its path batch, again on a
-    # sub-batch of their two widest pairs: equal to the full batch's
-    # results for those pairs, and to the plain versions (worker processes)
+    # the first masked region batch and the path batch after it, again on
+    # a sub-batch of their two widest pairs, each on the route its launch
+    # took on the main path: equal to the full batch's results for those
+    # pairs, and to the plain versions (worker processes)
     lo_reg = next(n for n, k in enumerate(lo_kis)
                   if k.masked and k.mode == "region")
     lo_path = next((n for n, k in enumerate(lo_kis)
                     if n > lo_reg and k.masked and k.mode == "path"),
                    next(n for n, k in enumerate(lo_kis)
                         if n > lo_reg and k.mode == "path"))
+    # and the first masked region batch of two or more pairs that ran on
+    # the cluster kernel (each pair reads its own mask plane there)
+    lo_cl = [n for n, k in enumerate(lo_kis) if k.masked
+             and k.mode == "region" and lo_route[id(k)]]
+    lo_cl = next((n for n in lo_cl if lo_kis[n].batch > 1), lo_cl[0])
     lo_pool = _pool(2)
     pools.append(lo_pool)
     lo_checked = []
-    for n in (lo_reg, lo_path):
+    for n in sorted({lo_reg, lo_cl, lo_path}):
         ki = lo_kis[n]
+        on_cl = lo_route[id(ki)]
         idx = _widest(ki)
-        whole = _wave_outputs(cw, ki)
+        whole = _wave_outputs(cw, ki, on_cl)
         sub = _sub_batch(ki, idx)
-        outs = _wave_outputs(cw, sub)
+        outs = _wave_outputs(cw, sub, on_cl)
         ix = torch.tensor(idx, device=dev)
         same = torch.equal(outs["out"], whole["out"][:, ix])
         if ki.mode == "path":
@@ -1740,14 +1764,16 @@ def main() -> int:
                                f"{idx} differ from the full batch's")
         path = _save_wave(os.path.join(tmp_dir, f"locus_{n}.pt"), sub, outs)
         del outs
-        pending.append((f"locus pool launch {n} ({ki.mode}, masked "
-                        f"{ki.masked}, Qp {ki.Qp} x Tp {ki.Tp}, pairs {idx} "
-                        f"of B={ki.batch})", idx,
+        route = "cluster" if on_cl else "K1/K4"
+        pending.append((f"locus pool launch {n} ({ki.mode} on {route}, "
+                        f"masked {ki.masked}, Qp {ki.Qp} x Tp {ki.Tp}, "
+                        f"pairs {idx} of B={ki.batch})", idx,
                         lo_pool.apply_async(_plain_wave_check, (path,))))
-        lo_checked.append((n, ki.mode, ki.batch, ki.Qp, ki.Tp, idx))
-    del lo_kis
-    print(f"  locus pool: launches {lo_checked} (launch, mode, B, Qp, Tp, "
-          f"pairs) equal the full batch's results; plain checks started")
+        lo_checked.append((n, ki.mode, route, ki.batch, ki.Qp, ki.Tp, idx))
+    del lo_kis, lo_route
+    print(f"  locus pool: launches {lo_checked} (launch, mode, route, B, "
+          f"Qp, Tp, pairs) equal the full batch's results on the route of "
+          f"the main path; plain checks started")
 
     # c. K5, the sharded locus prescan: 6b's first generation through
     # find_batched_sharded over [cuda:0, cuda:0] (or the distinct cards),
@@ -2019,7 +2045,7 @@ def main() -> int:
         path = _save_wave(os.path.join(tmp_dir, f"k2_{len(k2_checks)}.pt"),
                           ki, {"out": out})
         res = k2_pool.apply_async(_plain_wave_check, (path,))
-        ring = "shared" if cw._smem_ring(ki) else "global"
+        ring = "shared" if cw.ring_in_smem(ki) else "global"
         name = (f"K2 forced {label} (C={last_c['C']}, ring in {ring} "
                 f"memory, masked {ki.masked}, split {ki.split}, Qp {ki.Qp} x "
                 f"Tp {ki.Tp} x{ki.batch})")
@@ -2306,9 +2332,9 @@ def main() -> int:
     k2_span_shape = (f"the first masked whole-target scan, Qp {ki_m.Qp} x Tp"
                      f" {ki_m.Tp} x1, diagonals {span[0]}-{span[1]}, C="
                      f"{sp_c}, the ring in shared memory "
-                     f"{cw._smem_ring(ki_m)}")
+                     f"{cw.ring_in_smem(ki_m)}")
     # the same span from the same rings with the ring in global memory
-    # (the cluster body before the shared ring), and with an empty plan:
+    # (ring_kernel's SMEM_RING flag false), and with an empty plan:
     # the cluster barrier, the cells' state and ring writes and the halo
     # copy alone, the per-diagonal floor of the shared-ring body
     with _global_ring(cw):
@@ -2722,8 +2748,8 @@ def main() -> int:
          f"run's widest masked scan, {k3_shape}; plain ms on one host core;"
          f" on K1, its route until now, {k3_k1_ms:.3f} ms)", "K3", "K3",
          src + "wavefront.cu", pw + ":1129"),
-        (f"K2 wavefront_stream_scan: the cluster instantiation of K1 "
-         f"(region, masked, {k2_span_shape}, continuing the rings of "
+        (f"K2 wavefront_stream_scan: the cluster kernel, K1's cells on a "
+         f"thread-block cluster (region, masked, {k2_span_shape}, continuing the rings of "
          f"diagonals 0-{CH_SPAN_AT}; plain ms on one host core; max err "
          f"also over the forced batches, K1 at the whole scan's shape and "
          f"the checkpointed traceback's end segment; a whole-target scan: "

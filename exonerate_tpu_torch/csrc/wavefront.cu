@@ -72,19 +72,17 @@
 // global memory, so what a chromosome-scale pair at B=1 lacks is SMs, not
 // memory: one CTA walks ~1.2 M diagonals of ~9 cells per thread.  K2 runs
 // each pair on a cluster of C CTAs, one row per thread at Qp 2304, with a
-// cluster barrier per diagonal.  Where the pair's carry ring fits shared
+// cluster barrier per diagonal: ring_kernel.  Its rows stay with their
+// threads for the whole launch.  Where the pair's carry ring fits shared
 // memory beside the cell state (cuda_wavefront.ring_in_smem: est2genome
-// in every mode, protein2genome in score and path modes) it is
-// ring_kernel: each CTA keeps its own rows' ring in shared memory, the
-// rows stay with their threads for the whole launch, and the K rows
-// below a CTA's first come from its neighbour through distributed shared
-// memory, once per diagonal.  Elsewhere it is the CLUSTER instantiation of
-// wavefront_kernel, its ring in global memory (K1, K4 and that body are
-// one template, so their plan semantics cannot drift apart; ring_kernel
-// repeats the cell body with the shared ring, held to the same plain
-// version).
+// in every mode, protein2genome in score and path modes) each CTA keeps
+// its own rows' ring in shared memory, and the K rows below a CTA's
+// first come from its neighbour through distributed shared memory, once
+// per diagonal; elsewhere (its SMEM_RING flag false) the ring is in
+// global memory, as in K1.  ring_kernel repeats wavefront_kernel's cell
+// body, and both are held to the same plain version.
 //
-// What bounds ring_kernel: no longer the ring's L2 round trips but one
+// What bounds ring_kernel with the shared ring: no longer the ring's L2 round trips but one
 // cell's chain of dependent work per thread per diagonal, with 8 warps on
 // each of the C SMs to hide it: the plan's interpretation (shared-memory
 // loads and branches per plan row; est2genome has 24 rows), the calcs'
@@ -98,7 +96,7 @@
 // The checkpointed traceback (find_path_checkpointed,
 // exonerate_tpu/engine/wavefront.py:700: an XLA route over diagonal
 // segments, the reference's --dpmemory bound) also runs on the cluster
-// instantiation: a launch may run a span [d_begin, d_end) of the
+// kernel: a launch may run a span [d_begin, d_end) of the
 // diagonals, continuing the carry ring that the launch before it left,
 // and in path mode it writes only that span's traceback planes (K4 on a
 // cluster).  A pair whose cube does not fit the card (a path across a
@@ -205,14 +203,15 @@ struct Params {
     int nq, nt, ntab, nsc;
     int n_plan, B, Qp, Tp, S, L, NR, NL, R, n_shadow;
     int start_id, end_id, start_scope, end_scope;
-    // CLUSTER only: the diagonals [d_begin, d_end) of this launch, which
+    // ring_kernel only: the diagonals [d_begin, d_end) of this launch, which
     // continues the carry ring a launch over [0, d_begin) left (a segment
     // of the checkpointed traceback); tb then holds d_end - d_begin
     // diagonals, diagonal d at d - d_begin
     int d_begin, d_end;
-    // SMEM_RING only: rows per thread (a CTA owns k * THREADS rows), and
-    // whether the launch loads its first diagonal's carry from (ring,
-    // lring) (RING_LOAD) and stores its last diagonals' back (RING_STORE)
+    // ring_kernel only: rows per thread (a CTA owns k * THREADS rows), and
+    // with SMEM_RING whether the launch loads its first diagonal's carry
+    // from (ring, lring) (RING_LOAD) and stores its last diagonals' back
+    // (RING_STORE)
     int k, ring_io;
 };
 
@@ -293,34 +292,6 @@ __device__ __forceinline__ int32_t split_codon(
     return aa < 25 ? qv[(row[P_C0] + aa) * W + i] : 0;
 }
 
-// K2's pieces, compiled away in K1/K4 (CLUSTER false): the cluster's
-// size and this CTA's rank in it (1 and 0 without a cluster), the
-// per-diagonal barrier, and a load of the carry ring, which K2 reads
-// past L1 as the other CTAs of its cluster write it
-template <bool CLUSTER>
-__device__ __forceinline__ int cluster_size() {
-    if constexpr (CLUSTER) return (int)cg::this_cluster().num_blocks();
-    else return 1;
-}
-
-template <bool CLUSTER>
-__device__ __forceinline__ int cluster_rank() {
-    if constexpr (CLUSTER) return (int)cg::this_cluster().block_rank();
-    else return 0;
-}
-
-template <bool CLUSTER>
-__device__ __forceinline__ void diagonal_barrier() {
-    if constexpr (CLUSTER) cg::this_cluster().sync();
-    else __syncthreads();
-}
-
-template <bool CLUSTER>
-__device__ __forceinline__ int32_t ld_ring(const int32_t* ptr) {
-    if constexpr (CLUSTER) return __ldcg(ptr);
-    else return *ptr;
-}
-
 // FULL: the plan may hold kernel K9's pieces (a C_SPLIT row or a start
 // lane read from a tvec) and up to MAX_L lanes per state.  The lean
 // instantiation (!FULL) serves the other plans, up to LEAN_L lanes, with
@@ -329,35 +300,21 @@ __device__ __forceinline__ int32_t ld_ring(const int32_t* ptr) {
 // carries a SubOpt mask plane (K3); the mask-free launches keep the code
 // they had.
 //
-// CLUSTER: kernel K2, the streamed wavefront, with its carry ring in
-// global memory (where a ring is over a CTA's shared memory:
-// protein2genome and coding2genome in region mode; ring_kernel below
-// keeps it in shared memory) (score and region modes; path mode runs the
-// checkpointed traceback's segments, over the span [p.d_begin, p.d_end)
-// of the diagonals, and masked path DPs over all of them):
-// the same cells, each pair run by a thread-block cluster of C CTAs so
-// that one long pair (B=1 against a chromosome-scale target) spans C
-// SMs.  Grid B x C, cluster (C, 1, 1): rank r owns the diagonal's cells
-// at i = lo + r*THREADS + tid + k*C*THREADS.  The ring and the target
-// vectors stay in global memory, as in K1 (that is the HBM part of the
-// TPU's K2; its per-diagonal VMEM window has no counterpart here), and
-// one cluster barrier per diagonal (arrive.release / wait.acquire)
-// orders every CTA's ring writes of diagonal d before any CTA's reads
-// at d+1.  The end cell: each CTA reduces its threads as K1 does, then
-// rank 0 reads the C block results through distributed shared memory
-// and reduces them in rank order with the same lexicographic key, and a
-// last cluster barrier keeps the CTAs resident until it has.  K1, K4
-// and K2 are instantiations of this one kernel, so their plan semantics
-// cannot drift apart; without CLUSTER the K2 pieces compile away and K1
-// and K4 keep their code.
-template <int MODE, bool FULL, bool MASKED, bool CLUSTER>
+// Kernels K1 (score and region modes) and K4 (path mode): one CTA per
+// pair, the carry ring in global memory, a block barrier per diagonal.
+// The cluster kernel (ring_kernel below) runs the same cells and plan
+// semantics on a cluster of CTAs; both are held to the same plain
+// version.
+template <int MODE, bool FULL, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 wavefront_kernel(const Params p) {
     extern __shared__ __align__(16) int32_t smem[];
     const int tid = threadIdx.x;
-    const int C = cluster_size<CLUSTER>();
-    const int rank = cluster_rank<CLUSTER>();
-    const int b = blockIdx.x / C;
+    // the end-cell test is written as the cluster kernel's (rank 0
+    // writes): without it ptxas orders two register initialisations
+    // otherwise (tools/torch_wavefront_sass.py holds K1/K4's SASS)
+    const int rank = 0;
+    const int b = blockIdx.x;
     const int S = p.S, L = p.L;
     int32_t* s_plan = smem;
     int32_t* s_ring_row = s_plan + p.n_plan * PLAN_COLS;
@@ -393,14 +350,11 @@ wavefront_kernel(const Params p) {
     int32_t best_qs = 0, best_ts = 0;
 
     const int n_diag = qlen + tlen + 1;
-    const int d_first = CLUSTER ? p.d_begin : 0;
-    const int d_stop = CLUSTER && p.d_end < n_diag ? p.d_end : n_diag;
-    for (int d = d_first; d < d_stop; ++d) {
+    for (int d = 0; d < n_diag; ++d) {
         const int lo = d - tlen > 0 ? d - tlen : 0;
         const int hi = d < qlen ? d : qlen;
         const int slot = d % R;
-        for (int i = lo + rank * THREADS + tid; i <= hi;
-             i += C * THREADS) {
+        for (int i = lo + tid; i <= hi; i += THREADS) {
             const int j = d - i;
             const bool blk = MASKED
                 && ((blk_rows[(size_t)i * TB + (j >> 3)] >> (7 - (j & 7)))
@@ -428,9 +382,8 @@ wavefront_kernel(const Params p) {
                 } else {
                     base = adv == 0
                         ? CV(in)
-                        : ld_ring<CLUSTER>(
-                        ring + ((size_t)src_slot * NR + s_ring_row[in]) * W
-                        + si);
+                        : ring[((size_t)src_slot * NR + s_ring_row[in]) * W
+                               + si];
                     if (base <= NEG) continue;
                 }
                 if ((flags & F_TO_END)
@@ -441,8 +394,7 @@ wavefront_kernel(const Params p) {
                     if (adv == 0) return CV(V_LN + in * L + l);
                     const int lr = s_lane_row[in * L + l];
                     return lr < 0 ? 0
-                        : ld_ring<CLUSTER>(
-                            lring + ((size_t)src_slot * NL + lr) * W + si);
+                        : lring[((size_t)src_slot * NL + lr) * W + si];
                 };
                 int32_t calc = 0;
                 switch (row[P_CALC]) {
@@ -513,10 +465,7 @@ wavefront_kernel(const Params p) {
                         lring[((size_t)slot * NL + lr) * W + i] =
                             CV(V_LN + s * L + l);
                 }
-                if constexpr (MODE == MODE_PATH && CLUSTER)
-                    p.tb[(((size_t)b * (p.d_end - p.d_begin) + (d - d_first))
-                          * S + s) * W + i] = (uint8_t)CV(V_TB + s);
-                else if constexpr (MODE == MODE_PATH)
+                if constexpr (MODE == MODE_PATH)
                     p.tb[(((size_t)b * (p.Qp + p.Tp + 1) + d) * S + s) * W
                          + i] = (uint8_t)CV(V_TB + s);
             }
@@ -531,7 +480,7 @@ wavefront_kernel(const Params p) {
                 }
             }
         }
-        diagonal_barrier<CLUSTER>();
+        __syncthreads();
     }
 #undef CV
 
@@ -560,24 +509,6 @@ wavefront_kernel(const Params p) {
         }
         __syncthreads();
     }
-    if constexpr (CLUSTER) {
-        cg::cluster_group cluster = cg::this_cluster();
-        cluster.sync();     // every CTA's block result is in its smem
-        if (rank == 0 && tid == 0) {
-            for (int r = 1; r < C; ++r) {
-                const int32_t* o = cluster.map_shared_rank(r_s, r);
-                const int32_t* o_j = o + THREADS;
-                const int32_t* o_i = o_j + THREADS;
-                if (better(o[0], o_j[0], o_i[0], r_s[0], r_j[0], r_i[0])) {
-                    r_s[0] = o[0];
-                    r_j[0] = o_j[0];
-                    r_i[0] = o_i[0];
-                    r_qs[0] = o_i[THREADS];
-                    r_ts[0] = o_i[2 * THREADS];
-                }
-            }
-        }
-    }
     if (rank == 0 && tid == 0) {
         const bool found = r_s[0] > NEG;
         p.out[0 * p.B + b] = found ? r_s[0] : NEG;
@@ -586,19 +517,23 @@ wavefront_kernel(const Params p) {
         p.out[3 * p.B + b] = found ? r_qs[0] : 0;
         p.out[4 * p.B + b] = found ? r_ts[0] : 0;
     }
-    // rank 0 has read every CTA's shared memory before any CTA exits
-    if constexpr (CLUSTER) cg::this_cluster().sync();
 }
 
 
-// Kernel K2 with the carry ring in shared memory (cuda_wavefront.
-// ring_in_smem): the cluster body of wavefront_kernel with the same cells
-// and plan semantics, redesigned for Hopper, so that K1 and K4 keep their
-// code.  Grid B x C, cluster (C, 1, 1).  Rows are stationary: rank r owns
-// the query rows [r*RB, (r+1)*RB), RB = k*THREADS, and thread tid the rows
+// Kernel K2, the cluster wavefront (score and region modes; path mode
+// is K4 on a cluster: the checkpointed traceback's segments, over the
+// span [p.d_begin, p.d_end) of the diagonals, and masked path DPs over
+// all of them): the cells and plan semantics of wavefront_kernel, each
+// pair run by a thread-block cluster of C CTAs so that one long pair
+// (B=1 against a chromosome-scale target) spans C SMs.  Grid B x C,
+// cluster (C, 1, 1).  Rows are stationary: rank r owns the query rows
+// [r*RB, (r+1)*RB), RB = k*THREADS, and thread tid the rows
 // r*RB + tid + m*THREADS, m < k, for the whole launch (a row is idle on a
-// diagonal outside [lo, hi]).  The CTA keeps R = K+1 slots (slot d % R) of
-// its rows' NR score and NL lane ring rows in shared memory, laid out
+// diagonal outside [lo, hi]).
+//
+// SMEM_RING (cuda_wavefront.ring_in_smem: where the ring fits beside the
+// cell state): the CTA keeps R = K+1 slots (slot d % R) of its rows' NR
+// score and NL lane ring rows in shared memory, laid out
 // [slot][ring row][H + local row] so that neighbouring threads hit
 // neighbouring banks, with H = K halo rows below its first row.  A source
 // row i - aq (aq <= K) is this CTA's, or one of the H rows below it,
@@ -606,7 +541,10 @@ wavefront_kernel(const Params p) {
 // rank r-1's top H rows of the diagonal before (of the K before, at a
 // launch's first diagonal) into the halo through distributed shared
 // memory (cluster.map_shared_rank), so every read in a cell is a load
-// from the CTA's own shared memory.
+// from the CTA's own shared memory.  Without SMEM_RING (protein2genome
+// and coding2genome in region mode, whose rings are over a CTA's shared
+// memory) the ring is the global (ring, lring) pair, read past L1 as the
+// other CTAs of the cluster write it.
 //
 // Why one cluster barrier per diagonal suffices: at diagonal d every CTA
 // writes only slot d % R of its own rows and reads slots (d - adv) % R
@@ -620,11 +558,15 @@ wavefront_kernel(const Params p) {
 // diagonal and stores the slots of its last R diagonals back after its
 // last (p.ring_io), so that the global ring's contract
 // (wavefront.plain_wavefront(ki, span, ring)) is unchanged; a whole scan
-// touches no global ring.  MASKED: a row's mask byte is kept in shared
+// touches no global ring.  (Without SMEM_RING a segment runs on the
+// global pair itself.)  MASKED: a row's mask byte is kept in shared
 // memory and reloaded once per 8 cells (j grows by one per diagonal along
 // a row), at j % 8 == 0 and at the row's first live diagonal of the
-// launch.  The end cell is reduced as in wavefront_kernel's cluster body.
-template <int MODE, bool FULL, bool MASKED>
+// launch.  The end cell: each CTA reduces its threads as K1 does, then
+// rank 0 reads the C block results through distributed shared memory and
+// reduces them in rank order with the same lexicographic key, and a last
+// cluster barrier keeps the CTAs resident until it has.
+template <int MODE, bool FULL, bool MASKED, bool SMEM_RING>
 __global__ void __launch_bounds__(THREADS)
 ring_kernel(const Params p) {
     extern __shared__ __align__(16) int32_t smem[];
@@ -682,7 +624,7 @@ ring_kernel(const Params p) {
     int cell_vars = S + S * L + (MODE == MODE_PATH ? S : 0);
     if (cell_vars < 5) cell_vars = 5;
     int32_t* s_ring = s_cell + cell_vars * THREADS;
-    int32_t* s_mask = s_ring + R * NRL * WB;
+    int32_t* s_mask = s_ring + (SMEM_RING ? R * NRL * WB : 0);
     // the cell variable each ring row stores (-1: a padding row)
     int32_t* s_wvar = s_mask + (MASKED ? RB : 0);
     for (int k = tid; k < NRL; k += THREADS) s_wvar[k] = -1;
@@ -700,10 +642,18 @@ ring_kernel(const Params p) {
     }
     __syncthreads();
     // rank - 1's ring (DSMEM)
-    const int32_t* nb_ring = rank > 0 ? cluster.map_shared_rank(s_ring,
-                                                                rank - 1)
-                                      : nullptr;
+    const int32_t* nb_ring = SMEM_RING && rank > 0
+        ? cluster.map_shared_rank(s_ring, rank - 1) : nullptr;
 #define SR(sl, rr, ii) s_ring[((sl) * NRL + (rr)) * WB + H + (ii) - row0]
+    // a source entry of the ring: score row rr, or lane row lr
+    auto ld_score = [&](int sl, int rr, int ii) -> int32_t {
+        if constexpr (SMEM_RING) return SR(sl, rr, ii);
+        else return __ldcg(ring + ((size_t)sl * NR + rr) * W + ii);
+    };
+    auto ld_lane = [&](int sl, int lr, int ii) -> int32_t {
+        if constexpr (SMEM_RING) return SR(sl, NR + lr, ii);
+        else return __ldcg(lring + ((size_t)sl * NL + lr) * W + ii);
+    };
     // this thread's first row at or after lo
     auto first_own = [&](int lo) -> int {
         const int r = row0 + tid;
@@ -736,7 +686,7 @@ ring_kernel(const Params p) {
         const int x = u * 32 + tid;
         h_off[u] = x < H * NRL ? x / H * WB + x % H : -1;
     }
-    if (p.ring_io & RING_LOAD)
+    if (SMEM_RING && (p.ring_io & RING_LOAD))
         for (int dd = d_first - H > 0 ? d_first - H : 0; dd < d_first; ++dd)
             ring_copy(dd, false);
     // every CTA has started (its shared memory may be read) and holds its
@@ -750,7 +700,7 @@ ring_kernel(const Params p) {
         // the halo: rank - 1's top H rows of the diagonal before (of the H
         // before, at the launch's first), copied by warp 0, whose threads
         // tid < H read it, each lane's HALO_LOADS loads in flight at once
-        if (rank > 0 && tid < 32) {
+        if (SMEM_RING && rank > 0 && tid < 32) {
             for (int dd = d == d_first ? (d > H ? d - H : 0) : d - 1; dd < d;
                  ++dd) {
                 const int base = dd % R * NRL * WB;
@@ -811,7 +761,7 @@ ring_kernel(const Params p) {
                     if (!start_ok(p.start_scope, si, sj)) continue;
                     base = 0;
                 } else {
-                    base = adv == 0 ? CV(in) : SR(src_slot, src_rr, si);
+                    base = adv == 0 ? CV(in) : ld_score(src_slot, src_rr, si);
                     if (base <= NEG) continue;
                 }
                 if ((flags & F_TO_END)
@@ -821,7 +771,7 @@ ring_kernel(const Params p) {
                     if (flags & F_FROM_START) return 0;
                     if (adv == 0) return CV(V_LN + in * L + l);
                     const int lr = s_lane_row[in * L + l];
-                    return lr < 0 ? 0 : SR(src_slot, NR + lr, si);
+                    return lr < 0 ? 0 : ld_lane(src_slot, lr, si);
                 };
                 int32_t calc = 0;
                 switch (f1.y) {                          // P_CALC
@@ -887,7 +837,11 @@ ring_kernel(const Params p) {
 #pragma unroll 4
             for (int k = 0; k < NRL; ++k) {
                 const int v = s_wvar[k];
-                if (v >= 0) SR(slot, k, i) = s_cell[v * THREADS + tid];
+                if (v < 0) continue;
+                const int32_t x = s_cell[v * THREADS + tid];
+                if constexpr (SMEM_RING) SR(slot, k, i) = x;
+                else if (k < NR) ring[((size_t)slot * NR + k) * W + i] = x;
+                else lring[((size_t)slot * NL + k - NR) * W + i] = x;
             }
             if constexpr (MODE == MODE_PATH)
                 for (int s = 0; s < S; ++s)
@@ -908,7 +862,7 @@ ring_kernel(const Params p) {
     }
     // the slots of the last R diagonals, for the segment after this one
     // (each thread stores the rows it wrote)
-    if (p.ring_io & RING_STORE)
+    if (SMEM_RING && (p.ring_io & RING_STORE))
         for (int dd = d_stop - R > d_first ? d_stop - R : d_first;
              dd < d_stop; ++dd)
             ring_copy(dd, true);
@@ -980,25 +934,26 @@ size_t smem_bytes(const Params& p) {
 }
 
 // ring_kernel's shared memory beyond smem_bytes
-// (cuda_wavefront.ring_smem_bytes): R slots of the NR + NL ring rows over
-// the CTA's rows_per_thread * THREADS rows and the R - 1 halo rows below
-// them, each row's mask byte (an int32) when masked, and the cell
-// variable of each ring row
-size_t ring_smem_bytes(const Params& p, int rows_per_thread, bool masked) {
+// (cuda_wavefront.ring_smem_bytes): with smem_ring, R slots of the NR + NL
+// ring rows over the CTA's rows_per_thread * THREADS rows and the R - 1
+// halo rows below them; each row's mask byte (an int32) when masked; and
+// the cell variable of each ring row
+size_t ring_smem_bytes(const Params& p, int rows_per_thread, bool masked,
+                       bool smem_ring) {
     const size_t rb = (size_t)rows_per_thread * THREADS;
     return sizeof(int32_t)
-        * ((size_t)p.R * (p.NR + p.NL) * (rb + p.R - 1) + (masked ? rb : 0)
-           + p.NR + p.NL);
+        * ((smem_ring ? (size_t)p.R * (p.NR + p.NL) * (rb + p.R - 1) : 0)
+           + (masked ? rb : 0) + p.NR + p.NL);
 }
 
 template <int MODE, bool FULL, bool MASKED>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
     const size_t smem = smem_bytes<MODE>(p);
     cudaError_t err = cudaFuncSetAttribute(
-        wavefront_kernel<MODE, FULL, MASKED, false>,
+        wavefront_kernel<MODE, FULL, MASKED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    wavefront_kernel<MODE, FULL, MASKED, false>
+    wavefront_kernel<MODE, FULL, MASKED>
         <<<p.B, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
@@ -1018,21 +973,15 @@ cudaError_t launch(const Params& p, bool full, bool masked,
 // diagonal of the batch (its largest qlen + 1) and Cmax the larger of
 // MAX_CLUSTER (a non-portable size) and PORTABLE_CLUSTER that
 // cudaOccupancyMaxActiveClusters admits at this launch's shared memory.
-// SMEM_RING sets p.k = ceil(rows / (C * THREADS)) rows per thread, and
-// its shared memory with it.  Fills cfg (grid, cluster, shared memory)
-// and *resident, the clusters of C CTAs that fit on the card at once.  A
+// It sets p.k = ceil(rows / (C * THREADS)) rows per thread, and the
+// shared memory with it.  Fills cfg (grid, cluster, shared memory) and
+// *resident, the clusters of C CTAs that fit on the card at once.  A
 // size that cannot launch is an error: there is no fallback.
-template <int MODE, bool FULL, bool MASKED, bool SMEM_RING>
-constexpr auto cluster_kernel() {
-    if constexpr (SMEM_RING) return ring_kernel<MODE, FULL, MASKED>;
-    else return wavefront_kernel<MODE, FULL, MASKED, true>;
-}
-
 template <int MODE, bool FULL, bool MASKED, bool SMEM_RING>
 cudaError_t stream_plan(Params& p, int cluster, int rows,
                         cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
                         int* resident) {
-    auto kern = cluster_kernel<MODE, FULL, MASKED, SMEM_RING>();
+    auto kern = ring_kernel<MODE, FULL, MASKED, SMEM_RING>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
@@ -1048,9 +997,9 @@ cudaError_t stream_plan(Params& p, int cluster, int rows,
     // clusters of size c that fit on the card at once (0: none fits),
     // leaving cfg and p.k set for c
     auto admitted = [&](int c) -> int {
-        p.k = SMEM_RING ? (rows + c * THREADS - 1) / (c * THREADS) : 0;
+        p.k = (rows + c * THREADS - 1) / (c * THREADS);
         const size_t smem = smem_bytes<MODE>(p)
-            + (SMEM_RING ? ring_smem_bytes(p, p.k, MASKED) : 0);
+            + ring_smem_bytes(p, p.k, MASKED, SMEM_RING);
         if (smem > MAX_SMEM
             || cudaFuncSetAttribute(
                    kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1093,13 +1042,13 @@ cudaError_t launch_stream(Params p, int cluster, int rows, int* used,
     cfg.stream = stream;
     *used = (int)attr[0].val.clusterDim.x;
     err = cudaLaunchKernelEx(
-        &cfg, cluster_kernel<MODE, FULL, MASKED, SMEM_RING>(), p);
+        &cfg, ring_kernel<MODE, FULL, MASKED, SMEM_RING>, p);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
 // f(mode, full, masked, smem_ring) with each as a compile-time constant:
-// the cluster body's 24 instantiations
+// ring_kernel's 24 instantiations
 template <typename F>
 cudaError_t with_cluster_body(int mode, bool full, bool masked,
                               bool smem_ring, F&& f) {
@@ -1197,7 +1146,7 @@ extern "C" int wavefront_stream_launch(
 // The cluster size K2 would launch for a batch of this model and width
 // (its rule, or the size asked for), written to *cluster_used, and how
 // many such clusters are resident on the card at once, to *resident:
-// cuda_wavefront routes a masked batch to the cluster body when all of
+// cuda_wavefront routes a masked batch to the cluster kernel when all of
 // its pairs' clusters are.
 extern "C" int wavefront_stream_capacity(
     int mode, int split, int masked, int smem_ring, int n_plan, int S,

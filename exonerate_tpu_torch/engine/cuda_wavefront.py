@@ -290,55 +290,25 @@ def unsupported_reason(model: Model, kinds: tuple = ()) -> Optional[str]:
     return None
 
 
-def smem_bytes(S: int, L: int, n_plan: int, mode: str,
-               threads: int = THREADS) -> int:
+def smem_bytes(S: int, L: int, n_plan: int, mode: str) -> int:
     """Shared memory of one K1/K4 block (``smem_bytes`` in
     csrc/wavefront.cu): the plan table, the storage map and S scores, S*L
     lanes (and S plan ids in path mode) per thread."""
     cell_vars = max(S + S * L + (S if mode == "path" else 0), 5)
-    return 4 * (n_plan * PLAN_COLS + S + S * max(L, 1) + cell_vars * threads)
+    return 4 * (n_plan * PLAN_COLS + S + S * max(L, 1) + cell_vars * THREADS)
 
 
 def ring_smem_bytes(R: int, NR: int, NL: int, rows_per_thread: int,
-                    masked: bool, threads: int = THREADS) -> int:
-    """The cluster kernel's shared carry ring beyond ``smem_bytes``
-    (``ring_smem_bytes`` in csrc/wavefront.cu): R slots of the NR + NL
-    ring rows over a CTA's ``rows_per_thread * threads`` rows and the R - 1
-    halo rows below them, each row's mask byte (an int32) when
-    ``masked``, and the cell variable of each ring row."""
-    rb = rows_per_thread * threads
-    return 4 * (R * (NR + NL) * (rb + R - 1) + (rb if masked else 0)
-                + NR + NL)
-
-
-def _ring_fits(S: int, L: int, n_plan: int, mode: str, R: int, NR: int,
-               NL: int, rows: int, threads: int, cluster: int) -> bool:
-    """``ring_in_smem`` on the numbers of a launch: with C CTAs per pair
-    (``cluster``, or 0 for the kernel's rule, which gives each thread as
-    many rows as MAX_CLUSTER CTAs would: ceil(rows / (C * threads))) a
-    CTA's cell state and ring, its mask bytes included, fit its shared
-    memory."""
-    k = max(-(-rows // ((cluster or MAX_CLUSTER) * threads)), 1)
-    return (smem_bytes(S, L, n_plan, mode, threads)
-            + ring_smem_bytes(R, NR, NL, k, True, threads)) <= SMEM_BYTES
-
-
-def ring_in_smem(model: Model, mode: str, rows: int,
-                 threads: int = THREADS, cluster: int = 0) -> bool:
-    """Where the cluster kernel keeps a batch's carry ring: in shared
-    memory (True; each CTA its rows' ring, the neighbour's rows read
-    through distributed shared memory) when it fits beside the cell
-    state, else in global memory.  ``rows`` is the batch's widest
-    diagonal (its largest qlen + 1), ``cluster`` the CTAs per pair asked
-    of the launcher (0: its rule).  A capacity route, chosen per launch:
-    est2genome fits in every mode at Qp 2304; protein2genome and
-    coding2genome in region mode do not."""
-    ring_states, lane_slots, _ = _storage(model, mode)
-    L = model.total_shadow_designations + (2 if mode == "region" else 0)
-    return _ring_fits(len(model.states), L, len(_plan_transitions(model)),
-                      mode, _max_advance(model) + 1,
-                      max(len(ring_states), 1), max(len(lane_slots), 1),
-                      rows, threads, cluster)
+                    masked: bool, smem_ring: bool) -> int:
+    """The cluster kernel's shared memory beyond ``smem_bytes``
+    (``ring_smem_bytes`` in csrc/wavefront.cu): with ``smem_ring``, R
+    slots of the NR + NL ring rows over a CTA's ``rows_per_thread *
+    THREADS`` rows and the R - 1 halo rows below them; each row's mask
+    byte (an int32) when ``masked``; and the cell variable of each ring
+    row."""
+    rb = rows_per_thread * THREADS
+    return 4 * ((R * (NR + NL) * (rb + R - 1) if smem_ring else 0)
+                + (rb if masked else 0) + NR + NL)
 
 
 # ---------------------------------------------------------------------------
@@ -686,32 +656,22 @@ def _rows(ki: KernelInputs) -> int:
     return (ki.qmax if ki.qmax else int(ki.dims[:, 2].max())) + 1
 
 
-def _smem_ring(ki: KernelInputs, cluster: int = 0) -> bool:
-    """``ring_in_smem`` for the batch of ``ki`` at ``cluster`` CTAs per
-    pair (0: the kernel's rule)."""
-    return _ring_fits(ki.S, ki.L, ki.plan.shape[0], ki.mode, ki.K + 1,
-                      max(ki.NR, 1), max(ki.NL, 1), _rows(ki), THREADS,
-                      cluster)
-
-
 _capacity: dict = {}
 _capacity_lock = threading.Lock()
 
 
-def cluster_capacity(ki: KernelInputs) -> tuple:
-    """(C, resident): the cluster size the cluster kernel takes for the
-    batch of ``ki`` by its rule, and how many clusters of that size are
-    resident on the card at once (``cudaOccupancyMaxActiveClusters`` at
-    the launch's shared memory; cached per instantiation and shape).  On
-    the CPU no cluster is resident: (the rule's C at MAX_CLUSTER, 0)."""
+def _stream_capacity(ki: KernelInputs, smem_ring: bool,
+                     cluster: int) -> tuple:
+    """(C, resident) from the cluster kernel's launcher: the cluster size
+    it takes for the batch of ``ki`` (``cluster``, or its rule for 0) and
+    how many clusters of that size are resident on the card at once
+    (``cudaOccupancyMaxActiveClusters`` at the launch's shared memory);
+    cached per instantiation and shape."""
     dev = ki.dims.device
-    rows = _rows(ki)
-    if dev.type != "cuda":
-        return min(max(-(-rows // THREADS), 1), MAX_CLUSTER), 0
-    mode = {"score": 0, "region": 1, "path": 2}[ki.mode]
-    key = (dev.index, mode, int(ki.split), int(ki.masked),
-           int(_smem_ring(ki)), ki.plan.shape[0], ki.S, ki.L,
-           max(ki.NR, 1), max(ki.NL, 1), ki.K + 1, rows)
+    key = (dev.index, {"score": 0, "region": 1, "path": 2}[ki.mode],
+           int(ki.split), int(ki.masked), int(smem_ring), ki.plan.shape[0],
+           ki.S, ki.L, max(ki.NR, 1), max(ki.NL, 1), ki.K + 1, _rows(ki),
+           cluster)
     with _capacity_lock:
         hit = _capacity.get(key)
     if hit is not None:
@@ -720,7 +680,7 @@ def cluster_capacity(ki: KernelInputs) -> tuple:
               [_I] * 12 + [ctypes.POINTER(_I)] * 2)
     used, resident = _I(0), _I(0)
     with torch.cuda.device(dev):
-        rc = fn(*key[1:], 0, ctypes.byref(used), ctypes.byref(resident))
+        rc = fn(*key[1:], ctypes.byref(used), ctypes.byref(resident))
     if rc != 0:
         raise RuntimeError(f"cluster kernel ({ki.mode}): no cluster size "
                            f"launches: CUDA error {rc}")
@@ -729,16 +689,54 @@ def cluster_capacity(ki: KernelInputs) -> tuple:
     return used.value, resident.value
 
 
+def cluster_size(ki: KernelInputs) -> int:
+    """The CTAs per pair that the cluster kernel runs the batch of ``ki``
+    on: min(ceil(rows / THREADS), the larger of MAX_CLUSTER and
+    PORTABLE_CLUSTER that the card admits), rows its widest diagonal (the
+    launcher's rule, asked of its global-ring instantiation; MAX_CLUSTER
+    on the CPU).  A launch passes this size to the launcher, so that the
+    ring route is chosen at the size it runs."""
+    if ki.dims.device.type != "cuda":
+        return min(max(-(-_rows(ki) // THREADS), 1), MAX_CLUSTER)
+    return _stream_capacity(ki, False, 0)[0]
+
+
+def ring_in_smem(ki: KernelInputs, cluster: int = 0) -> bool:
+    """Where the cluster kernel keeps the carry ring of the batch of
+    ``ki`` at ``cluster`` CTAs per pair (0: ``cluster_size``): in shared
+    memory (True; each CTA its rows' ring, the neighbour's rows read
+    through distributed shared memory) when, at ceil(rows / (C *
+    THREADS)) rows per thread, a CTA's cell state and ring, its mask
+    bytes included, fit its shared memory; else in global memory.  A
+    capacity route, chosen per launch: est2genome fits in every mode at
+    Qp 2304; protein2genome and coding2genome in region mode do not."""
+    k = max(-(-_rows(ki) // ((cluster or cluster_size(ki)) * THREADS)), 1)
+    return (smem_bytes(ki.S, ki.L, ki.plan.shape[0], ki.mode)
+            + ring_smem_bytes(ki.K + 1, max(ki.NR, 1), max(ki.NL, 1), k,
+                              True, True)) <= SMEM_BYTES
+
+
+def cluster_capacity(ki: KernelInputs) -> tuple:
+    """(C, resident): ``cluster_size`` for the batch of ``ki``, and how
+    many clusters of that size are resident on the card at once on its
+    ring route (``ring_in_smem``).  On the CPU no cluster is resident:
+    (C, 0)."""
+    C = cluster_size(ki)
+    if ki.dims.device.type != "cuda":
+        return C, 0
+    return C, _stream_capacity(ki, ring_in_smem(ki, C), C)[1]
+
+
 def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
             ring=None):
     """Launch csrc/wavefront.cu on the current stream of the tensors'
     card: K1/K4 (``wavefront_launch``), or the cluster kernel
     (``wavefront_stream_launch``) when ``cluster`` is given, with that
-    many CTAs per pair (0: the kernel's rule), over the diagonals ``span``
+    many CTAs per pair (0: ``cluster_size``), over the diagonals ``span``
     = (d0, d1) continuing the carry rings ``ring`` when given (and leaving
     its last diagonals in them), the ring in shared memory where it fits
-    (``ring_in_smem``).  Returns (out (5, B) int32, tb or None, CTAs per
-    pair)."""
+    at that size (``ring_in_smem``).  Returns (out (5, B) int32, tb or
+    None, CTAs per pair)."""
     dev = ki.dims.device
     B, W, D, R = ki.batch, ki.Qp + 1, ki.Qp + ki.Tp + 1, ki.K + 1
     d0, d1 = span if span is not None else (0, D)
@@ -775,11 +773,12 @@ def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
             fn = _lib("wavefront", "wavefront_launch", args + [_P])
             rc = fn(*head, *tail, stream)
         else:
+            C = cluster or cluster_size(ki)
             fn = _lib("wavefront", "wavefront_stream_launch",
                       args + [_I] * 6 + [ctypes.POINTER(_I), _P])
-            rc = fn(*head, *tail, cluster, _rows(ki), d0, d1,
-                    int(_smem_ring(ki, cluster)), ring_io,
-                    ctypes.byref(used), stream)
+            rc = fn(*head, *tail, C, _rows(ki), d0, d1,
+                    int(ring_in_smem(ki, C)), ring_io, ctypes.byref(used),
+                    stream)
     if rc != 0:
         kernel = "cluster" if cluster is not None else "wavefront"
         raise RuntimeError(f"{kernel} kernel ({ki.mode}) launch failed: "
@@ -827,7 +826,7 @@ def wavefront_stream_scan(ki: KernelInputs) -> torch.Tensor:
 def _count_cluster(ki: KernelInputs) -> None:
     """The counters of a cluster kernel launch beside its mode's: its ring
     route, K9 and K3."""
-    count(RING_SMEM if _smem_ring(ki) else RING_GLOBAL)
+    count(RING_SMEM if ring_in_smem(ki) else RING_GLOBAL)
     count(K9, ki.split)
     count(K3, ki.masked)
 

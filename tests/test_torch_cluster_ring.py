@@ -1,7 +1,7 @@
 """The cluster wavefront's ring route and the masked route to it (CPU).
 
-The cluster instantiation of ``csrc/wavefront.cu`` (kernel K2, and K4 on
-a cluster) keeps a batch's carry ring in shared memory where it fits
+The cluster kernel of ``csrc/wavefront.cu`` (kernel K2, and K4 on a
+cluster) keeps a batch's carry ring in shared memory where it fits
 beside the cell state (``cuda_wavefront.ring_in_smem``), else in global
 memory; a masked chunk (kernel K3) runs on the cluster when its B
 clusters are all resident on the card at once
@@ -19,6 +19,7 @@ run on the CPU:
 
 Scores, cells and byte counts are integers: the tolerance is 0.
 """
+import dataclasses
 import os
 import re
 import subprocess
@@ -34,7 +35,7 @@ from exonerate_tpu_torch.engine import optimal as topt
 from exonerate_tpu_torch.engine import wavefront as twf
 from exonerate_tpu_torch.engine.subopt import SubOpt
 from test_torch_subopt import JOBS
-from torch_twins import JAX, PORT, dp_key
+from torch_twins import JAX, PORT, dp_key, split_job
 
 CPU = torch.device("cpu")
 SRC = os.path.join(os.path.dirname(cw.__file__), os.pardir, "csrc",
@@ -52,6 +53,25 @@ def _model(name):
                           A.DNA)
 
 
+def _ki_at(name, mode, rows):
+    """KernelInputs of ``name`` in ``mode`` on the CPU (est2genome: calm's
+    first 60 x 80 cells; the split models: their small split pair), its
+    widest diagonal set to ``rows``: the fit rule reads the model's and
+    the mode's numbers, and the width."""
+    if name == "est2genome":
+        model = PORT.est2genome_create()
+        calm = next(iter(PORT.iter_fasta(ALL4)))
+        region, data = PORT.Region(0, 0, 60, 80), PORT.AlignData(calm, calm)
+    else:
+        model, region, data = split_job(PORT, name.upper())
+    pads = (twf._bucket(region.query_length),
+            twf._bucket(region.target_length))
+    inputs, kinds = twf.prepare_inputs(model, region, data, pad_to=pads,
+                                       for_pallas=True)
+    ki = cw.to_kernel_inputs(model, inputs, kinds, CPU, mode)
+    return dataclasses.replace(ki, qmax=rows - 1)
+
+
 @pytest.mark.parametrize("name,mode,fits", [
     ("est2genome", "score", True), ("est2genome", "region", True),
     ("est2genome", "path", True), ("protein2genome", "region", False),
@@ -60,31 +80,31 @@ def test_ring_fit_rule_at_calms_width(name, mode, fits):
     """est2genome keeps its ring in shared memory in every mode at calm's
     width; protein2genome and coding2genome region do not (their rings
     are over a CTA's shared memory) and take the global ring.  The rule
-    is the byte count, at one row per thread up to MAX_CLUSTER x THREADS
-    rows."""
-    model = _model(name)
-    assert cw.ring_in_smem(model, mode, CALM_ROWS) is fits
-    ring_states, lane_slots, _ = cw._storage(model, mode)
-    L = model.total_shadow_designations + (2 if mode == "region" else 0)
-    total = (cw.smem_bytes(len(model.states), L,
-                           len(cw._plan_transitions(model)), mode)
-             + cw.ring_smem_bytes(cw._max_advance(model) + 1,
-                                  max(len(ring_states), 1),
-                                  max(len(lane_slots), 1), 1, True))
+    is the byte count at the cluster size the launch runs (on the CPU
+    ceil(rows / THREADS) up to MAX_CLUSTER: one row per thread here),
+    asked through the function the launches call."""
+    ki = _ki_at(name, mode, CALM_ROWS)
+    assert cw.cluster_size(ki) == 9
+    assert cw.ring_in_smem(ki) is fits
+    total = (cw.smem_bytes(ki.S, ki.L, ki.plan.shape[0], mode)
+             + cw.ring_smem_bytes(ki.K + 1, max(ki.NR, 1), max(ki.NL, 1), 1,
+                                  True, True))
     assert (total <= cw.SMEM_BYTES) is fits
     # past 2 x MAX_CLUSTER x THREADS rows a thread owns three rows: the
     # ring triples, and est2genome's region ring no longer fits
-    wide = 2 * cw.MAX_CLUSTER * cw.THREADS + 1
+    wide = _ki_at(name, mode, 2 * cw.MAX_CLUSTER * cw.THREADS + 1)
+    assert cw.cluster_size(wide) == cw.MAX_CLUSTER
     if (name, mode) == ("est2genome", "region"):
-        assert not cw.ring_in_smem(model, mode, wide)
+        assert not cw.ring_in_smem(wide)
     if (name, mode) == ("est2genome", "score"):
-        assert cw.ring_in_smem(model, mode, wide)
-    # a cluster size asked of the launcher: C CTAs of ceil(rows / (C x
-    # THREADS)) rows per thread (est2genome region: two rows at C = 8 fit,
-    # five at C = 2 do not)
+        assert cw.ring_in_smem(wide)
+    # at a cluster size given to the launcher (a card that admits only
+    # PORTABLE_CLUSTER, or a size asked for): C CTAs of ceil(rows / (C x
+    # THREADS)) rows per thread (est2genome region: two rows at C = 8
+    # fit, five at C = 2 do not)
     if (name, mode) == ("est2genome", "region"):
-        assert cw.ring_in_smem(model, mode, CALM_ROWS, cluster=8)
-        assert not cw.ring_in_smem(model, mode, CALM_ROWS, cluster=2)
+        assert cw.ring_in_smem(ki, cw.PORTABLE_CLUSTER)
+        assert not cw.ring_in_smem(ki, 2)
 
 
 def _extract(src: str, head: str) -> str:
@@ -98,8 +118,8 @@ def _extract(src: str, head: str) -> str:
 def _compiled_formulas(tmp_path):
     """csrc/wavefront.cu's constants, Params, smem_bytes and
     ring_smem_bytes, compiled by the host's C++ compiler into a program
-    that reads ``mode S L n_plan R NR NL k masked`` lines and prints both
-    byte counts."""
+    that reads ``mode S L n_plan R NR NL k masked smem_ring`` lines and
+    prints both byte counts."""
     with open(SRC) as fh:
         src = fh.read()
     consts = "\n".join(re.findall(
@@ -112,16 +132,17 @@ def _compiled_formulas(tmp_path):
         "#include <cstdint>\n#include <cstddef>\n#include <cstdio>\n"
         f"{consts}\n{params}\n{smem}\n{ring}\n"
         "int main() {\n"
-        "  int mode, S, L, n, R, NR, NL, k, masked;\n"
-        "  while (scanf(\"%d %d %d %d %d %d %d %d %d\", &mode, &S, &L, &n,"
-        " &R, &NR, &NL, &k, &masked) == 9) {\n"
+        "  int mode, S, L, n, R, NR, NL, k, masked, smem_ring;\n"
+        "  while (scanf(\"%d %d %d %d %d %d %d %d %d %d\", &mode, &S, &L,"
+        " &n, &R, &NR, &NL, &k, &masked, &smem_ring) == 10) {\n"
         "    Params p{};\n"
         "    p.S = S; p.L = L; p.n_plan = n; p.R = R; p.NR = NR;"
         " p.NL = NL;\n"
         "    size_t a = mode == MODE_PATH ? smem_bytes<MODE_PATH>(p)\n"
         "        : mode == MODE_REGION ? smem_bytes<MODE_REGION>(p)\n"
         "        : smem_bytes<MODE_SCORE>(p);\n"
-        "    printf(\"%zu %zu\\n\", a, ring_smem_bytes(p, k, masked));\n"
+        "    printf(\"%zu %zu\\n\", a,"
+        " ring_smem_bytes(p, k, masked, smem_ring));\n"
         "  }\n}\n")
     exe = tmp_path / "smem"
     subprocess.run(["c++", "-std=c++17", "-O1", "-o", str(exe), str(prog)],
@@ -133,7 +154,8 @@ def test_smem_mirror_equals_the_kernels_formulas(tmp_path):
     """``cuda_wavefront.smem_bytes`` and ``ring_smem_bytes`` give the
     bytes that the kernel's launcher asks for: the .cu's own functions,
     compiled on the host, on every model and mode of the zoo at one and
-    two rows per thread, masked and mask-free, and on corner values."""
+    two rows per thread, masked and mask-free, the ring in shared and in
+    global memory, and on corner values."""
     exe = _compiled_formulas(tmp_path)
     modes = {"score": 0, "region": 1, "path": 2}
     cases = []
@@ -146,22 +168,26 @@ def test_smem_mirror_equals_the_kernels_formulas(tmp_path):
                 2 if mode == "region" else 0)
             for k in (1, 2):
                 for masked in (0, 1):
-                    cases.append((mode, len(model.states), L,
-                                  len(cw._plan_transitions(model)),
-                                  cw._max_advance(model) + 1,
-                                  max(len(ring_states), 1),
-                                  max(len(lane_slots), 1), k, masked))
-    cases += [("score", 1, 0, 0, 2, 1, 1, 1, 0),
-              ("path", 24, 6, 64, 7, 24, 60, 3, 1)]
+                    for smem_ring in (0, 1):
+                        cases.append((mode, len(model.states), L,
+                                      len(cw._plan_transitions(model)),
+                                      cw._max_advance(model) + 1,
+                                      max(len(ring_states), 1),
+                                      max(len(lane_slots), 1), k, masked,
+                                      smem_ring))
+    cases += [("score", 1, 0, 0, 2, 1, 1, 1, 0, 1),
+              ("path", 24, 6, 64, 7, 24, 60, 3, 1, 1),
+              ("region", 24, 6, 64, 7, 24, 60, 3, 1, 0)]
     lines = "".join(f"{modes[c[0]]} " + " ".join(map(str, c[1:])) + "\n"
                     for c in cases)
     got = subprocess.run([str(exe)], input=lines, capture_output=True,
                          text=True, check=True, timeout=60).stdout.split("\n")
-    assert len(cases) == 50
+    assert len(cases) == 99
     for case, line in zip(cases, got):
-        mode, S, L, n, R, NR, NL, k, masked = case
+        mode, S, L, n, R, NR, NL, k, masked, smem_ring = case
         want = (cw.smem_bytes(S, L, n, mode),
-                cw.ring_smem_bytes(R, NR, NL, k, bool(masked)))
+                cw.ring_smem_bytes(R, NR, NL, k, bool(masked),
+                                   bool(smem_ring)))
         assert tuple(map(int, line.split())) == want, case
 
 

@@ -503,7 +503,8 @@ def test_masked_chunks_run_on_the_cluster(monkeypatch):
     """A masked B=1 est2genome chunk, whose cluster fits the card, runs
     on the cluster kernel with its ring in shared memory, in region mode
     (K2) and in path mode over all its diagonals (K4 on a cluster), and
-    equals K1 and K4; a masked protein2genome split pair in region mode
+    equals K1 and K4, also with two pairs of one chunk under different
+    masks; a masked protein2genome split pair in region mode
     runs there with its ring in global memory.  Every launch is counted
     by its route."""
     from exonerate_tpu_torch.engine.optimal import _to_alignment
@@ -528,6 +529,18 @@ def test_masked_chunks_run_on_the_cluster(monkeypatch):
     assert [a - b for a, b in zip(counts(), n)] == [0, 1, 2, 1, 2, 0]
     assert got == cw.find_batched(model, [(region, data)], device=dev,
                                   subopt=sub, stream=False)
+    # two pairs of one chunk under different masks: each reads its own
+    # plane on the cluster, as on K1
+    other = SubOpt()
+    other.points.add((10, 12))
+    other.by_row[12] = {10}
+    two = [(region, data)] * 2
+    n = counts()
+    got = cw.find_batched(model, two, device=dev, subopt=[other, sub])
+    assert [a - b for a, b in zip(counts(), n)] == [0, 1, 1, 0, 1, 0]
+    assert got[1] != got[0]
+    assert got == cw.find_batched(model, two, device=dev,
+                                  subopt=[other, sub], stream=False)
     real = cw.cluster_capacity
     monkeypatch.setattr(cw, "cluster_capacity", lambda ki: (real(ki)[0], 0))
     n = counts()

@@ -19,7 +19,7 @@ parts of the work away (their scores differ; only the time is read):
   the ring writes and the halo copy alone;
 
 each with the ring in shared memory (``ring_kernel``) and in global
-memory (the CLUSTER instantiation of ``wavefront_kernel``), and the
+memory (``ring_kernel`` without SMEM_RING), and the
 same span of a 255-row pair (its cluster is one CTA), full and empty.
 Prints one JSON line per measurement (microseconds per diagonal) and
 the card's name and power limit, and writes the lines to ``--out`` when
@@ -58,12 +58,12 @@ SPAN = (302_000, 303_200)        # chip_smoke.py's CH_SPAN_AT, CH_SPAN_DIAGS
 def _ring(smem: bool):
     """The cluster kernel's ring route forced to shared (True) or global
     memory."""
-    real = cw._smem_ring
-    cw._smem_ring = lambda ki, cluster=0: smem and real(ki, cluster)
+    real = cw.ring_in_smem
+    cw.ring_in_smem = lambda ki, cluster=0: smem and real(ki, cluster)
     try:
         yield
     finally:
-        cw._smem_ring = real
+        cw.ring_in_smem = real
 
 
 def _best_ms(fn, reps: int = 3) -> float:

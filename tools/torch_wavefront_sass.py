@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Compares the SASS of K1/K4 (the single-CTA instantiations of
-``wavefront_kernel``, CLUSTER false) between two checkouts'
-``exonerate_tpu_torch/csrc/wavefront.cu``.
+``wavefront_kernel``) between two checkouts'
+``exonerate_tpu_torch/csrc/wavefront.cu``.  A checkout whose
+``wavefront_kernel`` has a fourth template parameter (CLUSTER: its
+cluster instantiations) is read at CLUSTER false.
 
     python3 tools/torch_wavefront_sass.py OLD_CHECKOUT NEW_CHECKOUT
 
@@ -26,8 +28,9 @@ sys.path.insert(0, ROOT)
 
 from exonerate_tpu_torch import _cudabuild  # noqa: E402
 
-# wavefront_kernel<MODE, FULL, MASKED, CLUSTER> in a mangled name
-KERNEL = re.compile(r"16wavefront_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)EE")
+# wavefront_kernel<MODE, FULL, MASKED> (or <..., CLUSTER>) in a mangled
+# name
+KERNEL = re.compile(r"16wavefront_kernelILi(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?E")
 INSTR = re.compile(r"\s*/\*[0-9a-f]{4}\*/\s*(.*?)\s*;")
 
 
@@ -48,7 +51,7 @@ def single_cta_sass(checkout: str, tmp: str) -> dict:
     for block in re.split(r"\n\s*Function : ", dump)[1:]:
         name, body = block.split("\n", 1)
         m = KERNEL.search(name)
-        if m and m.group(4) == "0":
+        if m and m.group(4) in (None, "0"):
             out[m.groups()[:3]] = INSTR.findall(body)
     return out
 
@@ -60,12 +63,20 @@ def main() -> int:
         new = single_cta_sass(new_dir, tmp)
     same = 0
     for key in sorted(old):
-        ok = old[key] == new.get(key)
+        a, b = old[key], new.get(key, [])
+        ok = a == b
         same += ok
         print(f"wavefront_kernel<mode {key[0]}, full {key[1]}, masked "
-              f"{key[2]}, CLUSTER 0>: {len(old[key])} / "
-              f"{len(new.get(key, []))} instructions, "
+              f"{key[2]}>: {len(a)} / {len(b)} instructions, "
               f"{'identical' if ok else 'DIFFERENT'}")
+        if not ok and b:
+            # where they part: the positions that differ, whether the
+            # same instructions were only reordered, and the first few
+            at = [n for n, (x, y) in enumerate(zip(a, b)) if x != y]
+            print(f"  {len(at)} positions differ; the same instructions "
+                  f"reordered: {sorted(a) == sorted(b)}")
+            for n in at[:4]:
+                print(f"  {n}: {a[n]!r} -> {b[n]!r}")
     print(json.dumps({"instantiations": len(old), "identical": same,
                       "new_has": len(new)}))
     return 0 if old and same == len(old) == len(new) else 1
