@@ -10,9 +10,11 @@ script then exits non-zero and prints no result line); each prints the
 second of the script at which it starts:
 
 1. Device: a CUDA card must be visible; prints its name and power limit.
-2. Build: compiles csrc/*.cu with nvcc into build/cuda/ (one nvcc per
-   source, all started together) and prints the build seconds and
-   ptxas' register/shared-memory lines.
+2. Build: compiles csrc/*.cu with nvcc into build/cuda/: K2's
+   ring_kernel, the walk-back and T1, and one library per compiled plan
+   of K1/K4 and of the band scan that the phases launch (one nvcc per
+   library, on the host's cores at once), and prints each build's
+   seconds and each kernel's registers, stack frame and spill bytes.
 3. K6/K7 vs plain: the band kernels against the plain PyTorch band scan,
    exactly (boundary bits, column best, live, xband, band_end per
    locus), on a ragged batch of synthetic est2genome pairs, a ner
@@ -900,6 +902,53 @@ def _zoo_jobs() -> list:
     return out
 
 
+def _plan_headers() -> list:
+    """The compiled plans the phases launch, from small CPU inputs of each
+    model and mode: K1/K4 on est2genome (calm), the zoo of phase 7 and
+    protein2genome (its split pair) in score, region and path modes, and
+    the band scan on phase 3's synthetic cases.  [(stem, label, header)],
+    each plan once; a plan first met later builds at its first launch."""
+    import torch_split_cases as sc
+    from exonerate_tpu_torch.engine import cuda_sdp as cs
+    from exonerate_tpu_torch.engine import cuda_wavefront as cw
+    from exonerate_tpu_torch.engine import wavefront as wf
+    from exonerate_tpu_torch.engine.region import Region
+    from exonerate_tpu_torch.model import registry
+    from exonerate_tpu_torch.model.data import AlignData
+    from exonerate_tpu_torch.model.est2genome import est2genome_create
+    from exonerate_tpu_torch.seqio import Sequence, iter_fasta
+    cpu = torch.device("cpu")
+    calm = next(iter(iter_fasta(os.path.join(DATA, "all4.fa"))))
+    q, t = sc.small_pair("protein", cuts=sc.CUTS)
+    p2g = registry.get_model(registry.ModelType.PROTEIN2GENOME,
+                             registry.AlphabetType.PROTEIN,
+                             registry.AlphabetType.DNA)
+    jobs = [(est2genome_create(), (Region(0, 0, 60, 80),
+                                   AlignData(calm, calm))),
+            (p2g, (Region(0, 0, len(q), len(t)),
+                   AlignData(Sequence("q", None, q), Sequence("t", None, t),
+                             False)))]
+    jobs += [(m, js[0]) for m, js in _zoo_jobs()]
+    out, seen = [], set()
+    for m, (region, data) in jobs:
+        pads = (wf._bucket(region.query_length),
+                wf._bucket(region.target_length))
+        inputs, kinds = wf.prepare_inputs(m, region, data, pad_to=pads,
+                                          for_pallas=True)
+        for mode in ("score", "region", "path"):
+            h = cw.to_kernel_inputs(m, inputs, kinds, cpu, mode).header
+            if h not in seen:
+                seen.add(h)
+                out.append(("wavefront", f"K1/K4 {m.name} {mode}", h))
+    for m, band_jobs in _synthetic_sdp_jobs():
+        h = cs.band_inputs(m, band_jobs, band_jobs[0][0].args.dropoff,
+                           cpu).header
+        if h not in seen:
+            seen.add(h)
+            out.append(("sdp_band", f"K6/K7/K8 {m.name}", h))
+    return out
+
+
 def _zoo_results(device) -> dict:
     """K1 (score, region) and K4 with the walk-back on ``device`` over the
     zoo: {model name: [(score, ends, starts, path's transition ids)]}."""
@@ -966,20 +1015,27 @@ def main() -> int:
         if sys.modules.get(mod) is not None:
             raise RuntimeError(f"the port imported {mod}")
 
-    # -- 2. build (one nvcc per source, all started together) -----------
+    # -- 2. build (one nvcc per library, on the host's cores at once) ----
+    # the sources without a plan (K2's ring_kernel, the walk-back, T1) and
+    # one library per compiled plan of K1/K4 and the band scan, each
+    # phase's plans built before its kernels start (a library loaded
+    # later waits for a running kernel)
     _mark(t_start, "2, build")
     from concurrent.futures import ThreadPoolExecutor
-    stems = ("wavefront", "walkback", "sdp_band", "vpu16")
-    with ThreadPoolExecutor(len(stems)) as ex:
-        list(ex.map(_cudabuild.load, stems))
-    for stem in stems:
-        built = _cudabuild.builds[stem]
-        print(f"build {stem}: {built.seconds:.2f} s -> "
+    libs = [(stem, stem, None) for stem in ("wavefront", "walkback",
+                                            "vpu16")]
+    libs += _plan_headers()
+    t_build = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 8) as ex:
+        list(ex.map(lambda lib: _cudabuild.load(lib[0], lib[2]), libs))
+    print(f"build: {len(libs)} libraries in "
+          f"{time.perf_counter() - t_build:.1f} s")
+    for stem, label, header in libs:
+        built = _cudabuild.builds[_cudabuild.name(stem, header)]
+        print(f"build {label}: {built.seconds:.2f} s -> "
               f"{os.path.relpath(built.path, ROOT)}")
-        for ln in built.log.splitlines():
-            if "registers" in ln or "smem" in ln or "spill" in ln \
-                    or "entry function" in ln:
-                print(f"  {ln.strip()}")
+        for ln in _cudabuild.ptxas_report(built.log):
+            print(f"  {ln}")
 
     calm = next(iter(iter_fasta(os.path.join(DATA, "all4.fa"))))
     calm.strand = "+"
@@ -1021,7 +1077,8 @@ def main() -> int:
                 "walkback": cw.walkback, "K6": cs.band_reverse,
                 "K7": cs.band_forward, "K9": cw.K9, "K3": cw.K3,
                 "K2": cw.K2, "K8": cs.K8, "K5": cw.K5,
-                "ring smem": cw.RING_SMEM, "ring global": cw.RING_GLOBAL}
+                "ring smem": cw.RING_SMEM, "ring global": cw.RING_GLOBAL,
+                "band smem": cs.BAND_SMEM, "band global": cs.BAND_GLOBAL}
     main_launches = dict.fromkeys(counters, 0)
 
     def zero_counts():
@@ -1208,7 +1265,7 @@ def main() -> int:
     scan_label = f"scan {SCAN_QUERIES} x {SCAN_LEN / 1e6:.0f} Mb est2genome"
     out_dev, scan_eng, batches, _ = scan(
         scan_label,
-        SCAN_ARGV + [qf, tf], "default routing", ("K6", "K7"))
+        SCAN_ARGV + [qf, tf], "default routing", ("K6", "K7", "band smem"))
     spliced = {v[1] for v in (ln.split() for ln in out_dev.splitlines()
                               if ln.startswith("vulgar:"))
                if "I" in v[10::3]}
@@ -1235,7 +1292,8 @@ def main() -> int:
           f" MB per comparison [{card}]: K6 {s_rev:.3f} ms, K7 "
           f"{s_fwd:.3f} ms (CUDA events); in the default-route run the "
           f"batch took {batch_secs:.2f} s host clock (host prep, copies, "
-          f"K6, K7)")
+          f"K6, K7); clusters (C, T, ring in shared memory): K6 "
+          f"{cs.last_fit[False]}, K7 {cs.last_fit[True]}")
     length = (bi.dims[:, 0] + bi.dims[:, 1]).tolist()
     order = sorted(range(bi.batch), key=lambda b: -length[b])
     tasks = [(fwd, c) for fwd, n in ((False, SCAN_REV_CHUNKS),
@@ -1273,7 +1331,7 @@ def main() -> int:
             raise RuntimeError(f"K8 ({n} chunks) != the single K6/K7 "
                                f"launch on the scan's widest comparison")
     k8_launches = read_counts("K8 on the scan's widest comparison",
-                              ("K8",))
+                              ("K8", "band smem"))
     chunks_x = cs.cross_chunks(smodel, pair_x, plan_x, drop_x,
                                K8_SPLITS[0], xdevs)
     chain_x = _k8_chain(cs, sd, chunks_x)
@@ -1305,7 +1363,9 @@ def main() -> int:
               K8_SPLITS) + f" (CUDA events), band_end, live and xband == "
           f"the single K6/K7 launch; launches {k8_launches}; the "
           f"{K8_SPLITS[0]}-chunk chain's {2 * K8_SPLITS[0]} launches again "
-          f"{k8_chain_ms:.3f} ms (CUDA events), plain checks started")
+          f"{k8_chain_ms:.3f} ms (CUDA events; clusters (C, T, ring in "
+          f"shared memory): reverse {cs.last_fit[False]}, forward "
+          f"{cs.last_fit[True]}), plain checks started")
 
     # c. --cores 2: phase 4's scan through the CLI's thread pool, each
     # comparison in a worker thread with a stream of its own, the device
@@ -1364,7 +1424,8 @@ def main() -> int:
         batch ``jobs_`` (``cuda_sdp.launch_batches``), timed by CUDA
         events; the comparisons ``check`` start their plain check in
         worker processes at the shape of their launch.  Returns (K6 ms,
-        K7 ms, each summed over the launches; (B, Qp, Wp) of each launch;
+        K7 ms, each summed over the launches; (B, Qp, Wp, K6's and K7's
+        cluster (C, T, ring in shared memory)) of each launch;
         the launches' summed (bytes, operations) for K6 and for K7)."""
         k6 = k7 = 0.0
         shapes, w6, w7 = [], [0, 0], [0, 0]
@@ -1375,7 +1436,8 @@ def main() -> int:
             (col, live_f, xb), t7 = _cuda_call(
                 lambda: cs.band_forward(bi, bits))
             k6, k7 = k6 + t6, k7 + t7
-            shapes.append((len(chunk), bi.Qp, bi.Wp))
+            shapes.append((len(chunk), bi.Qp, bi.Wp, cs.last_fit[False],
+                           cs.last_fit[True]))
             for w, work in ((w6, _band_work(bi, False)),
                             (w7, _band_work(bi, True))):
                 w[0], w[1] = w[0] + work[0], w[1] + work[1]
@@ -1422,7 +1484,8 @@ def main() -> int:
     c_rev, c_fwd, c_shapes, c2g_work = check_launches(
         "coding2genome", cmodel, cjobs, c_check)
     print(f"  coding2genome band batch: B={len(cjobs)}, W {min(c_ws)}-"
-          f"{max(c_ws)}, launches (B, Qp, Wp) {c_shapes} [{card}]: K6 "
+          f"{max(c_ws)}, launches (B, Qp, Wp, K6 / K7 (C, T, ring in "
+          f"shared memory)) {c_shapes} [{card}]: K6 "
           f"{c_rev:.3f} ms, K7 {c_fwd:.3f} ms (CUDA events); batch "
           f"{c_secs:.2f} s host clock; plain check of comparisons "
           f"{c_check} started")
@@ -1441,7 +1504,8 @@ def main() -> int:
     pk_rev, pk_fwd, p_shapes, p2g_work = check_launches(
         "protein2genome", pmodel, pjobs, p_check)
     print(f"  protein2genome band batch: B={len(pjobs)}, W {min(p_ws)}-"
-          f"{max(p_ws)}, launches (B, Qp, Wp) {p_shapes} [{card}]: K6 "
+          f"{max(p_ws)}, launches (B, Qp, Wp, K6 / K7 (C, T, ring in "
+          f"shared memory)) {p_shapes} [{card}]: K6 "
           f"{pk_rev:.3f} ms, K7 {pk_fwd:.3f} ms (CUDA events, summed); "
           f"batch {p_secs:.2f} s host clock; plain check of comparisons "
           f"{p_check} started")
@@ -1865,7 +1929,8 @@ def main() -> int:
         pending.append((k1_name, list(range(BATCH)), k1_res[mode]))
         print(f"{k1_name} [{card}]: kernel {ms:.3f} ms "
               f"({ms / BATCH:.4f} ms/pair, "
-              f"{cells * BATCH / ms / 1e6:.3f} GCUPS); plain check started")
+              f"{cells * BATCH / ms / 1e6:.3f} GCUPS, "
+              f"{cw.plan_threads(ki)} threads a CTA); plain check started")
         report[f"K1_{mode}"] = (0, ms, 0.0, _wave_work(ki, 5 * BATCH * 4))
     ragged = [(Region(0, 0, 100, 160), data), (Region(40, 10, 80, 150), data),
               (Region(10, 30, 120, 90), data)]
@@ -2800,6 +2865,27 @@ def main() -> int:
               f"({_bound(*rev)[1]}; kernel {k6:.3f} ms), K7 "
               f"{_bound(*fwd)[0]:.3f} ms ({_bound(*fwd)[1]}; kernel "
               f"{k7:.3f} ms)")
+    # the rows this PR redesigned beside PR 8's (PERF.md section 6, PR 8's
+    # R2 on an NVIDIA H100 80GB HBM3 at 700 W: another run, another card)
+    for row, now, pr8 in (
+            ("K1 region calm 2175^2 x64", report["K1_region"][1], 573.624),
+            ("K1 score calm 2175^2 x64", report["K1_score"][1], None),
+            ("K4 path calm 2175^2 x1", path_ms, 379.171),
+            ("K5 the widest shard", k5_ms, 808.831),
+            ("K9 inside K1, the p2g -E run's scan", e_ms, 459.396),
+            ("K6 / K7 est2genome scan B=16", (s_rev, s_fwd),
+             (1161.611, 2336.955)),
+            ("K6 / K7 coding2genome scan", (c_rev, c_fwd),
+             (1126.465, 3348.963)),
+            ("K6 / K7 protein2genome scan, forced", (pk_rev, pk_fwd),
+             (689.791, 1831.065)),
+            ("K8 the 2-chunk chain, 4 launches", k8_chain_ms, 3559.789)):
+        fmt = (" / ".join(f"{x:.3f}" for x in now)
+               if isinstance(now, tuple) else f"{now:.3f}")
+        old = ("not recorded" if pr8 is None else
+               " / ".join(map(str, pr8)) if isinstance(pr8, tuple)
+               else str(pr8))
+        print(f"redesigned row {row} [{card}]: {fmt} ms (PR 8: {old} ms)")
     print(f"main-path launches {main_launches}; script "
           f"{time.perf_counter() - t_start:.1f} s")
     print(_card_line())

@@ -2,18 +2,25 @@
 // region modes), K4 (path mode) and K2 (the streamed wavefront, score and
 // region modes), hand-written for Hopper (sm_90a).
 //
+// Two builds of this file.  Built with COMPILED_PLAN (one library per
+// model plan, _cudabuild.load(stem, header)), it is K1/K4 on the plan
+// compiled in: plan.h, generated by engine/plan_cuda.py, holds the plan
+// table below as constexpr data, and plan_kernel unrolls it (see there).
+// Built without, it is K2, ring_kernel, which still interprets the plan
+// table at run time.
+//
 // Replaces exonerate_tpu/engine/pallas_wavefront.py: the Pallas kernel
 // built by build_pallas_wavefront (:427; body `kernel` :593 and
 // `_one_diagonal` :722), in modes score/region, and its path mode
 // (:1147-1150), which also writes each state's winning plan id per cell.
 //
-// What it computes.  One CTA per pair.  The CTA loops over all
+// What it computes.  K1/K4: one CTA per pair.  The CTA loops over all
 // qlen+tlen+1 anti-diagonals d = i + j; its threads own the cells of a
 // diagonal at i = lo + tid + k*blockDim, and one __syncthreads() per
 // diagonal orders the writes of diagonal d before the reads of d+1.  Per
 // cell, the plan table (one int32 row per transition of _build_plan, in
-// model order; engine/wavefront.py defines the columns) is interpreted
-// row by row: source cell, calc, shadow check, clamps, then a strictly
+// model order; engine/wavefront.py defines the columns) is applied row
+// by row: source cell, calc, shadow check, clamps, then a strictly
 // greater replacement of the output state's value.  This is the calc
 // vocabulary of c4_viterbi (exonerate_tpu/sdplib.cpp:919) with the
 // guarded semantics of the Pallas body (:832-1040):
@@ -48,21 +55,19 @@
 // all fit the card at once runs on K2 (cuda_wavefront.on_cluster), so a
 // Waterman-Eggert re-run of one long pair spans C SMs, not one.
 //
-// What bounds it on the H100.  Not arithmetic: the carry ring.  A
-// (K+1)-diagonal ring of every state read across diagonals, plus the
-// live shadow/region lanes, is about 0.5 MB per 2175^2 pair, far over
-// the 227 KB of shared memory a block may hold, so it lives in global
-// memory and stays resident in the 50 MB L2 (B=64 is ~32 MB).  Every
-// cell reads its source rows from L2 and writes its own, and every
-// diagonal ends in a block-wide barrier, so the kernel is bound by L2
-// latency and the per-diagonal barrier.  The design keeps what it can
-// out of L2: the plan table and the storage map live in shared memory,
-// each thread's per-cell state (S scores, S*L lanes, S ids) lives in
-// shared memory in a [var][thread] layout free of bank conflicts, the
-// running best end cell lives in registers, only states that a later
-// diagonal reads get ring rows, and only live (state, lane) slots are
-// stored (_storage_plan).  64 CTAs fill 64 of the 132 SMs; speed is
-// later work.
+// What bounds K1/K4 on the H100.  Not arithmetic: the carry ring and
+// one cell's chain of dependent work.  A (K+1)-diagonal ring of every
+// state read across diagonals, plus the live shadow/region lanes, is
+// about 0.5 MB per 2175^2 pair, far over the 227 KB of shared memory a
+// block may hold, so it lives in global memory and stays resident in the
+// 50 MB L2 (B=64 is ~32 MB).  Every cell reads its source rows from L2
+// and writes its own, and every diagonal ends in a block-wide barrier.
+// With the plan compiled in, a cell's ring loads have constant offsets
+// and issue together, its state is registers, and no plan row is read or
+// decoded at run time; the threads per CTA follow the register budget
+// (plan_threads), only states that a later diagonal reads get ring rows,
+// and only live (state, lane) slots are stored (_storage_plan).  64 CTAs
+// fill 64 of the 132 SMs.
 //
 // Kernel K2, the streamed wavefront (build_pallas_wavefront(...,
 // stream=True), :438, window DMAs :607-640), runs the same cells on a
@@ -105,6 +110,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
+#ifdef COMPILED_PLAN
+#include <utility>
+
+#include "plan.h"   // struct WavePlan: the model's plan (plan_cuda.py)
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -292,56 +302,73 @@ __device__ __forceinline__ int32_t split_codon(
     return aa < 25 ? qv[(row[P_C0] + aa) * W + i] : 0;
 }
 
-// FULL: the plan may hold kernel K9's pieces (a C_SPLIT row or a start
-// lane read from a tvec) and up to MAX_L lanes per state.  The lean
-// instantiation (!FULL) serves the other plans, up to LEAN_L lanes, with
-// the split-codon body and the vector start decode compiled out, so that
-// the models served before K9 keep the code they had.  MASKED: the batch
-// carries a SubOpt mask plane (K3); the mask-free launches keep the code
-// they had.
-//
-// Kernels K1 (score and region modes) and K4 (path mode): one CTA per
-// pair, the carry ring in global memory, a block barrier per diagonal.
-// The cluster kernel (ring_kernel below) runs the same cells and plan
-// semantics on a cluster of CTAs; both are held to the same plain
-// version.
-template <int MODE, bool FULL, bool MASKED>
-__global__ void __launch_bounds__(THREADS)
-wavefront_kernel(const Params p) {
-    extern __shared__ __align__(16) int32_t smem[];
+#ifdef COMPILED_PLAN
+// Kernels K1 (score and region modes) and K4 (path mode) on the model's
+// plan compiled in (WavePlan, engine/plan_cuda.py): one CTA per pair, the
+// carry ring in global memory, a block barrier per diagonal.  Every loop
+// over plan rows, states and lanes is unrolled in plan order at compile
+// time, so each row's source state, output state, calc kind, ring row and
+// lane rows are constants: the cell's S scores, S*L lanes and S plan ids
+// are registers, the calc kind's switch and the ring and lane maps fold
+// away, and a ring source slot is (d - adv) % R with adv and R constants.
+// The row semantics are those of ring_kernel below (and of the plain
+// version): source, mask, scope, calc, intron window, clamps, strict >
+// replacement, start lanes.  MASKED: the batch carries a SubOpt mask
+// plane (K3).
+using IP = WavePlan;
+
+// a compile-time int: a loop index of `each`, usable as an array index
+// in device code (std::integral_constant's conversion is host-only)
+template <int V>
+struct IC {
+    static constexpr int value = V;
+    __host__ __device__ constexpr operator int() const { return V; }
+};
+
+// f(IC<B>), f(IC<B + 1>), ..., f(IC<E - 1>), in that order
+template <int B, typename F, int... I>
+__device__ __forceinline__ void each_from(F& f,
+                                          std::integer_sequence<int, I...>) {
+    (f(IC<B + I>{}), ...);
+}
+
+template <int B, int E, typename F>
+__device__ __forceinline__ void each(F&& f) {
+    each_from<B>(f, std::make_integer_sequence<int, (E > B ? E - B : 0)>{});
+}
+
+// Threads per CTA: as many as the register file (65,536 a SM) holds at
+// this plan's per-thread cell state, S scores, S*L lanes and in path mode
+// S plan ids, beside ~40 registers of addressing and loop state.  A pair
+// is one CTA, so more threads are fewer cells in series per thread on a
+// diagonal (ceil(rows / threads)).
+constexpr int plan_threads() {
+    return IP::S * (1 + IP::L) + (IP::MODE == MODE_PATH ? IP::S : 0) + 40
+                   <= 64 ? 1024
+        : IP::S * (1 + IP::L) + (IP::MODE == MODE_PATH ? IP::S : 0) + 40
+                   <= 128 ? 512
+        : 256;
+}
+static constexpr int PT = plan_threads();
+
+template <bool MASKED>
+__global__ void __launch_bounds__(PT) plan_kernel(const Params p) {
+    constexpr int MODE = IP::MODE, S = IP::S, L = IP::L;
+    constexpr int LL = L > 0 ? L : 1;
+    constexpr int NR = IP::NR, NL = IP::NL, R = IP::R;
+    constexpr int RS_Q = IP::N_SHADOW, RS_T = IP::N_SHADOW + 1;
+    __shared__ int32_t red[5 * PT];
     const int tid = threadIdx.x;
-    // the end-cell test is written as the cluster kernel's (rank 0
-    // writes): without it ptxas orders two register initialisations
-    // otherwise (tools/torch_wavefront_sass.py holds K1/K4's SASS)
-    const int rank = 0;
     const int b = blockIdx.x;
-    const int S = p.S, L = p.L;
-    int32_t* s_plan = smem;
-    int32_t* s_ring_row = s_plan + p.n_plan * PLAN_COLS;
-    int32_t* s_lane_row = s_ring_row + S;
-    int32_t* s_cell = s_lane_row + S * (L > 0 ? L : 1);
-    for (int k = tid; k < p.n_plan * PLAN_COLS; k += THREADS)
-        s_plan[k] = p.plan[k];
-    for (int k = tid; k < S; k += THREADS) s_ring_row[k] = p.ring_row[k];
-    for (int k = tid; k < S * (L > 0 ? L : 1); k += THREADS)
-        s_lane_row[k] = p.lane_row[k];
-    __syncthreads();
-
-    // per-thread cell state, variable v of this thread at s_cell[v*T+tid]
-    const int V_LN = S, V_TB = S + S * L;
-#define CV(v) s_cell[(v) * THREADS + tid]
-
     const int32_t qstart = p.dims[b * 4 + 0], tstart = p.dims[b * 4 + 1];
     const int32_t qlen = p.dims[b * 4 + 2], tlen = p.dims[b * 4 + 3];
-    const int W = p.Qp + 1, WT = p.Tp + 1, R = p.R;
-    const int NR = p.NR, NL = p.NL;
+    const int W = p.Qp + 1, WT = p.Tp + 1;
     const int32_t* qv = p.qvecs + (size_t)b * p.nq * W;
     const int32_t* tv = p.tvecs + (size_t)b * p.nt * WT;
     const int32_t* tab = p.tables + (size_t)b * p.ntab;
-    const int32_t* sc = p.scalars + (size_t)b * p.nsc;
+    const int32_t* scl = p.scalars + (size_t)b * p.nsc;
     int32_t* ring = p.ring + (size_t)b * R * NR * W;
     int32_t* lring = p.lring + (size_t)b * R * NL * W;
-    const int rs_q = p.n_shadow, rs_t = p.n_shadow + 1;
     const int TB = (p.Tp + 8) >> 3;   // bytes per mask row
     const uint8_t* blk_rows = MASKED ? p.blocked + (size_t)b * W * TB
                                      : nullptr;
@@ -354,149 +381,202 @@ wavefront_kernel(const Params p) {
         const int lo = d - tlen > 0 ? d - tlen : 0;
         const int hi = d < qlen ? d : qlen;
         const int slot = d % R;
-        for (int i = lo + tid; i <= hi; i += THREADS) {
+        for (int i = lo + tid; i <= hi; i += PT) {
             const int j = d - i;
             const bool blk = MASKED
                 && ((blk_rows[(size_t)i * TB + (j >> 3)] >> (7 - (j & 7)))
                     & 1);
-            for (int s = 0; s < S; ++s) {
-                CV(s) = NEG;
-                for (int l = 0; l < L; ++l) CV(V_LN + s * L + l) = 0;
-                if (MODE == MODE_PATH) CV(V_TB + s) = 0;
-            }
-            for (int r = 0; r < p.n_plan; ++r) {
-                const int32_t* row = s_plan + r * PLAN_COLS;
-                const int aq = row[P_AQ], at = row[P_AT];
+            int32_t sc[S];
+            int32_t ln[S][LL];
+            int32_t tb[S];
+            each<0, S>([&](auto s) {
+                sc[s] = NEG;
+                tb[s] = 0;
+                each<0, LL>([&](auto l) { ln[s][l] = 0; });
+            });
+            each<0, IP::N_PLAN>([&](auto rc) {
+                constexpr int r = decltype(rc)::value;
+                constexpr int aq = IP::plan(r, P_AQ), at = IP::plan(r, P_AT);
+                constexpr int in = IP::plan(r, P_IN);
+                constexpr int out = IP::plan(r, P_OUT);
+                constexpr int flags = IP::plan(r, P_FLAGS);
+                constexpr int kind = IP::plan(r, P_CALC);
+                constexpr int adv = aq + at;
+                constexpr bool from_start = (flags & F_FROM_START) != 0;
                 const int si = i - aq, sj = j - at;
-                if (si < 0 || sj < 0) continue;
-                const int flags = row[P_FLAGS];
-                if (MASKED && blk && (flags & F_MATCH)) continue;
-                const int in = row[P_IN], out = row[P_OUT];
-                const int adv = aq + at;
+                if (si < 0 || sj < 0) return;
+                if constexpr (MASKED && (flags & F_MATCH) != 0) {
+                    if (blk) return;
+                }
                 // source: START (0), this diagonal (silent), or the ring
-                const int src_slot = adv ? (d - adv) % R : 0;
+                // at slot (d - adv) % R, adv <= K < R
+                const int src_slot = slot >= adv ? slot - adv
+                                                 : slot - adv + R;
                 int32_t base;
-                if (flags & F_FROM_START) {
-                    if (!start_ok(p.start_scope, si, sj)) continue;
+                if constexpr (from_start) {
+                    if (!start_ok(p.start_scope, si, sj)) return;
                     base = 0;
                 } else {
-                    base = adv == 0
-                        ? CV(in)
-                        : ring[((size_t)src_slot * NR + s_ring_row[in]) * W
-                               + si];
-                    if (base <= NEG) continue;
-                }
-                if ((flags & F_TO_END)
-                    && !end_ok(p.end_scope, i, j, qlen, tlen))
-                    continue;
-                auto src_lane = [&](int l) -> int32_t {
-                    if (flags & F_FROM_START) return 0;
-                    if (adv == 0) return CV(V_LN + in * L + l);
-                    const int lr = s_lane_row[in * L + l];
-                    return lr < 0 ? 0
-                        : lring[((size_t)src_slot * NL + lr) * W + si];
-                };
-                int32_t calc = 0;
-                switch (row[P_CALC]) {
-                    case C_SCALAR: calc = sc[row[P_C0]]; break;
-                    case C_QVEC: calc = qv[row[P_C0] * W + i]; break;
-                    case C_TVEC: calc = tv[row[P_C0] * WT + sj]; break;
-                    case C_FACTORED: {
-                        const int32_t ov = qv[row[P_C4] * W + i];
-                        calc = ov != 0 ? ov
-                            : tab[row[P_C2] + qv[row[P_C0] * W + i] * row[P_C3]
-                                  + tv[row[P_C1] * WT + sj]];
-                        break;
+                    if constexpr (adv == 0) {
+                        base = sc[in];
+                    } else {
+                        constexpr int rr = IP::ring_row(in);
+                        static_assert(rr >= 0, "a ring source has a row");
+                        base = ring[((size_t)src_slot * NR + rr) * W + si];
                     }
-                    case C_SPLIT:
-                        if (FULL)
-                            calc = split_codon(row, src_lane, qv, tv, W, WT,
-                                               i, sj);
-                        break;
-                    case C_NONE: default: break;
+                    if (base <= NEG) return;
                 }
-                if (flags & (F_SH_Q | F_SH_T)) {
-                    const int32_t mn = sc[row[P_SH_MIN]];
-                    const int32_t mx = sc[row[P_SH_MAX]];
+                if constexpr ((flags & F_TO_END) != 0) {
+                    if (!end_ok(p.end_scope, i, j, qlen, tlen)) return;
+                }
+                // lane l of the source cell
+                auto src_lane = [&](auto lc) -> int32_t {
+                    constexpr int l = decltype(lc)::value;
+                    if constexpr (from_start) {
+                        return 0;
+                    } else if constexpr (adv == 0) {
+                        return ln[in][l];
+                    } else {
+                        constexpr int lr = IP::lane_row(in, l);
+                        if constexpr (lr < 0)
+                            return 0;
+                        else
+                            return lring[((size_t)src_slot * NL + lr) * W
+                                         + si];
+                    }
+                };
+                constexpr int c0 = IP::plan(r, P_C0), c1 = IP::plan(r, P_C1);
+                constexpr int c2 = IP::plan(r, P_C2), c3 = IP::plan(r, P_C3);
+                constexpr int c4 = IP::plan(r, P_C4);
+                int32_t calc = 0;
+                if constexpr (kind == C_SCALAR) {
+                    calc = scl[c0];
+                } else if constexpr (kind == C_QVEC) {
+                    calc = qv[c0 * W + i];
+                } else if constexpr (kind == C_TVEC) {
+                    calc = tv[c0 * WT + sj];
+                } else if constexpr (kind == C_FACTORED) {
+                    const int32_t ov = qv[c4 * W + i];
+                    calc = ov != 0 ? ov
+                        : tab[c2 + qv[c0 * W + i] * c3 + tv[c1 * WT + sj]];
+                } else if constexpr (kind == C_SPLIT) {
+                    // kernel K9 (split_codon above, its fields constants):
+                    // C2 the phase, C3 the "target intron" lane, C4..C6
+                    // the "split" lanes, C1 the E1p0 or N4 row, C0 R0
+                    if (!(src_lane(IC<c3>{}) >= c2)) {
+                        calc = NEG;
+                    } else {
+                        int32_t sel, sub = 0;
+                        if constexpr (c2 == 1) {
+                            sel = src_lane(IC<c4>{});
+                            const int k = floordiv6(sel);
+                            if (k >= 0 && k < 3) sub = tv[(c1 + k) * WT + sj];
+                        } else {
+                            sel = tv[c1 * WT + sj];
+                            const int k = floordiv6(sel);
+                            if (k == 0)
+                                sub = src_lane(IC<c4>{});
+                            else if (k == 1)
+                                sub = src_lane(IC<IP::plan(r, P_C5)>{});
+                            else if (k == 2)
+                                sub = src_lane(IC<IP::plan(r, P_C6)>{});
+                        }
+                        int field = sel % 6;
+                        if (field < 0) field += 6;
+                        const int aa = (sub >> (5 * field)) & 31;
+                        calc = aa < 25 ? qv[(c0 + aa) * W + i] : 0;
+                    }
+                }
+                if constexpr ((flags & (F_SH_Q | F_SH_T)) != 0) {
+                    const int32_t mn = scl[IP::plan(r, P_SH_MIN)];
+                    const int32_t mx = scl[IP::plan(r, P_SH_MAX)];
                     bool bad = false;
-                    if (flags & F_SH_Q) {
-                        const int32_t len = wadd(
-                            wsub(si + qstart, src_lane(row[P_SH_LANE_Q])), 2);
+                    if constexpr ((flags & F_SH_Q) != 0) {
+                        const int32_t len = wadd(wsub(si + qstart,
+                            src_lane(IC<IP::plan(r, P_SH_LANE_Q)>{})), 2);
                         bad = bad || len < mn || len > mx;
                     }
-                    if (flags & F_SH_T) {
-                        const int32_t len = wadd(
-                            wsub(sj + tstart, src_lane(row[P_SH_LANE_T])), 2);
+                    if constexpr ((flags & F_SH_T) != 0) {
+                        const int32_t len = wadd(wsub(sj + tstart,
+                            src_lane(IC<IP::plan(r, P_SH_LANE_T)>{})), 2);
                         bad = bad || len < mn || len > mx;
                     }
                     if (bad) calc = NEG;
                 }
                 int32_t val = wadd(base, calc);
-                if ((flags & F_P_UNDER) && val < NEG) val = NEG;
-                if ((flags & F_P_OVER) && val > HIGH) val = HIGH;
+                if constexpr ((flags & F_P_UNDER) != 0) {
+                    if (val < NEG) val = NEG;
+                }
+                if constexpr ((flags & F_P_OVER) != 0) {
+                    if (val > HIGH) val = HIGH;
+                }
                 if (val < NEG) val = NEG;
-                if (!(val > CV(out))) continue;    // first max wins
-                CV(out) = val;
-                if (MODE == MODE_PATH) CV(V_TB + out) = r + 1;
-                if (L > 0) {
-                    int32_t nl[FULL ? MAX_L : LEAN_L];
-                    for (int l = 0; l < L; ++l) nl[l] = src_lane(l);
-                    for (int k = 0; k < row[P_NSTART]; ++k) {
-                        const int src = row[P_ST_SRC0 + 2 * k];
-                        nl[row[P_ST_DES0 + 2 * k]] =
-                            src == ST_TARGET ? sj + tstart
-                            : !FULL || src == ST_QUERY ? si + qstart
-                            : tv[(src - ST_TVEC) * WT + sj];
+                if (!(val > sc[out])) return;    // first max wins
+                sc[out] = val;
+                if constexpr (MODE == MODE_PATH) tb[out] = r + 1;
+                if constexpr (L > 0) {
+                    int32_t nl[LL];
+                    each<0, L>([&](auto l) { nl[l] = src_lane(l); });
+                    each<0, IP::plan(r, P_NSTART)>([&](auto kc) {
+                        constexpr int k = decltype(kc)::value;
+                        constexpr int des = IP::plan(r, P_ST_DES0 + 2 * k);
+                        constexpr int src = IP::plan(r, P_ST_SRC0 + 2 * k);
+                        if constexpr (src == ST_TARGET)
+                            nl[des] = sj + tstart;
+                        else if constexpr (src == ST_QUERY)
+                            nl[des] = si + qstart;
+                        else
+                            nl[des] = tv[(src - ST_TVEC) * WT + sj];
+                    });
+                    if constexpr (MODE == MODE_REGION && from_start) {
+                        nl[RS_Q] = si;
+                        nl[RS_T] = sj;
                     }
-                    if (MODE == MODE_REGION && (flags & F_FROM_START)) {
-                        nl[rs_q] = si;
-                        nl[rs_t] = sj;
-                    }
-                    for (int l = 0; l < L; ++l) CV(V_LN + out * L + l) = nl[l];
+                    each<0, L>([&](auto l) { ln[out][l] = nl[l]; });
                 }
-            }
+            });
             // this cell's column of the new diagonal
-            for (int s = 0; s < S; ++s) {
-                const int rr = s_ring_row[s];
-                if (rr >= 0) ring[((size_t)slot * NR + rr) * W + i] = CV(s);
-                for (int l = 0; l < L; ++l) {
-                    const int lr = s_lane_row[s * L + l];
-                    if (lr >= 0)
-                        lring[((size_t)slot * NL + lr) * W + i] =
-                            CV(V_LN + s * L + l);
-                }
+            each<0, S>([&](auto sc_) {
+                constexpr int s = decltype(sc_)::value;
+                constexpr int rr = IP::ring_row(s);
+                if constexpr (rr >= 0)
+                    ring[((size_t)slot * NR + rr) * W + i] = sc[s];
+                each<0, L>([&](auto lc) {
+                    constexpr int lr = IP::lane_row(s, decltype(lc)::value);
+                    if constexpr (lr >= 0)
+                        lring[((size_t)slot * NL + lr) * W + i] = ln[s][lc];
+                });
                 if constexpr (MODE == MODE_PATH)
                     p.tb[(((size_t)b * (p.Qp + p.Tp + 1) + d) * S + s) * W
-                         + i] = (uint8_t)CV(V_TB + s);
-            }
-            const int32_t es = CV(p.end_id);
+                         + i] = (uint8_t)tb[s];
+            });
+            const int32_t es = sc[IP::END_ID];
             if (es > NEG && better(es, j, i, best_s, best_j, best_i)) {
                 best_s = es;
                 best_j = j;
                 best_i = i;
-                if (MODE == MODE_REGION) {
-                    best_qs = CV(V_LN + p.end_id * L + rs_q);
-                    best_ts = CV(V_LN + p.end_id * L + rs_t);
+                if constexpr (MODE == MODE_REGION) {
+                    best_qs = ln[IP::END_ID][RS_Q];
+                    best_ts = ln[IP::END_ID][RS_T];
                 }
             }
         }
         __syncthreads();
     }
-#undef CV
 
-    // one lexicographic reduce over the block (the cell state is free now)
-    int32_t* r_s = s_cell;
-    int32_t* r_j = r_s + THREADS;
-    int32_t* r_i = r_j + THREADS;
-    int32_t* r_qs = r_i + THREADS;
-    int32_t* r_ts = r_qs + THREADS;
+    // one lexicographic reduce over the block
+    int32_t* r_s = red;
+    int32_t* r_j = r_s + PT;
+    int32_t* r_i = r_j + PT;
+    int32_t* r_qs = r_i + PT;
+    int32_t* r_ts = r_qs + PT;
     r_s[tid] = best_s;
     r_j[tid] = best_j;
     r_i[tid] = best_i;
     r_qs[tid] = best_qs;
     r_ts[tid] = best_ts;
     __syncthreads();
-    for (int off = THREADS / 2; off > 0; off >>= 1) {
+    for (int off = PT / 2; off > 0; off >>= 1) {
         if (tid < off) {
             const int o = tid + off;
             if (better(r_s[o], r_j[o], r_i[o], r_s[tid], r_j[tid], r_i[tid])) {
@@ -509,7 +589,7 @@ wavefront_kernel(const Params p) {
         }
         __syncthreads();
     }
-    if (rank == 0 && tid == 0) {
+    if (tid == 0) {
         const bool found = r_s[0] > NEG;
         p.out[0 * p.B + b] = found ? r_s[0] : NEG;
         p.out[1 * p.B + b] = found ? r_i[0] : 0;
@@ -518,12 +598,19 @@ wavefront_kernel(const Params p) {
         p.out[4 * p.B + b] = found ? r_ts[0] : 0;
     }
 }
-
+#else
+// ring_kernel's template flags.  FULL: the plan may hold kernel K9's
+// pieces (a C_SPLIT row or a start lane read from a tvec) and up to MAX_L
+// lanes per state.  The lean instantiation (!FULL) serves the other
+// plans, up to LEAN_L lanes, with the split-codon body and the vector
+// start decode compiled out.  MASKED: the batch carries a SubOpt mask
+// plane (K3).  ring_kernel runs the cells and plan semantics of K1/K4 on
+// a cluster of CTAs; both are held to the same plain version.
 
 // Kernel K2, the cluster wavefront (score and region modes; path mode
 // is K4 on a cluster: the checkpointed traceback's segments, over the
 // span [p.d_begin, p.d_end) of the diagonals, and masked path DPs over
-// all of them): the cells and plan semantics of wavefront_kernel, each
+// all of them): the cells and plan semantics of K1/K4, each
 // pair run by a thread-block cluster of C CTAs so that one long pair
 // (B=1 against a chromosome-scale target) spans C SMs.  Grid B x C,
 // cluster (C, 1, 1).  Rows are stationary: rank r owns the query rows
@@ -946,28 +1033,6 @@ size_t ring_smem_bytes(const Params& p, int rows_per_thread, bool masked,
            + (masked ? rb : 0) + p.NR + p.NL);
 }
 
-template <int MODE, bool FULL, bool MASKED>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-    const size_t smem = smem_bytes<MODE>(p);
-    cudaError_t err = cudaFuncSetAttribute(
-        wavefront_kernel<MODE, FULL, MASKED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    wavefront_kernel<MODE, FULL, MASKED>
-        <<<p.B, THREADS, smem, stream>>>(p);
-    return cudaGetLastError();
-}
-
-template <int MODE>
-cudaError_t launch(const Params& p, bool full, bool masked,
-                   cudaStream_t stream) {
-    if (masked)
-        return full ? launch<MODE, true, true>(p, stream)
-                    : launch<MODE, false, true>(p, stream);
-    return full ? launch<MODE, true, false>(p, stream)
-                : launch<MODE, false, false>(p, stream);
-}
-
 // K2's launch configuration, C CTAs per pair.  cluster > 0 asks for that
 // size; 0 takes C = min(ceil(rows / THREADS), Cmax), rows the widest
 // diagonal of the batch (its largest qlen + 1) and Cmax the larger of
@@ -1074,39 +1139,56 @@ cudaError_t with_cluster_body(int mode, bool full, bool masked,
     }
 }
 
+#endif  // COMPILED_PLAN
+
 }  // namespace
 
-extern "C" int wavefront_launch(
-    int mode, const int32_t* plan, const int32_t* ring_row,
-    const int32_t* lane_row, const int32_t* dims, const int32_t* qvecs,
-    int nq, const int32_t* tvecs, int nt, const int32_t* tables, int ntab,
+#ifdef COMPILED_PLAN
+// K1/K4 on the compiled plan: the per-pair arguments only (the plan,
+// storage map and model numbers are WavePlan's).  mode must be the
+// plan's.  Returns the CUDA error of the launch.
+extern "C" int wavefront_plan_launch(
+    int mode, const int32_t* dims, const int32_t* qvecs, int nq,
+    const int32_t* tvecs, int nt, const int32_t* tables, int ntab,
     const int32_t* scalars, int nsc, int32_t* ring, int32_t* lring,
-    uint8_t* tb, int32_t* out, int n_plan, int B, int Qp, int Tp, int S,
-    int L, int NR, int NL, int R, int n_shadow, int start_id, int end_id,
-    int start_scope, int end_scope, int split, const uint8_t* blocked,
-    void* stream) {
+    uint8_t* tb, int32_t* out, int B, int Qp, int Tp, int start_scope,
+    int end_scope, const uint8_t* blocked, void* stream) {
     if (B <= 0) return 0;
-    if (L > MAX_L) return (int)cudaErrorInvalidValue;
-    Params p{plan, ring_row, lane_row, dims, qvecs, tvecs, tables, scalars,
-             ring, lring, tb, blocked, out, nq, nt, ntab, nsc, n_plan, B, Qp,
-             Tp, S, L, NR, NL, R, n_shadow, start_id, end_id, start_scope,
-             end_scope, 0, 0};
+    if (mode != IP::MODE || (mode == MODE_PATH) != (tb != nullptr))
+        return (int)cudaErrorInvalidValue;
+    Params p{};
+    p.dims = dims;
+    p.qvecs = qvecs;
+    p.tvecs = tvecs;
+    p.tables = tables;
+    p.scalars = scalars;
+    p.ring = ring;
+    p.lring = lring;
+    p.tb = tb;
+    p.blocked = blocked;
+    p.out = out;
+    p.nq = nq;
+    p.nt = nt;
+    p.ntab = ntab;
+    p.nsc = nsc;
+    p.B = B;
+    p.Qp = Qp;
+    p.Tp = Tp;
+    p.start_scope = start_scope;
+    p.end_scope = end_scope;
     cudaStream_t s = (cudaStream_t)stream;
-    const bool full = split || L > LEAN_L;
-    const bool masked = blocked != nullptr;
-    cudaError_t err;
-    switch (mode) {
-        case MODE_SCORE: err = launch<MODE_SCORE>(p, full, masked, s); break;
-        case MODE_REGION:
-            err = launch<MODE_REGION>(p, full, masked, s);
-            break;
-        case MODE_PATH: err = launch<MODE_PATH>(p, full, masked, s); break;
-        default: err = cudaErrorInvalidValue;
-    }
-    return (int)err;
+    if (blocked != nullptr)
+        plan_kernel<true><<<B, PT, 0, s>>>(p);
+    else
+        plan_kernel<false><<<B, PT, 0, s>>>(p);
+    return (int)cudaGetLastError();
 }
 
-// K2: the arguments of wavefront_launch, then the cluster size asked for
+// The threads per CTA of this plan's K1/K4 (plan_threads).
+extern "C" int wavefront_plan_threads() { return PT; }
+#else
+// K2: the plan, its storage map and the per-pair arguments (as the
+// plain version reads KernelInputs), then the cluster size asked for
 // (0: the rule of stream_plan), the batch's widest diagonal, the
 // diagonals [d_begin, d_end) to run (a later segment continues the ring
 // that the launch before it left), whether the carry ring lives in
@@ -1175,3 +1257,4 @@ extern "C" int wavefront_stream_capacity(
             return err;
         });
 }
+#endif  // COMPILED_PLAN

@@ -18,17 +18,24 @@ cut into chunks (``cross_chunks``), each chunk a launch of its own on its
 own device, chained through ``sdp_device.Halo``
 (``run_kernel_cross_chip``).
 
-The model is not compiled into the kernels: ``to_band_inputs`` flattens
-``_plan_transitions`` into an int32 candidate table per pass, and the
-per-pair arrays of ``prepare_kernel_inputs`` into packed q-axis, W-axis
-and scalar tensors; the kernels interpret the tables cell by cell.  The
+``to_band_inputs`` flattens ``_plan_transitions`` into an int32
+candidate table per pass, and the per-pair arrays of
+``prepare_kernel_inputs`` into packed q-axis, W-axis and scalar tensors.
+The kernels run the tables compiled in: ``plan_cuda.band_header`` writes
+both passes' tables into a C++ header (``BandInputs.header``) and
+``csrc/sdp_band.cu`` is built once per header (``_cudabuild.load``).
+Each comparison (or K8 chunk) runs on a thread-block cluster whose CTAs
+split its query lanes, the carry ring in shared memory where the .cu's
+fit rule (``band_fit``) says it fits, else in global memory;
+``BAND_SMEM`` and ``BAND_GLOBAL`` count the launches by ring route.  The
 TPU frame of the Pallas kernel (reversed 128-aligned windows, 31
 diagonals per boundary word, the flipped column-best plane) is layout
 and is not kept: a kernel reads column ``j = d - i`` of a plain
 ``(Wp+1)`` vector and keeps one boundary bit per cell, 32 lanes per
 word.  A wrapper given CPU tensors runs the plain PyTorch version
 (``sdp_device.plain_band_reverse`` / ``plain_band_forward``); given CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises: a failed build or launch
+raises, and no plan falls back to an interpreter.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from .sdp import model_uses_boundary
 from .sdp_native import _lane_for
 from ..model.ir import Model
 
+from . import plan_cuda
 from . import sdp_device as sd
 from .. import device as default_device
 from .cuda_wavefront import K9, _LaunchCount, _lib, count
@@ -59,11 +67,8 @@ from .sdp_device import (BF_EVENT, BF_P_OVER, BF_P_UNDER, BF_SH_Q, BF_SH_T,
 
 MAX_SEED_LAYERS = 4
 
-# compile-time maxima of csrc/sdp_band.cu: the kernels are instantiated
-# for up to SMALL_S states (est2genome's 10) and up to MAX_S (cdna2genome's
-# 22), so that the per-thread cell state of the smaller models does not
-# grow with the larger bound
-SMALL_S = 16
+# maxima of csrc/sdp_band.cu (the plans of the registry's boundary models
+# are within them: cdna2genome has 22 states and 49 candidates)
 MAX_S = 24
 MAX_SH = 4
 MAX_SPANS = 6
@@ -72,6 +77,12 @@ MAX_CAND = 64
 # kernel K8 (the cross-chip band scan): CROSS launches of either pass,
 # one per chunk of a comparison
 K8 = _LaunchCount()
+
+# the band kernels' launches (K6, K7, K8) by the home of their carry ring:
+# shared memory (each CTA its lanes', band_fit), or global memory where it
+# does not fit
+BAND_SMEM = _LaunchCount()
+BAND_GLOBAL = _LaunchCount()
 
 # device-memory budget of one launch pair: boundary bits, W-axis inputs,
 # column-best plane and the carry/span planes of every pair of the batch
@@ -388,9 +399,15 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
             if k in kind_map and kind_map[k] == "factored"}
 
     def column(name):
-        proto = next(f[name] for f in flats if name in f)
+        proto = next((f[name] for f in flats if name in f),
+                     np.zeros(Qp + 1, np.int32))
         return np.stack([np.asarray(f.get(name, np.zeros_like(proto)),
                                     np.int32) for f in flats])
+
+    # a factored calc always ships its override row (zeros where no pair
+    # has one), so that its candidate rows, and the compiled plan, do not
+    # depend on the batch
+    names = sorted(set(names) | {k + ":ov" for k in ncls})
 
     # factored class planes and the split codon's query rows stay
     # consecutive rows (P0, P1, ..., R0, R1, ..., not the lexicographic
@@ -403,7 +420,8 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
             continue
         a = flats[0].get(n)
         if a is None:
-            a = next(f[n] for f in flats if n in f)
+            a = next((f[n] for f in flats if n in f),
+                     np.zeros(Qp + 1, np.int32))
         if n in tnames:
             tnames_l.append(n)
         elif a.shape == (1,):
@@ -415,6 +433,10 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         qnames += [f"{key}:P{c}" for c in range(ncls[key])]
     for ci in kc_ci:
         qnames += [f"kc{ci}:R{a}" for a in range(25)]
+    # the seed layers last, so that the other rows' numbers, which the
+    # compiled plan holds, do not depend on the batch's layer count
+    seed_rows = [f"_seed{x}{lx}" for x in "qv" for lx in range(n_layers)]
+    tnames_l = [n for n in tnames_l if n not in seed_rows] + seed_rows
     qrow = {n: r for r, n in enumerate(qnames)}
     trow = {n: r for r, n in enumerate(tnames_l)}
     srow = {n: r for r, n in enumerate(snames)}
@@ -452,6 +474,14 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         tctx = put(np.stack([np.stack([c.get(n, np.zeros(maxat, np.int32))
                                        for n in tnames_l]) for c in ctx]))
 
+    header = plan_cuda.band_header(
+        model.name, rev_plan, n_adv_rev, fwd_plan, n_adv_fwd, span_tab,
+        len(spans), rings[0][0], rings[1][0], S=S,
+        n_sh=model.total_shadow_designations, K=_max_advance(model),
+        NR_rev=rings[0][1], NR_fwd=rings[1][1],
+        start_id=model.start_state.state.id,
+        end_id=model.end_state.state.id, row_abs_t=trow["_abs_t"],
+        row_edge=trow["_edge"], row_seg=trow["_seg"])
     return BandInputs(
         rev_plan=put(rev_plan), fwd_plan=put(fwd_plan), spans=put(span_tab),
         rev_ring=put(rings[0][0]), fwd_ring=put(rings[1][0]),
@@ -469,7 +499,8 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         row_seedv=trow["_seedv0"], n_layers=n_layers,
         split=bool((fwd_plan[:, BP_CALC] == K_SPLIT).any()),
         tctx=tctx, maxat=maxat,
-        span_joint=tuple(sp["max_query"] > 0 for sp in spans))
+        span_joint=tuple(sp["max_query"] > 0 for sp in spans),
+        qmax=int(dims[:, 0].max()), header=header)
 
 
 def pair_bytes(model: Model, Qp: int, Wp: int, n_tvec: int) -> int:
@@ -497,8 +528,9 @@ def max_batch(model: Model, Qp: int, Wp: int, n_tvec: int) -> int:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 16 + [_I] * 22 + [_P]
-_CROSS_ARGTYPES = [_P] * 16 + [_I] * 22 + [_P] * 7 + [_I, _P]
+_ARGTYPES = [_P] * 13 + [_I] * 11 + [ctypes.POINTER(_I), _P]
+_CROSS_ARGTYPES = ([_P] * 13 + [_I] * 11 + [ctypes.POINTER(_I)] + [_P] * 7
+                   + [_I, _P])
 
 
 def _check_inputs(bi: BandInputs) -> None:
@@ -532,12 +564,15 @@ def _check_inputs(bi: BandInputs) -> None:
 
 def _launch(bi: BandInputs, forward: bool, bits: torch.Tensor,
             halo: Optional[sd.Halo] = None):
-    """Launch one pass of csrc/sdp_band.cu on the current stream of the
-    tensors' card: K6 / K7, or with ``halo`` K8's pass over one chunk,
-    whose outgoing Halo comes last."""
+    """Launch one pass of csrc/sdp_band.cu, built with the plan of
+    ``bi.header``, on the current stream of the tensors' card: K6 / K7,
+    or with ``halo`` K8's pass over one chunk, whose outgoing Halo comes
+    last.  Counts the launch by its ring route (``BAND_SMEM`` /
+    ``BAND_GLOBAL``)."""
     name = "sdp_band_forward" if forward else "sdp_band_reverse"
-    fn = (_lib("sdp_band", name, _ARGTYPES) if halo is None
-          else _lib("sdp_band", name + "_cross", _CROSS_ARGTYPES))
+    fn = (_lib("sdp_band", name, _ARGTYPES, bi.header) if halo is None
+          else _lib("sdp_band", name + "_cross", _CROSS_ARGTYPES,
+                    bi.header))
     dev = bi.dims.device
     B, W, R = bi.batch, bi.Qp + 1, bi.K + 1
     NR = max(bi.NR_fwd if forward else bi.NR_rev, 1)
@@ -562,7 +597,6 @@ def _launch(bi: BandInputs, forward: bool, bits: torch.Tensor,
             span_cu = halo.span[:, 1][None, None].expand(
                 1, 2, *halo.span[:, 1].shape).contiguous()
     live = torch.zeros(B, **i32)
-    plan = bi.fwd_plan if forward else bi.rev_plan
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -576,24 +610,23 @@ def _launch(bi: BandInputs, forward: bool, bits: torch.Tensor,
         cross = [ptr(bi.tctx), ptr(halo.sc), ptr(halo.pm), ptr(halo.ln),
                  ptr(out.sc), ptr(out.pm), ptr(out.ln), bi.maxat]
 
+    fit = (_I * 3)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ptr(plan), ptr(bi.spans),
-                ptr(bi.fwd_ring if forward else bi.rev_ring), ptr(bi.dims),
-                ptr(bi.qvecs), ptr(bi.tvecs), ptr(bi.scalars), ptr(bits),
-                ptr(ring_sc), ptr(ring_pm), ptr(ring_ln), ptr(span_st),
-                ptr(span_cu), ptr(colbest), ptr(live), ptr(xband),
-                plan.shape[0], bi.n_adv_fwd if forward else bi.n_adv_rev,
-                bi.n_spans, bi.qvecs.shape[1], bi.tvecs.shape[1],
-                bi.scalars.shape[1], B, bi.Qp, bi.Wp, bi.S, bi.n_sh, bi.K,
-                NR, bi.start_id, bi.end_id, bi.dropoff, bi.row_abs_t,
-                bi.row_edge, bi.row_seg, bi.row_seedq, bi.row_seedv,
-                bi.n_layers, *cross, stream)
+        rc = fn(ptr(bi.dims), ptr(bi.qvecs), ptr(bi.tvecs), ptr(bi.scalars),
+                ptr(bits), ptr(ring_sc), ptr(ring_pm), ptr(ring_ln),
+                ptr(span_st), ptr(span_cu), ptr(colbest), ptr(live),
+                ptr(xband), bi.qvecs.shape[1], bi.tvecs.shape[1],
+                bi.scalars.shape[1], B, bi.Qp, bi.Wp, bi.dropoff,
+                bi.row_seedq, bi.row_seedv, bi.n_layers,
+                (bi.qmax or bi.Qp) + 1, fit, *cross, stream)
     if rc != 0:
         which = "forward" if forward else "reverse"
         kernel = "cross-chip band" if halo is not None else "band"
         raise RuntimeError(f"{kernel} kernel ({which}) launch failed: CUDA "
                            f"error {rc}")
+    count(BAND_SMEM if fit[2] else BAND_GLOBAL)
+    last_fit[forward] = tuple(fit)
     if halo is None:
         return (colbest, live != 0, xband != 0) if forward else live != 0
     if forward and halo.span is not None:
@@ -605,6 +638,11 @@ def _launch(bi: BandInputs, forward: bool, bits: torch.Tensor,
     if forward:
         return colbest, live != 0, xband != 0, out
     return live != 0, out
+
+
+# the cluster of each pass's last launch (C, T, ring in shared memory),
+# by pass (True: forward), for reports
+last_fit: dict = {}
 
 
 def band_reverse(bi: BandInputs):

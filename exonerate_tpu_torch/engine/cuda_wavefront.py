@@ -56,12 +56,17 @@ K1/K4.  ``K3.launches`` counts the K1/K2/K4 launches that carry a mask
 plane; ``RING_SMEM`` and ``RING_GLOBAL`` count the cluster kernel's
 launches by where their carry ring lives.
 
-The model is not compiled into the kernels: ``to_kernel_inputs``
-flattens ``_build_plan(model)`` into an int32 plan table and the
-per-pair arrays of ``prepare_inputs`` into four packed tensors, and the
-kernels interpret the table cell by cell.  A wrapper given CPU tensors
-runs the plain PyTorch version (``wavefront.plain_wavefront`` /
-``plain_walkback``); given CUDA tensors it launches the kernel or raises.
+``to_kernel_inputs`` flattens ``_build_plan(model)`` into an int32 plan
+table and the per-pair arrays of ``prepare_inputs`` into four packed
+tensors.  K1/K4 run the table compiled in: ``plan_cuda.wave_header``
+writes it into a C++ header (``KernelInputs.header``) and
+``csrc/wavefront.cu`` is built once per header (``_cudabuild.load``),
+its cell body unrolled over the plan's rows.  The cluster kernel (K2,
+and K4 on a cluster) interprets the table at run time.  A wrapper given
+CPU tensors runs the plain PyTorch version (``wavefront.plain_wavefront``
+/ ``plain_walkback``); given CUDA tensors it launches the kernel or
+raises: a failed build or launch raises, and no plan falls back to an
+interpreter.
 """
 from __future__ import annotations
 
@@ -80,6 +85,7 @@ from ..model.ir import Model, Protect, Scope
 from .. import _cudabuild
 from .. import device as default_device
 from . import generic_wavefront as gw
+from . import plan_cuda
 from . import wavefront as wf
 from .wavefront import (C_FACTORED, C_QVEC, C_SCALAR, C_SPLIT, C_TVEC,
                         F_FROM_START, F_MATCH, F_P_OVER, F_P_UNDER, F_SH_Q,
@@ -495,6 +501,11 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
                else per_pair[0]["_blocked"][None] if B == 1
                else np.stack([p["_blocked"] for p in per_pair]))
 
+    K = _max_advance(model)
+    header = plan_cuda.wave_header(
+        model.name, mode, rows, ring_row, lane_row, S=S, L=L,
+        NR=len(ring_states), NL=len(lane_slots), K=K, n_shadow=n_shadow,
+        start_id=start.id, end_id=end.id)
     return KernelInputs(
         plan=put(rows), ring_row=put(ring_row), lane_row=put(lane_row),
         dims=put(dims),
@@ -506,13 +517,13 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
                     else np.zeros((B, 1), np.int32)),
         walk=put(walk), blocked=put(blocked, np.uint8), Qp=Qp, Tp=Tp, S=S,
         L=L, n_shadow=n_shadow,
-        K=_max_advance(model), NR=len(ring_states), NL=len(lane_slots),
+        K=K, NR=len(ring_states), NL=len(lane_slots),
         start_id=start.id, end_id=end.id,
         start_scope=_SCOPES[model.start_state.scope],
         end_scope=_SCOPES[model.end_state.scope], mode=mode,
         split=bool((rows[:, P_CALC] == C_SPLIT).any()
                    or (rows[:, P_ST_SRC0::2] >= ST_TVEC).any()),
-        qmax=int(dims[:, 2].max()))
+        qmax=int(dims[:, 2].max()), header=header)
 
 
 def max_batch(model: Model, Qp: int, Tp: int, mode: str,
@@ -588,17 +599,28 @@ _typed: set = set()
 _typed_lock = threading.Lock()
 
 
-def _lib(stem: str, fn: str, argtypes: list):
-    """Entry point ``fn`` of csrc/<stem>.cu, typed once per (stem, fn):
-    a library with several entry points types each of them (under a
-    lock: worker threads may reach an entry point first together)."""
-    lib = _cudabuild.load(stem)
+def _lib(stem: str, fn: str, argtypes: list, header: Optional[str] = None):
+    """Entry point ``fn`` of csrc/<stem>.cu (built with the compiled plan
+    ``header`` when given), typed once per (library, fn): a library with
+    several entry points types each of them (under a lock: worker threads
+    may reach an entry point first together)."""
+    lib = (_cudabuild.load(stem) if header is None
+           else _cudabuild.load(stem, header))
+    name = _cudabuild.name(stem, header)
     with _typed_lock:
-        if (stem, fn) not in _typed:
+        if (name, fn) not in _typed:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-            _typed.add((stem, fn))
+            _typed.add((name, fn))
     return getattr(lib, fn)
+
+
+def plan_threads(ki: KernelInputs) -> int:
+    """The threads per CTA of K1/K4 on the plan of ``ki`` (its launcher's
+    rule, ``plan_threads`` in csrc/wavefront.cu: as many as the register
+    file holds at the plan's cell state); builds the plan's library."""
+    return _lib("wavefront", "wavefront_plan_threads", [],
+                ki.header)()
 
 
 def _check_inputs(ki: KernelInputs) -> None:
@@ -730,7 +752,8 @@ def cluster_capacity(ki: KernelInputs) -> tuple:
 def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
             ring=None):
     """Launch csrc/wavefront.cu on the current stream of the tensors'
-    card: K1/K4 (``wavefront_launch``), or the cluster kernel
+    card: K1/K4 on the plan compiled in (``wavefront_plan_launch``, the
+    library of ``ki.header``), or the cluster kernel
     (``wavefront_stream_launch``) when ``cluster`` is given, with that
     many CTAs per pair (0: ``cluster_size``), over the diagonals ``span``
     = (d0, d1) continuing the carry rings ``ring`` when given (and leaving
@@ -752,6 +775,27 @@ def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
     tb = (torch.empty((B, d1 - d0, ki.S, W), dtype=torch.uint8, device=dev)
           if ki.mode == "path" else None)
     mode = {"score": 0, "region": 1, "path": 2}[ki.mode]
+    if cluster is None:
+        # K1/K4 on the plan compiled in: the per-pair arguments only
+        fn = _lib("wavefront", "wavefront_plan_launch",
+                  [_I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P]
+                  + [_I] * 5 + [_P, _P], ki.header)
+        with torch.cuda.device(dev):
+            rc = fn(mode, ki.dims.data_ptr(), ki.qvecs.data_ptr(),
+                    ki.qvecs.shape[1], ki.tvecs.data_ptr(),
+                    ki.tvecs.shape[1], ki.tables.data_ptr(),
+                    ki.tables.shape[1], ki.scalars.data_ptr(),
+                    ki.scalars.shape[1], ring[0].data_ptr(),
+                    ring[1].data_ptr(),
+                    tb.data_ptr() if tb is not None else None,
+                    out.data_ptr(), B, ki.Qp, ki.Tp, ki.start_scope,
+                    ki.end_scope,
+                    ki.blocked.data_ptr() if ki.masked else None,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"wavefront kernel ({ki.mode}) launch "
+                               f"failed: CUDA error {rc}")
+        return out, tb, 1
     head = [mode, ki.plan.data_ptr(), ki.ring_row.data_ptr(),
             ki.lane_row.data_ptr(), ki.dims.data_ptr(),
             ki.qvecs.data_ptr(), ki.qvecs.shape[1],
@@ -769,19 +813,13 @@ def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
     used = _I(1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if cluster is None:
-            fn = _lib("wavefront", "wavefront_launch", args + [_P])
-            rc = fn(*head, *tail, stream)
-        else:
-            C = cluster or cluster_size(ki)
-            fn = _lib("wavefront", "wavefront_stream_launch",
-                      args + [_I] * 6 + [ctypes.POINTER(_I), _P])
-            rc = fn(*head, *tail, C, _rows(ki), d0, d1,
-                    int(ring_in_smem(ki, C)), ring_io, ctypes.byref(used),
-                    stream)
+        C = cluster or cluster_size(ki)
+        fn = _lib("wavefront", "wavefront_stream_launch",
+                  args + [_I] * 6 + [ctypes.POINTER(_I), _P])
+        rc = fn(*head, *tail, C, _rows(ki), d0, d1, int(ring_in_smem(ki, C)),
+                ring_io, ctypes.byref(used), stream)
     if rc != 0:
-        kernel = "cluster" if cluster is not None else "wavefront"
-        raise RuntimeError(f"{kernel} kernel ({ki.mode}) launch failed: "
+        raise RuntimeError(f"cluster kernel ({ki.mode}) launch failed: "
                            f"CUDA error {rc}")
     return out, tb, used.value
 

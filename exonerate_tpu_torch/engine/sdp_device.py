@@ -11,8 +11,9 @@ Two parts:
   band kernels K6 and K7 in ``csrc/sdp_band.cu``.  They are the torch
   twin of ``build_pass`` (``sdp_device.py:297``) in boundary mode,
   batched over B and vectorised over the query lanes i in [0, Qp], one
-  Python loop step per compressed diagonal, and interpret the same int32
-  candidate tables as the kernels (built by ``cuda_sdp.to_band_inputs``).
+  Python loop step per compressed diagonal, and interpret the int32
+  candidate tables that the kernels compile in (built by
+  ``cuda_sdp.to_band_inputs``).
   Given a ``Halo`` they are the plain version of K8, the cross-chip band
   scan, on one chunk of a comparison (``cuda_sdp.cross_chunks``).
 
@@ -328,6 +329,10 @@ class BandInputs:
     tctx: Optional[torch.Tensor] = None
     maxat: int = 0
     span_joint: tuple = ()
+    qmax: int = 0            # the largest qlen of the batch, known on the
+    #                          host (0: Qp)
+    header: str = ""         # both passes' tables compiled into the
+    #                          kernels (plan_cuda.band_header)
 
     @property
     def batch(self) -> int:
@@ -468,13 +473,19 @@ def _calc(fr: _Frame, row, forward: bool):
     return v
 
 
-def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None):
+def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None,
+              lane_split=None):
     """One pass over the diagonals.  Reverse: returns (bits (B, Dp, NW)
     int32, live (B,) bool).  Forward: (colbest (B, Wp+1) int32, live,
     xband).  With ``halo`` (K8, a batch of one chunk) the sources up to
     ``bi.maxat`` columns past the chunk's edge read the neighbour's edge
     planes, the spans start from its registers, and the outgoing Halo is
-    returned last."""
+    returned last.  ``lane_split`` (tests only) replaces the whole-diagonal
+    reads of the carry ring and of the joint spans' curr registers by an
+    emulation of the kernels' lane split: ``lane_split.start(d)`` at each
+    diagonal, ``.source(d, adv, r, shift)`` for a ring source,
+    ``.shift_curr(plane, fill)`` for a joint span, and
+    ``.store(d, sc, pm, ln)`` after each diagonal."""
     fr = _Frame(bi)
     B, W, S, n_sh, K = bi.batch, fr.W, bi.S, bi.n_sh, bi.K
     dev = bi.dims.device
@@ -516,6 +527,8 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None):
     order = range(d_hi + 1) if forward else range(d_hi, -1, -1)
     for d in order:
         fr.at(d)
+        if lane_split is not None:
+            lane_split.start(d)
         j = d - i
         cell_ok = (j >= 0) & (j <= wlen) & (i <= qlen)
         sc = [neg] * S
@@ -551,9 +564,13 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None):
                 if got is None:
                     p_sc, p_pm, p_ln = prev[adv - 1]
                     k = aq if forward else -aq
-                    got = (_shift(p_sc[r], k, NEG), _shift(p_pm[r], k, NEG),
-                           [_shift(v, k, 0) for v in p_ln[r]] if lanes
-                           else no_ln)
+                    if lane_split is not None:
+                        got = lane_split.source(d, adv, r, k)
+                    else:
+                        got = (_shift(p_sc[r], k, NEG),
+                               _shift(p_pm[r], k, NEG),
+                               [_shift(v, k, 0) for v in p_ln[r]] if lanes
+                               else no_ln)
                     if maxat and adv > aq:
                         got = _halo_read(got, halo, ring[r], adv - aq, aq,
                                          j, wlen, forward, n_sh, maxat)
@@ -630,7 +647,9 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None):
                 if sp[SP_MAX_T] == 0:
                     continue          # query-only span: submit is a no-op
                 xb = _span_step(regs[spx], sp, sc, pm, ln, thaw, cell_ok,
-                                abs_tv, seg_row, n_sh)
+                                abs_tv, seg_row, n_sh,
+                                None if lane_split is None
+                                else lane_split.shift_curr)
                 xband = xband | xb.any(dim=1)
         for row in plan[n_adv:]:
             evaluate(row)
@@ -671,6 +690,8 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None):
             word = (flag.reshape(B, NW, 32).long() * weights).sum(dim=2)
             bits[:, d] = (word - ((word >> 31) << 32)).to(torch.int32)
         prev = [(sc, pm, ln)] + prev[:-1]
+        if lane_split is not None:
+            lane_split.store(d, sc, pm, ln)
     if halo is not None:
         span = None
         if forward and spans:
@@ -719,10 +740,15 @@ def _unjoint(span: torch.Tensor, joint: tuple) -> torch.Tensor:
     return span
 
 
-def _span_step(reg, sp, sc, pm, ln, thaw, cell_ok, abs_tv, seg_row, n_sh):
+def _span_step(reg, sp, sc, pm, ln, thaw, cell_ok, abs_tv, seg_row, n_sh,
+               shift_curr=None):
     """Span thaw + submit of one span at one diagonal (before the silent
     sweep).  Updates ``reg`` and the running planes in place; returns the
-    cross-locus thaw plane."""
+    cross-locus thaw plane.  ``shift_curr(plane, fill)`` moves a joint
+    span's curr register one lane (default: the whole plane)."""
+    if shift_curr is None:
+        def shift_curr(x, fill):
+            return _shift(x, 1, fill)
     st, max_t = sp[SP_STATE], sp[SP_MAX_T]
     st_sc, st_pm, st_te, st_sg = reg[0:4]
     st_ln = reg[4:4 + n_sh]
@@ -731,9 +757,9 @@ def _span_step(reg, sp, sc, pm, ln, thaw, cell_ok, abs_tv, seg_row, n_sh):
     if sp[SP_MAX_Q] > 0:
         # joint span: the curr register walks the target row, one lane
         # per diagonal; pickup only at thaw cells
-        cu_sc, cu_pm = _shift(cu_sc, 1, NEG), _shift(cu_pm, 1, 0)
-        cu_te, cu_sg = _shift(cu_te, 1, 0), _shift(cu_sg, 1, 0)
-        cu_ln = [_shift(v, 1, 0) for v in cu_ln]
+        cu_sc, cu_pm = shift_curr(cu_sc, NEG), shift_curr(cu_pm, 0)
+        cu_te, cu_sg = shift_curr(cu_te, 0), shift_curr(cu_sg, 0)
+        cu_ln = [shift_curr(v, 0) for v in cu_ln]
         r_ok = (cu_sc > NEG) & ((cu_te + max_t) >= abs_tv)
         st_ok = (st_sc > NEG) & ((st_te + max_t) >= abs_tv)
         upd = thaw & st_ok & (~r_ok | (cu_sc < st_sc))
@@ -769,22 +795,24 @@ def _span_step(reg, sp, sc, pm, ln, thaw, cell_ok, abs_tv, seg_row, n_sh):
     return xb
 
 
-def plain_band_reverse(bi: BandInputs, halo: Optional[Halo] = None):
+def plain_band_reverse(bi: BandInputs, halo: Optional[Halo] = None,
+                       lane_split=None):
     """K6's plain version: the reverse pass.  Returns (bits (B, Dp, NW)
     int32 with bit i & 31 of word i >> 5 set where lane i of diagonal d is
     a boundary cell, live (B,) bool); with ``halo``, K8's reverse pass on
     one chunk, and the outgoing Halo last."""
-    return _run_pass(bi, forward=False, halo=halo)
+    return _run_pass(bi, forward=False, halo=halo, lane_split=lane_split)
 
 
 def plain_band_forward(bi: BandInputs, bits: torch.Tensor,
-                       halo: Optional[Halo] = None):
+                       halo: Optional[Halo] = None, lane_split=None):
     """K7's plain version: the forward pass from the reverse pass's
     boundary bits.  Returns (colbest (B, Wp+1) int32, the best end score
     per compressed column, NEG where none; live (B,) bool; xband (B,)
     bool); with ``halo``, K8's forward pass on one chunk, and the
     outgoing Halo last."""
-    return _run_pass(bi, forward=True, bits_in=bits, halo=halo)
+    return _run_pass(bi, forward=True, bits_in=bits, halo=halo,
+                     lane_split=lane_split)
 
 
 def plain_band_scan(bi: BandInputs) -> dict:

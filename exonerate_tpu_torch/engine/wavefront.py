@@ -304,6 +304,8 @@ class KernelInputs:
     #                          start lane read from a tvec
     qmax: int = 0            # the largest qlen of the batch, known on the
     #                          host (0: read it from dims)
+    header: str = ""         # the plan compiled into K1/K4
+    #                          (plan_cuda.wave_header)
 
     @property
     def batch(self) -> int:

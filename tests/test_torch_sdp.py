@@ -259,7 +259,7 @@ def test_cuda_source_declares_the_python_constants():
     assert int(consts["NEG"]) == tsd.NEG
     assert int(consts["POS"]) == tsd.POS
     assert int(consts["MAX_STARTS"]) == tsd.MAX_STARTS
-    for name in ("SMALL_S", "MAX_S", "MAX_SH", "MAX_SPANS", "MAX_CAND",
+    for name in ("MAX_S", "MAX_SH", "MAX_SPANS", "MAX_CAND",
                  "MAX_SEED_LAYERS"):
         assert int(consts[name]) == getattr(cuda_sdp, name), name
     assert 'extern "C" int sdp_band_reverse(' in src

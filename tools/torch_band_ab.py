@@ -6,8 +6,10 @@ card, so that two versions are compared inside one run.
 
 Each argument is the root of a checkout holding ``exonerate_tpu_torch``.
 Each runs in a process of its own, in the order given: it builds
-``csrc/sdp_band.cu`` there with that checkout's build helper (a fresh
-build's ptxas lines go into its JSON line), then times with CUDA events,
+``csrc/sdp_band.cu`` there with that checkout's build helper (with the
+comparison's plan compiled in, where the checkout compiles plans; a
+fresh build's ptxas lines go into its JSON line), then times with CUDA
+events,
 after one warm-up launch each, K6 and K7 on one est2genome comparison of
 a 1,200 bp query against a 6.6 kb target holding three 400 bp exons
 (introns of 1,500 bp, ~1% mutated, seeded by one HSP per exon; made from
@@ -54,9 +56,14 @@ def _one(root: str, reps: int) -> dict:
     port = "exonerate_tpu_torch"
     _cudabuild = importlib.import_module(port + "._cudabuild")
     cs = importlib.import_module(port + ".engine.cuda_sdp")
-    built = _cudabuild.build("sdp_band")
     dev = torch.device("cuda", 0)
     model, pair, plan = _comparison()
+    # a checkout whose band kernels run the plan compiled in builds one
+    # library per plan (BandInputs.header); an older one its source alone
+    header = getattr(cs.band_inputs(model, [(pair, plan)],
+                                    pair.args.dropoff, dev), "header", None)
+    built = (_cudabuild.build("sdp_band", header) if header
+             else _cudabuild.build("sdp_band"))
 
     def timed(fn):
         out = fn()
