@@ -2883,9 +2883,9 @@ def main() -> int:
         fmt = (" / ".join(f"{x:.3f}" for x in now)
                if isinstance(now, tuple) else f"{now:.3f}")
         old = ("not recorded" if pr8 is None else
-               " / ".join(map(str, pr8)) if isinstance(pr8, tuple)
-               else str(pr8))
-        print(f"redesigned row {row} [{card}]: {fmt} ms (PR 8: {old} ms)")
+               (" / ".join(map(str, pr8)) if isinstance(pr8, tuple)
+                else str(pr8)) + " ms")
+        print(f"redesigned row {row} [{card}]: {fmt} ms (PR 8: {old})")
     print(f"main-path launches {main_launches}; script "
           f"{time.perf_counter() - t_start:.1f} s")
     print(_card_line())

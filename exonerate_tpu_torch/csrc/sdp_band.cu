@@ -11,15 +11,16 @@
 //
 // The plan.  Built once per model plan (_cudabuild.load(stem, header),
 // COMPILED_PLAN): plan.h, generated by engine/plan_cuda.py, holds both
-// passes' candidate tables, the span table and the ring maps as constexpr
-// data (struct BandPlan), and band_kernel unrolls every loop over
+// passes' candidate tables, the span table (its windows, set by
+// --maxintron, only as whether a span has one) and the ring maps as
+// constexpr data (struct BandPlan), and band_kernel unrolls every loop over
 // candidates, states, spans and lanes in plan order, as the Pallas kernel
 // unrolls its plan while tracing (sdp_pallas.py:624, :771).  Each
 // candidate's read and write states, calc kind, rows and ring row are
 // constants, so the cell state (S scores, S pmax, S x n_sh lanes) is
 // registers and no table is read at run time.  What stays run-time data
-// is per comparison: dims, the q-axis and W-axis vectors, scalars, the
-// seed layers and the dropoff.
+// is per comparison or per run: dims, the q-axis and W-axis vectors,
+// scalars, the seed layers, the dropoff and the spans' windows.
 //
 // What it computes.  One comparison per thread-block cluster of C CTAs
 // (grid B x C).  The lanes i of the comparison are split among the CTAs:
@@ -263,6 +264,7 @@ BandFit band_fit(int fwd, int rows, int B, int sms, int cmax, int tmax,
 }
 
 struct Params {
+    const int32_t* spans;     // (n_spans, SP_COLS): the windows of the run
     const int32_t* dims;      // (B, 2): qlen, wlen
     const int32_t* qvecs;     // (B, nq, Qp+1)
     const int32_t* tvecs;     // (B, nt, Wp+1)
@@ -479,6 +481,13 @@ band_kernel(const Params p, const Halo h) {
     // every CTA has started (its shared memory may be read) and holds its
     // span registers
     cluster.sync();
+
+    // the spans' target windows (--maxintron): run-time data, so that one
+    // compiled plan serves every window; the plan says which span has one
+    int32_t span_max_t[NSPA];
+    each<0, NSP>([&](auto spx) {
+        span_max_t[spx] = p.spans[spx * SP_COLS + SP_MAX_T];
+    });
 
     bool any_live = false, any_xband = false;
     const int n_diag = qlen + wlen + 1;
@@ -723,10 +732,11 @@ band_kernel(const Params p, const Halo h) {
                     each<0, NSP>([&](auto spc) {
                         constexpr int spx = decltype(spc)::value;
                         constexpr int st = BP::spans(spx, SP_STATE);
-                        constexpr int32_t max_t = BP::spans(spx, SP_MAX_T);
+                        const int32_t max_t = span_max_t[spx];
                         constexpr bool joint = BP::spans(spx, SP_MAX_Q) > 0;
                         constexpr bool post = BP::spans(spx, SP_POST_THAW);
-                        if constexpr (max_t != 0) {   // query-only: no-op
+                        // a query-only span (no target window): no-op
+                        if constexpr (BP::spans(spx, SP_MAX_T) != 0) {
                             int32_t st_sc = st_at(spx, 0, i);
                             int32_t st_pm = st_at(spx, 1, i);
                             int32_t st_te = st_at(spx, 2, i);
@@ -986,7 +996,8 @@ cudaError_t launch(Params p, const Halo& h, int rows, int* fit_out,
 
 #ifdef COMPILED_PLAN
 #define SDP_BAND_BASE_ARGS                                                   \
-    const int32_t *dims, const int32_t *qvecs, const int32_t *tvecs,        \
+    const int32_t *spans, const int32_t *dims, const int32_t *qvecs,        \
+        const int32_t *tvecs,                                               \
         const int32_t *scalars, int32_t *bits, int32_t *ring_sc,            \
         int32_t *ring_pm, int32_t *ring_ln, int32_t *span_st,               \
         int32_t *span_cu, int32_t *colbest, int32_t *live, int32_t *xband,  \
@@ -996,7 +1007,7 @@ cudaError_t launch(Params p, const Halo& h, int rows, int* fit_out,
 #define SDP_BAND_PARAMS                                                      \
     if (B <= 0) return 0;                                                    \
     if (n_layers > MAX_SEED_LAYERS) return (int)cudaErrorInvalidValue;      \
-    Params p{dims,     qvecs,   tvecs,   scalars, bits,   ring_sc,          \
+    Params p{spans,    dims,    qvecs,   tvecs,   scalars, bits, ring_sc,   \
              ring_pm,  ring_ln, span_st, span_cu, colbest, live,            \
              xband,    nq,      nt,      ns,      B,      Qp,               \
              Wp,       dropoff, row_seedq, row_seedv, n_layers, 1}
@@ -1006,9 +1017,10 @@ cudaError_t launch(Params p, const Halo& h, int rows, int* fit_out,
         const int32_t *ln_in, int32_t *sc_out, int32_t *pm_out,             \
         int32_t *ln_out, int maxat
 
-// The launches: the per-comparison arguments only (the plan is
-// BandPlan's), rows the batch's widest comparison's lanes (its largest
-// qlen + 1), fit_out the cluster launched (C, T, ring in shared memory).
+// The launches: the span table of the run (its windows), the
+// per-comparison arguments (the rest of the plan is BandPlan's), rows
+// the batch's widest comparison's lanes (its largest qlen + 1), fit_out
+// the cluster launched (C, T, ring in shared memory).
 
 // K6: the reverse pass.  Writes bits and live.
 extern "C" int sdp_band_reverse(SDP_BAND_BASE_ARGS, void *stream) {

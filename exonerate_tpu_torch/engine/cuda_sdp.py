@@ -474,8 +474,11 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         tctx = put(np.stack([np.stack([c.get(n, np.zeros(maxat, np.int32))
                                        for n in tnames_l]) for c in ctx]))
 
+    # the spans' windows (--maxintron) stay run-time data: the compiled
+    # plan holds only whether a span has a target (and a query) window
     header = plan_cuda.band_header(
-        model.name, rev_plan, n_adv_rev, fwd_plan, n_adv_fwd, span_tab,
+        model.name, rev_plan, n_adv_rev, fwd_plan, n_adv_fwd,
+        plan_cuda.span_shape(span_tab),
         len(spans), rings[0][0], rings[1][0], S=S,
         n_sh=model.total_shadow_designations, K=_max_advance(model),
         NR_rev=rings[0][1], NR_fwd=rings[1][1],
@@ -528,8 +531,8 @@ def max_batch(model: Model, Qp: int, Wp: int, n_tvec: int) -> int:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 13 + [_I] * 11 + [ctypes.POINTER(_I), _P]
-_CROSS_ARGTYPES = ([_P] * 13 + [_I] * 11 + [ctypes.POINTER(_I)] + [_P] * 7
+_ARGTYPES = [_P] * 14 + [_I] * 11 + [ctypes.POINTER(_I), _P]
+_CROSS_ARGTYPES = ([_P] * 14 + [_I] * 11 + [ctypes.POINTER(_I)] + [_P] * 7
                    + [_I, _P])
 
 
@@ -613,7 +616,8 @@ def _launch(bi: BandInputs, forward: bool, bits: torch.Tensor,
     fit = (_I * 3)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ptr(bi.dims), ptr(bi.qvecs), ptr(bi.tvecs), ptr(bi.scalars),
+        rc = fn(ptr(bi.spans), ptr(bi.dims), ptr(bi.qvecs), ptr(bi.tvecs),
+                ptr(bi.scalars),
                 ptr(bits), ptr(ring_sc), ptr(ring_pm), ptr(ring_ln),
                 ptr(span_st), ptr(span_cu), ptr(colbest), ptr(live),
                 ptr(xband), bi.qvecs.shape[1], bi.tvecs.shape[1],

@@ -9,17 +9,20 @@ and ``to_band_inputs`` build are written into a small C++ header that
 holds nothing but data, and the kernels are templates whose cell body
 reads each row through a ``constexpr`` accessor, unrolled in plan order:
 
-- ``wave_header``: K1/K4 (``csrc/wavefront.cu`` built with ``WAVE_PLAN``):
+- ``wave_header``: K1/K4 (``csrc/wavefront.cu`` built with
+  ``COMPILED_PLAN``):
   the plan table (``cuda_wavefront._build_plan`` / ``_storage_plan``,
   ``PLAN_COLS`` columns a row), the ring and lane maps, S, L, NR, NL,
   R = K + 1, the shadow count, the start and end states, the mode;
 - ``band_header``: K6/K7/K8 (``csrc/sdp_band.cu``): both passes'
-  candidate tables (advancing rows first), the span table, the ring maps,
-  S, the shadow lanes, K, the start and end states and the W-axis rows of
-  ``_abs_t``, ``_edge`` and ``_seg``.
+  candidate tables (advancing rows first), the span table's shape
+  (``span_shape``), the ring maps, S, the shadow lanes, K, the start and
+  end states and the W-axis rows of ``_abs_t``, ``_edge`` and ``_seg``.
 
-What stays run-time data is per pair: dims, the q-axis and W-axis vectors,
-tables, scalars, the seed layers, the mask plane and the scopes.
+What stays run-time data is per pair or per run: dims, the q-axis and
+W-axis vectors, tables, scalars, the seed layers, the mask plane, the
+scopes and the spans' window lengths (``--maxintron``), so that one
+library serves a model whatever its options.
 ``_cudabuild.load(stem, header)`` builds one library per header at first
 use, keyed by the header's text with the sources.  The header is derived
 only from the port's own model code.
@@ -27,6 +30,8 @@ only from the port's own model code.
 from __future__ import annotations
 
 import numpy as np
+
+from .sdp_device import SP_MAX_Q, SP_MAX_T
 
 _HEAD = ("// A model's plan, compiled in (exonerate_tpu_torch/engine/"
          "plan_cuda.py).\n// Data only: the kernels read it through "
@@ -78,6 +83,17 @@ def wave_header(model_name: str, mode: str, plan: np.ndarray,
              R=K + 1, N_PLAN=len(plan), N_SHADOW=n_shadow,
              START_ID=start_id, END_ID=end_id),
         dict(plan=plan, ring_row=ring_row, lane_row=lane_row))
+
+
+def span_shape(spans: np.ndarray) -> np.ndarray:
+    """The span table as the band plan holds it: each span's state and
+    post-thaw flag, and only whether it has a target window (SP_MAX_T)
+    and a query window (SP_MAX_Q), whose lengths (--maxintron) the
+    kernels read at run time."""
+    out = np.array(spans, np.int32, copy=True)
+    for col in (SP_MAX_T, SP_MAX_Q):
+        out[:, col] = out[:, col] > 0
+    return out
 
 
 def band_header(model_name: str, rev_plan: np.ndarray, n_adv_rev: int,

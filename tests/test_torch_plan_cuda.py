@@ -188,16 +188,20 @@ def test_band_headers_hold_the_launchers_tables(tmp_path):
                 bi.fwd_plan.shape[0], bi.n_adv_fwd, bi.n_spans,
                 max(bi.NR_rev, 1), max(bi.NR_fwd, 1), bi.start_id,
                 bi.end_id, bi.row_abs_t, bi.row_edge, bi.row_seg]
-        for t in (bi.rev_plan, bi.fwd_plan, bi.spans, bi.rev_ring,
+        spans = bi.spans.clone()
+        for col in (tsd.SP_MAX_T, tsd.SP_MAX_Q):
+            spans[:, col] = spans[:, col] > 0      # the window's length is
+        for t in (bi.rev_plan, bi.fwd_plan, spans, bi.rev_ring,   # run-time
                   bi.fwd_ring):
             want += t.flatten().tolist()
         assert line == want, name
 
 
 def test_band_plan_does_not_depend_on_the_batch():
-    """The seed layers' rows come last and a factored calc always ships
-    its override row, so the batches of one model share one compiled
-    plan, whatever their seed-layer count and pairs."""
+    """The seed layers' rows come last, a factored calc always ships its
+    override row and the spans' windows (--maxintron) are run-time data,
+    so the batches of one model share one compiled plan, whatever their
+    seed-layer count, pairs and intron window."""
     model, pair, plan = band_case("two_exons_intron")
     other = band_case("single_exon", model=model)[1:]
     drop = pair.args.dropoff
@@ -210,6 +214,15 @@ def test_band_plan_does_not_depend_on_the_batch():
             model, [f for f, _, _ in preps], preps[0][1],
             [m for _, _, m in preps], 256, 1024, drop, CPU))
     assert [bi.n_layers for bi in bis] == [1, 3, 2]
+    wide = [sp.max_target for sp in model.spans]
+    try:
+        for sp in model.spans:                 # a tenth of the window
+            sp.max_target //= 10
+        bis.append(cuda_sdp.band_inputs(model, [(pair, plan)], drop, CPU))
+    finally:
+        for sp, w in zip(model.spans, wide):
+            sp.max_target = w
+    assert not torch.equal(bis[-1].spans, bis[0].spans)
     assert len({bi.header for bi in bis}) == 1
     for bi in bis:
         assert bi.row_seedq == bi.tvecs.shape[1] - 2 * bi.n_layers
