@@ -2865,9 +2865,10 @@ def main() -> int:
               f"({_bound(*rev)[1]}; kernel {k6:.3f} ms), K7 "
               f"{_bound(*fwd)[0]:.3f} ms ({_bound(*fwd)[1]}; kernel "
               f"{k7:.3f} ms)")
-    # the rows this PR redesigned beside PR 8's (PERF.md section 6, PR 8's
-    # R2 on an NVIDIA H100 80GB HBM3 at 700 W: another run, another card)
-    for row, now, pr8 in (
+    # the rows whose kernels run the compiled plan, beside their times
+    # with the plan interpreted (PERF.md section 6, in brackets: another
+    # run on an NVIDIA H100 80GB HBM3 at 700 W)
+    for row, now, interp_ms in (
             ("K1 region calm 2175^2 x64", report["K1_region"][1], 573.624),
             ("K1 score calm 2175^2 x64", report["K1_score"][1], None),
             ("K4 path calm 2175^2 x1", path_ms, 379.171),
@@ -2882,10 +2883,11 @@ def main() -> int:
             ("K8 the 2-chunk chain, 4 launches", k8_chain_ms, 3559.789)):
         fmt = (" / ".join(f"{x:.3f}" for x in now)
                if isinstance(now, tuple) else f"{now:.3f}")
-        old = ("not recorded" if pr8 is None else
-               (" / ".join(map(str, pr8)) if isinstance(pr8, tuple)
-                else str(pr8)) + " ms")
-        print(f"redesigned row {row} [{card}]: {fmt} ms (PR 8: {old})")
+        old = ("not recorded" if interp_ms is None else
+               (" / ".join(map(str, interp_ms)) if isinstance(interp_ms, tuple)
+                else str(interp_ms)) + " ms")
+        print(f"redesigned row {row} [{card}]: {fmt} ms (the plan "
+              f"interpreted: {old})")
     print(f"main-path launches {main_launches}; script "
           f"{time.perf_counter() - t_start:.1f} s")
     print(_card_line())
