@@ -126,7 +126,9 @@ second of the script at which it starts:
    (B=1, Qp 256 x Tp 12288), timed for kernel K9's row (its plain check
    runs in phase 5c's worker process).  Times with CUDA events.
 8. K4 + walk-back vs plain and vs the native dense DP, calm 2175^2 path
-   (K4's plain version in a worker process, the walk-back's on the card).
+   (K4's plain version in a worker process, the walk-back's on the card),
+   and the shared-memory load-to-use latency by a pointer chase on the
+   card: the walk-back's chain floor, a latency per step.
 9. Chromosome-scale -E yes (kernel K2, the cluster kernel ring_kernel):
    a. K2 through find_batched(stream=True) on forced batches: a ragged
       est2genome B=3 at Qp 2304 (C = 9), a Qp 256 pair (C = 1), a Qp 768
@@ -164,11 +166,16 @@ second of the script at which it starts:
       1.145 Mb) through optimal.find_path on its box.  Its cube is over
       the card's budget and its native traceback over the host's, so it
       runs the checkpointed traceback: forward segments on K2, the walk
-      back re-running segments from saved carry rings on K4 on a cluster.
+      back re-running segments from saved carry rings on K4 on a cluster
+      and walking each on the card (the walk-back kernel's segment entry
+      point, its launches and summed ms by CUDA events).
       Its score and box must equal the third scan's and no match step may
       enter a masked cell; the first 1,200 diagonals of the walk's first
       segment are held to the plain version from the same rings in a
-      worker.
+      worker; the segment walk is held to the plain version exactly over
+      CK_WALK_DIAGS diagonals of a walked segment's planes from the
+      path's cell at their top (ops, exit cell, state and status), and
+      its ops to that stretch of the path.
    e. K2 (region, masked) at the main path's shape against the plain
       version: the first masked whole-target scan's inputs over 1,200
       diagonals through the first copy's cells, continuing the carry
@@ -233,7 +240,9 @@ chunk's shards of phase 6c and K8's over the 2-chunk chain of phase 4b,
 each plain launch on its own core and summed; K2's over phase 9e's span
 of the chromosome's diagonals, as the plain loop would take hours over
 all of them), the bound: the larger of the bytes moved over 3.35 TB/s
-and the int32 operations over the int32 peak, and the library call:
+and the int32 operations over the int32 peak (for the walk-back's two
+entry points the larger of the bytes and the chain floor, a shared-
+memory load-to-use latency per step), and the library call:
 none computes these DPs; T1's row, int32 mix, with 0 main-path launches
 and its tool's launches beside them, its plain loop on the card), and
 the result object.
@@ -269,7 +278,8 @@ DEADLINE_S = 1100                        # the plain checks' last moment
 # chain, one instruction per add, ran at 91 a clock, over the 64 of
 # either pipe alone): 33.5 T int32 operations/s
 HBM_BYTES_S = 3.35e12
-INT32_OPS_S = 128 * 132 * 1.98e9
+CLOCK_HZ = 1.98e9
+INT32_OPS_S = 128 * 132 * CLOCK_HZ
 # worker pools and temporary directories, closed when the script ends
 _EXIT = contextlib.ExitStack()
 SCAN_ARGV = ["-m", "est2genome", "--bestn", "1", "--maxintron", "20000",
@@ -306,6 +316,9 @@ CH_WIN, CH_SCORE, CH_PATH_SCORE = 20_000, 5000, 2000
 # CH_SPAN_AT, continuing the rings of a launch over [0, CH_SPAN_AT): the
 # first copy's cells under its own mask, held to the plain version
 CH_SPAN_AT, CH_SPAN_DIAGS = 302_000, 1200
+# step 9d: the segment walk-back held to its plain version over this many
+# diagonals (at least CH_SPAN_DIAGS) of a walked segment's planes
+CK_WALK_DIAGS = 2048
 CH_SPAN = CALM_LEN + 2 * CH_INTRON
 LOCUS_ARGV = ["-m", "est2genome", "--bestn", "10", "--maxintron", "20000",
               "--showvulgar", "yes", "--showalignment", "no"]
@@ -412,6 +425,27 @@ def _tb_valid(ki, tb: torch.Tensor, d0: int = 0) -> torch.Tensor:
     i = torch.arange(tb.shape[3], device=tb.device)[None, None, :]
     ok = (d - i >= 0) & (d - i <= tlen) & (i <= qlen)
     return ok[:, :, None, :].expand_as(tb)
+
+
+def _smem_load_clocks(cw, n: int = 20_000) -> float:
+    """Clocks per load of a chain of ``n`` dependent shared-memory loads
+    (``smem_chase_launch`` in csrc/walkback.cu): the walk-back's floor
+    per step."""
+    import ctypes
+    fn = cw._lib("walkback", "smem_chase_launch",
+                 [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    rc = fn(n, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"smem chase launch failed: CUDA error {rc}")
+    _sync()
+    return out[0].item() / n
+
+
+def _chain_floor_ms(steps: int, clocks: float) -> float:
+    """The least time of a walk of ``steps`` dependent steps, one
+    shared-memory load-to-use latency each, at 1.98 GHz."""
+    return steps * clocks / CLOCK_HZ * 1e3
 
 
 def _nbytes(*tensors) -> int:
@@ -2037,9 +2071,15 @@ def main() -> int:
     S, B1 = ki.S, 1
     k4_work = _wave_work(ki, 5 * 4 + B1 * D * S * W)
     # per step the walk reads one cube byte and one id-table column and
-    # writes one op
+    # writes one op; its chain floor is a shared-memory load-to-use
+    # latency per step (a pointer chase on the card, in clocks at 1.98 GHz)
+    smem_clocks = _smem_load_clocks(cw)
     report["walkback"] = (walk_err, walk_ms, walk_plain_ms,
-                          (k * (1 + 16 + 4) + _nbytes(stats) + 12, 6 * k))
+                          (k * (1 + 16 + 4) + _nbytes(stats) + 12, 6 * k), k)
+    print(f"walk-back tiles {wf.walk_tile(ki.walk.cpu(), ki.S)} (TD, TC); "
+          f"shared-memory load-to-use latency {smem_clocks:.2f} clocks "
+          f"(pointer chase) [{card}]: chain floor "
+          f"{_chain_floor_ms(k, smem_clocks):.4f} ms for {k} steps")
 
     # -- 9. chromosome-scale -E yes (kernel K2) ----------------------------
     _mark(t_start, "9, chromosome-scale -E yes")
@@ -2285,9 +2325,10 @@ def main() -> int:
     # tens of GB) over the card's budget and its native traceback over the
     # host's, so optimal.find_path runs it on the checkpointed traceback:
     # forward segments on K2, the walk back re-running segments on K4 on
-    # a cluster.  Driven on the box, as the -E loop's recursion calls it
-    # (its region scan on K2 first); the first diagonals of the walk's
-    # first segment are held to the plain version in a worker process.
+    # a cluster and walking each on the card (walk_segment).  Driven on
+    # the box, as the -E loop's recursion calls it (its region scan on K2
+    # first); the first diagonals of the walk's first segment are held to
+    # the plain version in a worker process.
     third = whole[2]
     t_score, t_qe, t_te, t_qs, t_ts = third["out"][:, 0].tolist()
     if not (CH_PATH_SCORE <= t_score < CH_SCORE) \
@@ -2300,8 +2341,9 @@ def main() -> int:
     for q, t in third["points"]:
         ck_sub.points.add((q, t))
         ck_sub.by_row.setdefault(t, set()).add(q)
-    ck = {"fwd": [], "path": [], "check": None}
+    ck = {"fwd": [], "path": [], "walk": [], "check": None, "window": None}
     real_seg = cw.wavefront_segment
+    real_walk = cw.walk_segment
 
     def spy_seg(ki, ring, span):
         before = (tuple(t.clone() for t in ring)
@@ -2321,31 +2363,53 @@ def main() -> int:
             ck["check_span"] = (span[0], span[0] + n)
         return out, tb
 
+    def spy_walk(planes, d0, cell, walk, cap):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        ops, res = real_walk(planes, d0, cell, walk, cap)
+        ev[1].record()
+        ck["walk"].append(ev)
+        top = int(cell[0, 0]) + int(cell[1, 0])
+        if ck["window"] is None and top - d0 >= CK_WALK_DIAGS:
+            # CK_WALK_DIAGS diagonals of the first segment walked from the
+            # path's cell at their top, for the check against the plain
+            # walk (after the run: its launches are not the main path's)
+            lo = top - CK_WALK_DIAGS + 1
+            ck["window"] = (planes[:, lo - d0:top - d0 + 1].clone(), lo,
+                            cell.clone(), walk, ops.clone(), d0)
+        return ops, res
+
     ck_time = {}
     observe.reset()
     zero_counts()
     cw.wavefront_segment = spy_seg
+    cw.walk_segment = spy_walk
     try:
-        with _timed(cw, WAVE_CLOCKS, ck_time):
+        with _timed(cw, dict(WAVE_CLOCKS, walk_segment=lambda *a, **k:
+                             "walk-back (segments)"), ck_time):
             t0 = time.perf_counter()
             ck_al = optimal.find_path(model, box, wdata, subopt=ck_sub,
                                       threshold=CH_PATH_SCORE, device=dev)
             ck_secs = time.perf_counter() - t0
     finally:
         cw.wavefront_segment = real_seg
+        cw.walk_segment = real_walk
     ck_launches = read_counts("the checkpointed traceback",
-                              ("K2", "K4", "K3"))
+                              ("K2", "K4", "K3", "walkback"))
     if observe.fallback_counts:
         raise RuntimeError(f"checkpointed traceback: fallbacks "
                            f"{dict(observe.fallback_counts)}")
     ck_seg_ms = [sum(a.elapsed_time(b) for a, b in ck[k])
-                 for k in ("fwd", "path")]
+                 for k in ("fwd", "path", "walk")]
     if ck_al is None or ck_al.score != t_score or (
             ck_al.region.query_start, ck_al.region.target_start,
             ck_al.region.query_length, ck_al.region.target_length) != (
             box.query_start, box.target_start, box.query_length,
             box.target_length) or ck["check"] is None \
-            or ck_launches["K2"] != 1 + len(ck["fwd"]):
+            or ck_launches["K2"] != 1 + len(ck["fwd"]) \
+            or ck_launches["walkback"] != len(ck["walk"]) \
+            or len(ck["walk"]) < len(ck["path"]):
         raise RuntimeError(f"checkpointed traceback of the third scan's box "
                            f"{box}: want score {t_score} over the whole box "
                            f"(launches {ck_launches}), got "
@@ -2364,13 +2428,53 @@ def main() -> int:
                            f"{(qi, tj)}, want {(t_qe, t_te)}; {blocked_steps}"
                            f" match steps into masked cells")
     ck_res = k2_pool.apply_async(_plain_span_check, (ck["check"],))
+    # the segment walk-back kernel against its plain version, exactly, on
+    # the window of the first segment's planes from the path's end cell:
+    # the same ops, exit cell, state and status, and those ops the
+    # stretch of the path the main run walked there
+    if ck["window"] is None:
+        raise RuntimeError("checkpointed traceback: no segment walk of "
+                           f"{CK_WALK_DIAGS} diagonals to check")
+    win, w_lo, w_cell, w_walk, w_ops, w_d0 = ck["window"]
+    w_cap = win.shape[1] + cw.WALK_SLACK
+    (g_ops, g_res), walk_win_ms = _cuda_call(
+        lambda: cw.walk_segment(win, w_lo, w_cell, w_walk, w_cap))
+    walk_win_ms = _cuda_ms(lambda: cw.walk_segment(
+        win, w_lo, w_cell, w_walk, w_cap), 5)
+    t0 = time.perf_counter()
+    p_ops, p_res = wf.plain_walk_segment(win, w_lo, w_cell,
+                                         w_walk, w_cap)
+    walk_win_plain_ms = (time.perf_counter() - t0) * 1e3
+    g_res, p_res = g_res.cpu(), p_res.cpu()
+    n_w = int(p_res[0, 0])
+    walk_seg_err = _max_err(g_res, p_res)
+    if not torch.equal(g_res, p_res) \
+            or not torch.equal(g_ops[0, :n_w].cpu(), p_ops[0, :n_w].cpu()) \
+            or int(p_res[4, 0]) != wf.WALK_LEFT \
+            or not torch.equal(g_ops[0, :n_w], w_ops[0, :n_w]):
+        raise RuntimeError(f"segment walk-back over diagonals {w_lo}-"
+                           f"{w_lo + win.shape[1] - 1} from {w_cell.tolist()}"
+                           f": kernel {g_res.tolist()} != plain "
+                           f"{p_res.tolist()}, or not the path's stretch")
+    walk_seg_work = (n_w * (1 + 16 + 4) + 5 * 4 + 3 * 4, 6 * n_w)
+    print(f"segment walk-back (walkback.cu's segment entry point) over "
+          f"{win.shape[1]} diagonals {w_lo}-{w_lo + win.shape[1] - 1} of "
+          f"the first walked segment's planes (from {w_d0}), from the "
+          f"path's end cell {w_cell[:, 0].tolist()} [{card}]: kernel "
+          f"{walk_win_ms:.4f} ms, plain {walk_win_plain_ms:.3f} ms (host "
+          f"clock); {n_w} ops, exit {p_res[1:4, 0].tolist()} left the "
+          f"window; == plain and == the path's stretch")
+    report["walk_segment"] = (walk_seg_err, walk_win_ms, walk_win_plain_ms,
+                              walk_seg_work, n_w)
+    del win, ck["window"]
     print(f"checkpointed traceback, the third forward iteration at --score "
           f"{CH_PATH_SCORE}: box {box.query_length} x {box.target_length} "
           f"at ({box.query_start}, {box.target_start}), score {t_score} "
           f"[{card}]: {ck_secs:.2f} s host clock; forward {len(ck['fwd'])} "
           f"segments on K2 {ck_seg_ms[0]:.3f} ms, walk back "
           f"{len(ck['path'])} segments on K4 (cluster) {ck_seg_ms[1]:.3f} ms"
-          f" (CUDA events); launches {ck_launches}; "
+          f", {len(ck['walk'])} segment walks on the card "
+          f"{ck_seg_ms[2]:.3f} ms (CUDA events); launches {ck_launches}; "
           f"{sum(op.length for op in ck_al.ops)} path steps, none a match "
           f"into a masked cell; the path's score and box equal the scan's; "
           f"plain check of the walk's first segment over diagonals "
@@ -2766,17 +2870,21 @@ def main() -> int:
     if over:
         raise RuntimeError(f"T1: {over} over the card's peak for the dtype:"
                            f" the compiler removed work")
-    # the build must issue an instruction per counted op at least: fewer
-    # means the compiler folded or merged rounds, as a rate over the peak
+    # the build must issue an instruction per counted op and element slot
+    # at least (instructions x the lanes each computes): fewer means the
+    # compiler folded or merged rounds, as a rate over the peak
     sass = t1.sass()
     for dtype, mix in t1.CASES:
-        n_ins = t1.issued(sass, dtype, mix)
-        want = t1.OPS_PER_ITER[mix] * t1.UNROLL
-        print(f"  SASS {t1.case_name(dtype, mix)}: {n_ins} instructions for "
-              f"{want} counted ops of {t1.UNROLL} rounds")
-        if n_ins < want:
+        n_slots = t1.issued(sass, dtype, mix)
+        want = t1.counted(dtype, mix)
+        print(f"  SASS {t1.case_name(dtype, mix)}: {n_slots} element slots "
+              f"({t1.LANES[dtype]} a instruction) for {want} counted ops "
+              f"of {t1.UNROLL} rounds of {t1.LANES[dtype]} elements; peak "
+              f"{t1.PEAK_PER_SM_CLOCK[dtype]} a clock per SM")
+        if n_slots < want:
             raise RuntimeError(f"T1 {t1.case_name(dtype, mix)}: the build "
-                               f"issues {n_ins} instructions for {want} ops")
+                               f"issues {n_slots} element slots for {want} "
+                               f"ops")
     for fn_name, ops in sass.items():
         print(f"  SASS {fn_name}: " + ", ".join(
             f"{k} {v}" for k, v in ops.most_common()))
@@ -2784,6 +2892,7 @@ def main() -> int:
                    if (r["dtype"], r["mix"]) == (torch.int32, "mix"))
     report["T1"] = (t1_err, t1_main["ms"], t1_plain_ms,
                     (2 * t1.B * t1.W * 4, t1_main["ops"]))
+    t1_ms = {(r["dtype"], r["mix"]): r["ms"] for r in t1_rows}
     del t1_rows
 
     src = "exonerate_tpu_torch/csrc/"
@@ -2796,7 +2905,10 @@ def main() -> int:
         ("K4 wavefront_path (calm 2175^2 x1; plain ms on one host core)",
          "K4", "K4",
          src + "wavefront.cu", pw + ":1147"),
-        ("walkback (calm 2175^2 x1)", "walkback", "walkback",
+        ("walkback: one warp a walk over tiles of the cube in shared "
+         "memory (calm 2175^2 x1; plain ms on the card; bound: the larger "
+         "of the bytes and the chain floor, a shared-memory load-to-use "
+         "latency per step)", "walkback", "walkback",
          src + "walkback.cu", pw + ":1550"),
         (f"K6 band_reverse ({name_g}, Q {q_g} x W {w_g}; plain ms on one "
          f"host core)", "K6", "K6",
@@ -2835,13 +2947,41 @@ def main() -> int:
     ]
     rows = []
     for kname, lkey, rkey, source, replaces in kernels:
-        err, ms, plain_ms, (n_bytes, n_ops) = report[rkey]
+        err, ms, plain_ms, (n_bytes, n_ops) = report[rkey][:4]
         bound_ms, bound_by = _bound(n_bytes, n_ops)
         rows.append({"name": kname, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": main_launches[lkey],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None})
+        if rkey == "walkback":
+            # a chain of dependent steps: its floor beside the bytes
+            floor = _chain_floor_ms(report[rkey][4], smem_clocks)
+            rows[-1].update(bytes_bound_ms=bound_ms, chain_floor_ms=floor,
+                            smem_load_clocks=smem_clocks)
+            if floor > bound_ms:
+                rows[-1].update(bound_ms=floor, bound_by="operations")
+    # the segment entry point of the same source (the checkpointed
+    # traceback's walk, phase 9d): its launches are 9d's segment walks
+    err, ms, plain_ms, (n_bytes, n_ops), n_w = report["walk_segment"]
+    bytes_ms = _bound(n_bytes, n_ops)[0]
+    floor = _chain_floor_ms(n_w, smem_clocks)
+    rows.append({"name": f"walk_segment: the walk-back's segment entry "
+                         f"point, in place of the JAX package's host walk "
+                         f"(exonerate_tpu/engine/wavefront.py:762; the "
+                         f"checkpointed traceback, phase 9d; "
+                         f"timed over a window of {CK_WALK_DIAGS} diagonals"
+                         f" of a walked segment's planes, {n_w} steps; plain"
+                         f" ms on the host; the 9d run's {len(ck['walk'])} "
+                         f"segment walks took {ck_seg_ms[2]:.3f} ms; bound: "
+                         f"as the walk-back's)",
+                 "route": "cuda", "source": src + "walkback.cu",
+                 "replaces": pw + ":1550",
+                 "launches": len(ck["walk"]), "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, floor),
+                 "bound_by": "operations" if floor > bytes_ms else "bytes",
+                 "library_ms": None, "bytes_bound_ms": bytes_ms,
+                 "chain_floor_ms": floor})
     err, ms, plain_ms, (n_bytes, n_ops) = report["T1"]
     bound_ms, bound_by = _bound(n_bytes, n_ops)
     rows.append({"name": f"T1 vpu16: the elementwise-throughput probe "
@@ -2866,8 +3006,9 @@ def main() -> int:
               f"{_bound(*fwd)[0]:.3f} ms ({_bound(*fwd)[1]}; kernel "
               f"{k7:.3f} ms)")
     # the rows whose kernels run the compiled plan, beside their times
-    # with the plan interpreted (PERF.md section 6, in brackets: another
-    # run on an NVIDIA H100 80GB HBM3 at 700 W)
+    # with the plan interpreted, and the walk-back's and T1's beside their
+    # times before their redesign (PERF.md section 6, in brackets: other
+    # runs on an NVIDIA H100 80GB HBM3 at 700 W)
     for row, now, interp_ms in (
             ("K1 region calm 2175^2 x64", report["K1_region"][1], 573.624),
             ("K1 score calm 2175^2 x64", report["K1_score"][1], None),
@@ -2880,14 +3021,19 @@ def main() -> int:
              (1126.465, 3348.963)),
             ("K6 / K7 protein2genome scan, forced", (pk_rev, pk_fwd),
              (689.791, 1831.065)),
-            ("K8 the 2-chunk chain, 4 launches", k8_chain_ms, 3559.789)):
+            ("K8 the 2-chunk chain, 4 launches", k8_chain_ms, 3559.789),
+            ("walk-back calm 2175^2 x1 (before: one thread a pair)",
+             walk_ms, 0.501),
+            ("T1 bfloat16 add / mix, int8 add, packed (before: one element "
+             "a thread)", tuple(t1_ms[k] for k in (
+                 (torch.bfloat16, "add"), (torch.bfloat16, "mix"),
+                 (torch.int8, "add"))), (0.826, 6.649, 1.287))):
         fmt = (" / ".join(f"{x:.3f}" for x in now)
                if isinstance(now, tuple) else f"{now:.3f}")
         old = ("not recorded" if interp_ms is None else
                (" / ".join(map(str, interp_ms)) if isinstance(interp_ms, tuple)
                 else str(interp_ms)) + " ms")
-        print(f"redesigned row {row} [{card}]: {fmt} ms (the plan "
-              f"interpreted: {old})")
+        print(f"redesigned row {row} [{card}]: {fmt} ms (before: {old})")
     print(f"main-path launches {main_launches}; script "
           f"{time.perf_counter() - t_start:.1f} s")
     print(_card_line())

@@ -15,7 +15,9 @@ kernels, each behind a wrapper with a launch counter:
   (``ring_in_smem``), else in global memory;
 - K4 ``wavefront_path`` (the same source, mode path) replaces its path
   mode (``:1147``), which writes each state's winning plan id per cell;
-- ``walkback`` (``csrc/walkback.cu``) replaces ``_build_walkback:1550``.
+- ``walkback`` (``csrc/walkback.cu``) replaces ``_build_walkback:1550``;
+  ``walk_segment``, its entry point from a given cell and state over a
+  segment's planes, walks the checkpointed traceback on the card.
 
 K5, the sharded locus prescan (``find_batched_sharded``,
 ``pallas_wavefront.py:1470``), is K1 data-parallel over a list of
@@ -924,27 +926,36 @@ def wavefront_path(ki: KernelInputs, cluster: bool = False):
 wavefront_path.launches = 0
 
 
+def _check_walk(name: str, tb: torch.Tensor, **rows) -> tuple:
+    """(B, D, S, W) of ``tb``, a contiguous uint8 cube or segment's
+    planes; each of ``rows`` (name=(tensor, rows)) must be a contiguous
+    int32 (rows, B) tensor on its device (the id table: (4, ids))."""
+    if tb.dtype != torch.uint8 or tb.dim() != 4 or not tb.is_contiguous():
+        raise ValueError(f"{name}: tb must be a contiguous (B, D, S, W) "
+                         f"uint8 tensor")
+    B = tb.shape[0]
+    for arg, (t, n) in rows.items():
+        shape = (n, t.shape[-1] if arg == "walk" else B)
+        if t.device != tb.device or t.dtype != torch.int32 \
+                or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} must be contiguous int32 "
+                             f"{shape} on {tb.device}")
+    if tb.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no walk-back engine for device {tb.device}")
+    return tuple(tb.shape)
+
+
 def walkback(tb: torch.Tensor, stats: torch.Tensor, walk: torch.Tensor,
              end_id: int, cap: int):
     """Walk-back of every pair from its end cell (rows 1, 2 of
     ``stats``) to a transition from START.  Returns (ops (B, cap) int32
     plan ids end->start, res (3, B) int32: n_ops, query_start,
     target_start)."""
+    B, D, S, W = _check_walk("walkback", tb, stats=(stats, 5),
+                             walk=(walk, 4))
     dev = tb.device
-    if tb.dtype != torch.uint8 or tb.dim() != 4 or not tb.is_contiguous():
-        raise ValueError("walkback: tb must be a contiguous (B, D, S, W) "
-                         "uint8 tensor")
-    B, D, S, W = tb.shape
-    for name, t, shape in (("stats", stats, (5, B)),
-                           ("walk", walk, (4, walk.shape[-1]))):
-        if t.device != dev or t.dtype != torch.int32 \
-                or not t.is_contiguous() or tuple(t.shape) != shape:
-            raise ValueError(f"walkback: {name} must be contiguous int32 "
-                             f"{shape} on {dev}")
     if dev.type == "cpu":
         return wf.plain_walkback(tb, stats, walk, end_id, cap)
-    if dev.type != "cuda":
-        raise ValueError(f"no walk-back engine for device {dev}")
     fn = _lib("walkback", "walkback_launch",
               [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P])
     ops = torch.empty((B, cap), dtype=torch.int32, device=dev)
@@ -953,6 +964,36 @@ def walkback(tb: torch.Tensor, stats: torch.Tensor, walk: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(tb.data_ptr(), stats.data_ptr(), walk.data_ptr(),
                 walk.shape[1], end_id, B, D, S, W, cap, ops.data_ptr(),
+                res.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"walk-back kernel launch failed: CUDA error {rc}")
+    count(walkback)
+    return ops, res
+
+
+def walk_segment(planes: torch.Tensor, d0: int, cell: torch.Tensor,
+                 walk: torch.Tensor, cap: int):
+    """The walk-back over one segment of the checkpointed traceback: each
+    pair from ``cell`` ((3, B) int32 rows i, j, state) over ``planes``,
+    the (B, D, S, W) uint8 planes of diagonals [d0, d0 + D) that
+    ``wavefront_segment`` returns, until id 0, a transition from START,
+    ``cap`` steps or a cell below d0.  Returns (ops (B, cap) int32 plan
+    ids end->start, res (5, B) int32: n_ops, i, j, state and status, the
+    ``wavefront.WALK_*`` code of why it stopped), both on the planes'
+    device.  Counted as a ``walkback`` launch."""
+    B, D, S, W = _check_walk("walk_segment", planes, cell=(cell, 3),
+                             walk=(walk, 4))
+    dev = planes.device
+    if dev.type == "cpu":
+        return wf.plain_walk_segment(planes, d0, cell, walk, cap)
+    fn = _lib("walkback", "walk_segment_launch",
+              [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P])
+    ops = torch.empty((B, cap), dtype=torch.int32, device=dev)
+    res = torch.empty((5, B), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(planes.data_ptr(), d0, cell.data_ptr(), walk.data_ptr(),
+                walk.shape[1], B, D, S, W, cap, ops.data_ptr(),
                 res.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"walk-back kernel launch failed: CUDA error {rc}")

@@ -200,10 +200,11 @@ def find_path_checkpointed(model: Model, region: Region, data, subopt=None,
     A forward pass over segments of traceback planes (K2, score mode)
     saves the carry rings before each segment; the walk back from the
     best end cell re-runs, from its saved rings, only the segments the
-    path crosses, in path mode (K4 on a cluster), and walks their planes
-    on the host, ``budget_bytes`` of them at a time; a segment holds up
-    to ``_segment_bytes`` of them.  The path is the full cube's: the same
-    cells and the same first-max choices."""
+    path crosses, in path mode (K4 on a cluster), and walks each one's
+    planes where they lie (``cuda_wavefront.walk_segment``: the walk-back
+    kernel on a card); a segment holds ``_segment_bytes`` of planes, a
+    multiple of ``budget_bytes``' diagonals.  The path is the full
+    cube's: the same cells and the same first-max choices."""
     dev = device if device is not None else cuda_wavefront.default_device()
     Q, T = region.query_length, region.target_length
     D = Q + T + 1
@@ -237,33 +238,36 @@ def find_path_checkpointed(model: Model, region: Region, data, subopt=None,
         res.path = []
         return res
 
-    # walk back (ref: Viterbi_Data_create_Alignment, viterbi.c:342-392)
+    # walk back (ref: Viterbi_Data_create_Alignment, viterbi.c:342-392):
+    # each segment the path crosses, from the last, re-run in path mode
+    # from its saved rings and walked on the planes' device from the
+    # cell and state the segment after it left; only that exit comes to
+    # the host per segment, the ops once at the end
     plan_ts = cuda_wavefront._plan_transitions(model)
-    aq_t, at_t, in_t, fs_t = ki.walk.tolist()
-    i, j, state = bi, bj, ki.end_id
-    ops: list = []
-    cur, planes, part, tb, lo = -1, None, -1, None, 0
+    cell = torch.tensor([[bi], [bj], [ki.end_id]], dtype=torch.int32,
+                        device=dev)
+    k = (bi + bj) // seg
+    parts = []
     while True:
+        ring = tuple(t.clone() for t in saved[k])
+        _, planes = cuda_wavefront.wavefront_segment(ki, ring, spans[k])
+        cap = spans[k][1] - spans[k][0] + cuda_wavefront.WALK_SLACK
+        while True:
+            ops, res = cuda_wavefront.walk_segment(planes, spans[k][0], cell,
+                                                   ki.walk, cap)
+            n, i, j, _state, status = res[:, 0].tolist()
+            parts.append(ops[0, :n])
+            cell = res[1:4].clone()
+            if status != wf.WALK_CAP:
+                break
+        del planes
+        if status == wf.WALK_BAD:
+            raise RuntimeError(f"checkpointed traceback: not a plan id at "
+                               f"({i}, {j})")
+        if status != wf.WALK_LEFT:
+            break
         k = (i + j) // seg
-        if k != cur:
-            ring = tuple(t.clone() for t in saved[k])
-            planes = None
-            _, planes = cuda_wavefront.wavefront_segment(ki, ring, spans[k])
-            cur, part = k, -1
-        c = (i + j - spans[k][0]) // chunk
-        if c != part:
-            # the chunk of the segment's planes the walk is in, on the host
-            tb = planes[0, c * chunk:(c + 1) * chunk].cpu().numpy()
-            lo, part = spans[k][0] + c * chunk, c
-        tid = int(tb[i + j - lo, state, i])
-        if tid == 0:
-            break
-        ops.append(tid)
-        i -= aq_t[tid]
-        j -= at_t[tid]
-        state = in_t[tid]
-        if fs_t[tid]:
-            break
+    ops = torch.cat(parts).tolist()
     res = DPResult(score=score, query_end=bi, target_end=bj,
                    query_start=i, target_start=j)
     res.path = [plan_ts[tid - 1] for tid in reversed(ops)]

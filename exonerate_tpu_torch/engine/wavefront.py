@@ -8,10 +8,12 @@ Counterpart of ``exonerate_tpu/engine/wavefront.py``.  Two parts:
   the SubOpt mask plane is written from the mask's points at the padded
   width (``blocked_plane``), with the bits the JAX module's dense grid,
   packed and re-packed by ``_pad_inputs``, gives.
-- ``plain_wavefront`` / ``plain_walkback``: the plain PyTorch version of
-  the hand-written kernels in ``csrc/wavefront.cu`` (K1 score/region, K4
-  path) and ``csrc/walkback.cu``.  It interprets the same plan table
-  (built by ``cuda_wavefront.to_kernel_inputs``) with a Python loop over
+- ``plain_wavefront`` / ``plain_walkback`` / ``plain_walk_segment``: the
+  plain PyTorch version of the hand-written kernels in
+  ``csrc/wavefront.cu`` (K1 score/region, K4 path) and
+  ``csrc/walkback.cu`` (its two entry points).  It interprets the same
+  plan table (built by ``cuda_wavefront.to_kernel_inputs``) with a
+  Python loop over
   anti-diagonals and torch ops on ``(B, Qp+1)`` int32 planes, in the
   guarded cell semantics of the Pallas body
   (``pallas_wavefront.py:832-1040``): per-transition source masks,
@@ -587,6 +589,65 @@ def plain_wavefront(ki: KernelInputs, span=None, ring=None):
     return out, tb
 
 
+# why a walk stopped (``plain_walk_segment``'s status, ``csrc/walkback.cu``)
+WALK_END = 0       # id 0: no transition into the cell
+WALK_START = 1     # after a transition from START
+WALK_CAP = 2       # ``cap`` steps taken
+WALK_LEFT = 3      # the next cell's diagonal is below the segment's first
+WALK_BAD = 4       # not a plan id
+
+# csrc/walkback.cu's tiles: query columns, the bytes of one buffer (rows
+# of TC / 16 + 1 16-byte blocks, a row's first byte anywhere in its 16),
+# and the diagonals and columns a tile in flight reaches past the walk's
+# course
+WALK_TC = 64
+WALK_ROW_BYTES = 16 * (WALK_TC // 16 + 1)
+WALK_TILE_BYTES = 112 * 1024
+WALK_MARGIN = 4
+
+
+def walk_tile(walk: torch.Tensor, S: int) -> tuple:
+    """(TD, TC): the diagonals and query columns of the walk-back kernel's
+    tiles for the id table ``walk`` and S states (``load_table`` in
+    ``csrc/walkback.cu``): TD = TC x the most diagonals a step spends per
+    query column, capped to the rows a buffer holds."""
+    aq, at = walk[0].tolist(), walk[1].tolist()
+    r = max([1] + [-(-(a + t) // a) for a, t in zip(aq[1:], at[1:])
+                   if a > 0])
+    rows = WALK_TILE_BYTES // WALK_ROW_BYTES
+    return max(1, min(WALK_TC * r, rows // S)), WALK_TC
+
+
+def _walk(tbn: np.ndarray, d0: int, segment: bool, i: int, j: int, s: int,
+          cap: int, tables: tuple, ops: np.ndarray) -> tuple:
+    """One walk over the (D, S, W) planes ``tbn`` of diagonals [d0, d0 +
+    D) from cell (i, j) in state s, its ids written to ``ops``; d and i
+    are clamped into the planes, and with ``segment`` a cell whose
+    diagonal is below d0 stops the walk (WALK_LEFT).  Returns (n_ops, i,
+    j, s, status)."""
+    D, _, W = tbn.shape
+    aq_t, at_t, in_t, fs_t = tables
+    k = 0
+    while True:
+        d = i + j
+        if segment and d < d0:
+            return k, i, j, s, WALK_LEFT
+        tid = int(tbn[min(max(d - d0, 0), D - 1), s, min(max(i, 0), W - 1)])
+        if tid == 0:
+            return k, i, j, s, WALK_END
+        if k >= cap:
+            return k, i, j, s, WALK_CAP
+        if tid >= len(aq_t):
+            return k, i, j, s, WALK_BAD
+        ops[k] = tid
+        k += 1
+        i -= aq_t[tid]
+        j -= at_t[tid]
+        s = in_t[tid]
+        if fs_t[tid]:
+            return k, i, j, s, WALK_START
+
+
 def plain_walkback(tb: torch.Tensor, stats: torch.Tensor,
                    walk: torch.Tensor, end_id: int, cap: int):
     """Walk the traceback cube back from each pair's best end cell
@@ -596,31 +657,44 @@ def plain_walkback(tb: torch.Tensor, stats: torch.Tensor,
     (rows 1, 2 are the end cell), ``walk`` the (4, P+1) id table.
     Returns ``(ops, res)``: (B, cap) int32 plan ids end->start, and
     (3, B) int32 rows n_ops, query_start, target_start.  A walk stops on
-    id 0 or at ``cap`` steps (n_ops == cap marks it unusable), and ends
-    after a transition from START."""
-    B, D, S, W = tb.shape
+    id 0 or at ``cap`` steps (n_ops == cap marks it unusable, as does an
+    id that is not a plan id), and ends after a transition from START."""
+    B = tb.shape[0]
     tbn = tb.cpu().numpy()
     qe, te = stats[1].tolist(), stats[2].tolist()
-    aq_t, at_t, in_t, fs_t = walk.tolist()
+    tables = tuple(walk.tolist())
     ops = np.zeros((B, cap), np.int32)
     res = np.zeros((3, B), np.int32)
     for b in range(B):
-        k, i, j, s = 0, qe[b], te[b], end_id
-        while True:
-            tid = int(tbn[b, min(max(i + j, 0), D - 1), s,
-                          min(max(i, 0), W - 1)])
-            if tid == 0 or k >= cap:
-                break
-            if tid >= len(aq_t):     # not a plan id: an overlong walk
-                k = cap
-                break
-            ops[b, k] = tid
-            k += 1
-            i -= aq_t[tid]
-            j -= at_t[tid]
-            s = in_t[tid]
-            if fs_t[tid]:
-                break
-        res[:, b] = (k, i, j)
+        k, i, j, _s, status = _walk(tbn[b], 0, False, qe[b], te[b], end_id,
+                                    cap, tables, ops[b])
+        res[:, b] = (cap if status == WALK_BAD else k, i, j)
     return (torch.from_numpy(ops).to(tb.device),
             torch.from_numpy(res).to(tb.device))
+
+
+def plain_walk_segment(planes: torch.Tensor, d0: int, cell: torch.Tensor,
+                       walk: torch.Tensor, cap: int):
+    """Walk each pair's segment of traceback planes back from a given cell
+    and state: the plain version of ``csrc/walkback.cu``'s segment entry
+    point, which walks the checkpointed traceback's segments on the card.
+
+    ``planes`` is (B, D, S, W) uint8, the planes of diagonals [d0, d0 +
+    D) (``cuda_wavefront.wavefront_segment``'s); ``cell`` (3, B) int32
+    rows i, j, state.  A walk stops on id 0 (WALK_END), after a
+    transition from START (WALK_START), at ``cap`` steps (WALK_CAP), when
+    the next cell's diagonal falls below d0 (WALK_LEFT) or on an id that
+    is not a plan id (WALK_BAD).  Returns ``(ops, res)``: (B, cap) int32
+    plan ids end->start, and (5, B) int32 rows n_ops, i, j, state,
+    status: the cell and state it stopped at."""
+    B = planes.shape[0]
+    tbn = planes.cpu().numpy()
+    start = cell.tolist()
+    tables = tuple(walk.tolist())
+    ops = np.zeros((B, cap), np.int32)
+    res = np.zeros((5, B), np.int32)
+    for b in range(B):
+        res[:, b] = _walk(tbn[b], d0, True, start[0][b], start[1][b],
+                          start[2][b], cap, tables, ops[b])
+    return (torch.from_numpy(ops).to(planes.device),
+            torch.from_numpy(res).to(planes.device))

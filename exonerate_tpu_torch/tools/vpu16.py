@@ -4,21 +4,32 @@ Counterpart of ``tools/vpu16.py`` (``build:29``, ``pl.pallas_call`` at
 ``:60``), which times the TPU's vector unit on the wavefront's op mix
 (add, compare, select, max) per dtype, to learn whether narrowing the
 score planes from int32 would buy anything.  Here the kernel is
-``csrc/vpu16.cu``: one element per thread, the accumulator in a register,
-``steps * iters`` rounds of the mix with ``b = x``; ``plain`` is the same
-loop of torch ops, for the CPU tests and the check on the card.
+``csrc/vpu16.cu``: ``LANES`` elements per thread in one 32-bit register
+(two for bfloat16, four for int8; one for int16, whose ops the card has
+no packed form of), the accumulator in a register, ``steps * iters``
+rounds of the mix with ``b = x``; ``plain`` is the same loop of torch
+ops, for the CPU tests and the check on the card.
 
     python -m exonerate_tpu_torch.tools.vpu16 [--sass]
 
 prints, on the card, each case's best of five runs (CUDA events), its
-rate and its bound: the counted operations over the card's peak for the
-dtype's add at 132 SMs and 1.98 GHz.  The peaks, in results per SM per
-clock, from the CUDA C++ Programming Guide's arithmetic-instruction
-throughput for compute capability 9.0: 128 for 32-bit integers (64 on
-the integer pipe, IADD3, and 64 on the multiply-add pipe, where ptxas
-issues the other adds as IMAD.IADD; the rate int16 and int8 get
-unpacked); 128 for float32; 256 for bf16x2.  ``--sass`` also prints each
-instantiation's instructions from ``cuobjdump -sass`` of the build.
+rate and its bound: the counted element operations over the card's
+peak for the instruction the case issues, at 132 SMs and 1.98 GHz.  The
+peaks, in results per SM per clock, from the CUDA C++ Programming
+Guide's arithmetic-instruction throughput table for compute capability
+9.0, times ``LANES``, the lanes each issued instruction computes:
+- 32-bit integer add (the row "32-bit integer add, extended-precision
+  add, subtract"): 64 on the integer pipe (IADD3) and 64 on the
+  multiply-add pipe, where ptxas issues the other adds as IMAD.IADD, so
+  128 instructions a clock; int32 one lane, int16 one (its ops are
+  unpacked: the card has no .s16x2 add, sub or compare;
+  ``tools/torch_vpu16_forms.py`` times the packed candidates), int8 four
+  (its add is a 32-bit add over four byte lanes), so 128 / 128 / 512;
+- float32 ("32-bit floating-point add, multiply, multiply-add"): 128;
+- bfloat16 ("16-bit floating-point add, multiply, multiply-add", bf16x2
+  counted as two results): 256.
+``--sass`` also prints each instantiation's instructions from
+``cuobjdump -sass`` of the build.
 """
 from __future__ import annotations
 
@@ -52,9 +63,13 @@ _DTYPE_CODE = {torch.int32: 0, torch.int16: 1, torch.float32: 2,
                torch.bfloat16: 3, torch.int8: 4}
 _MIX_CODE = {"add": 0, "mix": 1, "mix16": 2}
 
-# the card's peak for the dtype's add, results per SM per clock
-PEAK_PER_SM_CLOCK = {torch.int32: 128, torch.int16: 128, torch.int8: 128,
-                     torch.float32: 128, torch.bfloat16: 256}
+# elements per thread, the lanes of its 32-bit register (csrc/vpu16.cu's
+# Lanes): each instruction a case issues computes all of them
+LANES = {torch.int32: 1, torch.int16: 1, torch.float32: 1,
+         torch.bfloat16: 2, torch.int8: 4}
+# the card's peak for the instruction each dtype's case issues, results
+# (lanes) per SM per clock: 128 instructions a clock x LANES
+PEAK_PER_SM_CLOCK = {d: 128 * n for d, n in LANES.items()}
 SMS, CLOCK_HZ = 132, 1.98e9
 
 
@@ -70,8 +85,8 @@ def n_ops(mix: str, n: int = B * W, steps: int = STEPS,
 
 def bound_ms(dtype: torch.dtype, mix: str, n: int = B * W,
              steps: int = STEPS, iters: int = ITERS) -> float:
-    """The least time the card could take: the counted operations over
-    the dtype's peak (one read of x and one write are negligible)."""
+    """The least time the card could take: the counted element operations
+    over the dtype's peak (one read of x and one write are negligible)."""
     return n_ops(mix, n, steps, iters) / peak_ops_s(dtype) * 1e3
 
 
@@ -113,6 +128,9 @@ def vpu16(x: torch.Tensor, mix: str, steps: int = STEPS,
                          f"multiple of {UNROLL}")
     if not x.is_contiguous():
         raise ValueError("vpu16: x must be contiguous")
+    if x.numel() % LANES[x.dtype]:
+        raise ValueError(f"vpu16: {x.numel()} elements of {x.dtype} do not "
+                         f"fill registers of {LANES[x.dtype]}")
     if x.device.type == "cpu":
         return plain(x, mix, steps, iters)
     if x.device.type != "cuda":
@@ -227,16 +245,24 @@ def sass() -> dict:
 
 
 def issued(counts: dict, dtype: torch.dtype, mix: str) -> int:
-    """The instructions (NOPs aside) of the case's instantiation in
-    ``sass()``'s counts: its loop of UNROLL rounds and a few dozen of
-    set-up.  Under ``OPS_PER_ITER[mix] * UNROLL`` the build issues fewer
+    """The element slots the case's instantiation in ``sass()``'s counts
+    issues: its instructions (NOPs aside; its loop of UNROLL rounds and a
+    few dozen of set-up) times ``LANES[dtype]``, the lanes each one
+    computes.  Under ``counted(dtype, mix)`` the build issues fewer
     instructions than the ops it counts (rounds folded or merged)."""
     tag = f"ILi{_DTYPE_CODE[dtype]}ELi{_MIX_CODE[mix]}E"
     found = [c for fn, c in counts.items() if tag in fn]
     if len(found) != 1:
         raise RuntimeError(f"vpu16: {len(found)} instantiations of "
                            f"{case_name(dtype, mix)} in the SASS")
-    return sum(n for op, n in found[0].items() if op != "NOP")
+    return LANES[dtype] * sum(n for op, n in found[0].items()
+                              if op != "NOP")
+
+
+def counted(dtype: torch.dtype, mix: str) -> int:
+    """The element ops of UNROLL rounds of one register's LANES elements,
+    which ``issued`` must reach."""
+    return OPS_PER_ITER[mix] * UNROLL * LANES[dtype]
 
 
 def main(argv: Optional[list] = None) -> int:

@@ -15,7 +15,9 @@ run on the CPU:
 - three Waterman-Eggert iterations (the later ones masked) of
   est2genome, affine:local and protein2genome: the port's checkpointed
   path equals the JAX package's ``find_path_checkpointed`` (XLA) and the
-  port's full-cube path (K4);
+  port's full-cube path (K4), each segment walked back through
+  ``cuda_wavefront.walk_segment`` (on the CPU its plain version, which
+  counts no launch);
 - an ``-E yes`` run whose every path DP takes the checkpointed route,
   byte-equal to the JAX CLI.
 
@@ -112,9 +114,23 @@ def test_checkpointed_traceback_matches_jax(name, monkeypatch):
     jbudget = (Q + 1) * S * (D // 3)
     sub, jsub = SubOpt(), JSubOpt()
     observe.reset()
+    walks = []
+    real_walk = cw.walk_segment
+
+    def spy(planes, d0, cell, walk, cap):
+        walks.append((d0, planes.shape[1]))
+        return real_walk(planes, d0, cell, walk, cap)
+
+    monkeypatch.setattr(cw, "walk_segment", spy)
+    launches = cw.walkback.launches
     for it in range(3):
+        del walks[:]
         got = topt.find_path_checkpointed(model, region, data, sub,
                                           budget_bytes=budget, device=CPU)
+        # a walk per segment the path crosses, the last one first
+        assert walks and walks == sorted(walks, reverse=True)
+        assert walks[0][0] <= got.query_end + got.target_end \
+            < sum(walks[0])
         want = jwf.find_path_checkpointed(jmodel, jregion, jdata, jsub,
                                           budget_bytes=jbudget)
         assert dp_key(got) == dp_key(want), f"iteration {it}"
@@ -134,6 +150,7 @@ def test_checkpointed_traceback_matches_jax(name, monkeypatch):
         jsub.add_alignment(jopt._to_alignment(jmodel, jregion, want))
     assert it == 2
     assert not observe.fallback_counts
+    assert cw.walkback.launches == launches
 
 
 def test_exhaustive_route_takes_the_checkpointed_traceback(monkeypatch,

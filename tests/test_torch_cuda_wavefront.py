@@ -321,6 +321,37 @@ def test_k4_and_walkback_equal_plain():
 
 
 @pytest.mark.gpu
+def test_walk_segment_equals_plain():
+    """The walk-back kernel's segment entry point against the plain
+    segment walk, from the end cells and from the cells a segment's walk
+    left, over segments of the cube of 37 and 300 diagonals."""
+    dev = _need_card()
+    _, ki = _e2g_inputs("path", ((0, 0, 100, 160), (10, 30, 120, 90)), dev)
+    stats, tb = cw.wavefront_path(ki)
+    D = tb.shape[1]
+    for seg in (37, 300):
+        cell = torch.stack([stats[1], stats[2],
+                            torch.full_like(stats[1], ki.end_id)])
+        walking = torch.ones_like(stats[1], dtype=torch.bool)
+        for _ in range(D // seg + 1):
+            d0 = int((cell[0] + cell[1])[walking].max()) // seg * seg
+            planes = tb[:, d0:d0 + seg].contiguous()
+            n = cw.walkback.launches
+            ops, res = cw.walk_segment(planes, d0, cell, ki.walk, 400)
+            assert cw.walkback.launches == n + 1
+            p_ops, p_res = twf.plain_walk_segment(planes, d0, cell, ki.walk,
+                                                  400)
+            assert torch.equal(res, p_res)
+            for b in range(ki.batch):
+                k = int(res[0, b])
+                assert torch.equal(ops[b, :k], p_ops[b, :k])
+            walking &= res[4] == twf.WALK_LEFT
+            if not walking.any():
+                break
+            cell = res[1:4].contiguous()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("mtname", ["PROTEIN2GENOME", "CODING2GENOME",
                                     "CDNA2GENOME"])
 def test_k1_k4_split_codon_equal_plain(mtname):
@@ -700,8 +731,11 @@ def test_checkpointed_traceback_on_the_card_equals_k4(monkeypatch):
         D = reg.query_length + reg.target_length + 1
         budget = (twf._bucket(reg.query_length) + 1) * len(m.states) \
             * (D // 4)
+        n = cw.walkback.launches
         got = topt.find_path_checkpointed(m, reg, dat, s,
                                           budget_bytes=budget, device=dev)
+        # the walk back runs on the card: a segment walk per segment
+        assert cw.walkback.launches > n
         assert (got.score, got.query_start, got.target_start,
                 got.query_end, got.target_end) == (
             want.score, want.query_start, want.target_start,

@@ -82,26 +82,58 @@ def test_build_raises_without_a_card(monkeypatch):
 
 
 def test_bound_and_peaks():
-    """The bound counts the JAX tool's operations over the dtype's peak
-    for an add (128 results per SM per clock for the integers and
-    float32, 256 for bf16x2)."""
+    """The bound counts the JAX tool's element operations over the peak of
+    the instruction the case issues: 128 instructions a clock per SM
+    times the lanes each computes (int32, int16 and float32 one, bf16x2
+    two, int8's packed add four)."""
     ops = B * W * STEPS * 16 * 6
     assert vpu16.n_ops("mix", B * W, STEPS) == ops
     assert vpu16.bound_ms(torch.int32, "mix", B * W, STEPS) == \
         pytest.approx(ops / (128 * 132 * 1.98e9) * 1e3)
+    assert vpu16.bound_ms(torch.bfloat16, "mix", B * W, STEPS) == \
+        pytest.approx(ops / (256 * 132 * 1.98e9) * 1e3)
+    assert vpu16.bound_ms(torch.int8, "add", B * W, STEPS) == \
+        pytest.approx(ops / 6 / (512 * 132 * 1.98e9) * 1e3)
     assert vpu16.peak_ops_s(torch.bfloat16) == \
-        2 * vpu16.peak_ops_s(torch.int8)
+        2 * vpu16.peak_ops_s(torch.int16)
+    assert vpu16.peak_ops_s(torch.int8) == 4 * vpu16.peak_ops_s(torch.int32)
     assert vpu16.peak_ops_s(torch.float32) == \
         vpu16.peak_ops_s(torch.int16)
+    for dtype in vpu16.LANES:
+        assert vpu16.PEAK_PER_SM_CLOCK[dtype] == 128 * vpu16.LANES[dtype]
+    # a 32-bit register of bf16 or int8 lanes; int16 unpacked (no .s16x2
+    # add, sub or compare on the card)
+    assert (vpu16.LANES[torch.bfloat16], vpu16.LANES[torch.int8],
+            vpu16.LANES[torch.int16]) == (2, 4, 1)
+
+
+def test_wrapper_fills_whole_registers():
+    """A register holds LANES elements: the wrapper refuses a tensor that
+    does not fill its last one."""
+    with pytest.raises(ValueError, match="registers"):
+        vpu16.vpu16(torch.ones(6, dtype=torch.int8), "add", 4, 16)
+    assert torch.equal(vpu16.vpu16(torch.ones(8, dtype=torch.int8), "add",
+                                   4, 16), torch.full((8,), 65, dtype=torch.int8))
 
 
 def test_issued_reads_the_case_from_the_sass_counts():
     """issued() picks a case's instantiation by its template arguments
-    and counts its instructions, NOPs aside."""
+    and counts the element slots its instructions compute, NOPs aside:
+    instructions times the lanes each one computes, against counted(),
+    the ops of UNROLL rounds of a register's elements."""
     from collections import Counter
     counts = {"_Z12vpu16_kernelILi0ELi1EEvPKi": Counter(IADD3=300, NOP=9),
-              "_Z12vpu16_kernelILi0ELi0EEvPKi": Counter(IADD3=64, BRA=3)}
+              "_Z12vpu16_kernelILi0ELi0EEvPKi": Counter(IADD3=64, BRA=3),
+              "_Z12vpu16_kernelILi3ELi1EEvPKj": Counter(HADD2=400, NOP=2),
+              "_Z12vpu16_kernelILi4ELi0EEvPKj": Counter(LOP3=192,
+                                                        IADD3=70)}
     assert vpu16.issued(counts, torch.int32, "mix") == 300
     assert vpu16.issued(counts, torch.int32, "add") == 67
+    assert vpu16.issued(counts, torch.bfloat16, "mix") == 800
+    assert vpu16.issued(counts, torch.int8, "add") == 4 * 262
+    assert vpu16.counted(torch.int32, "mix") == 6 * 64
+    assert vpu16.counted(torch.bfloat16, "mix") == 2 * 6 * 64
+    assert vpu16.counted(torch.int16, "mix16") == 6 * 64
+    assert vpu16.counted(torch.int8, "add") == 4 * 64
     with pytest.raises(RuntimeError, match="instantiations"):
-        vpu16.issued(counts, torch.int8, "add")
+        vpu16.issued(counts, torch.int16, "add")
