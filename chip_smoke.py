@@ -20,8 +20,12 @@ second of the script at which it starts:
    locus), on a ragged batch of synthetic est2genome pairs, a ner
    joint-span pair and, per split-codon model (protein2genome,
    coding2genome, cdna2genome), a ragged pair of jobs whose exons split
-   codons of both phases (kernel K9 inside K7; tests/torch_sdp_cases.py);
-   the plain passes, and run_kernel on the CPU, in worker processes
+   codons of both phases (kernel K9 inside K7; tests/torch_sdp_cases.py),
+   and the non-boundary models on K6/K7's TRACK_SID instantiation (their
+   reverse pass hands K7 each seed's start score in place of boundary
+   bits): a ragged affine:local batch with two seeds sharing a cell,
+   ungapped, protein2dna and coding2coding; the plain passes, and
+   run_kernel on the CPU (start scores included), in worker processes
    (read in phase 14).  Then the est2genome_genomic golden through the
    port's CLI on the forced device route, byte-equal to the golden
    (this first heuristic run also builds the host's native libraries,
@@ -78,6 +82,26 @@ second of the script at which it starts:
       The run's K1/K4 inputs are captured; each launch is made again and
       its plain version (with the walk-back's) starts in one more worker
       process.
+   d. The non-boundary scans (K6/K7 built with TRACK_SID), on the forced
+      device route: phase 4's 16 cDNAs under affine:local and phase 5b's
+      8 proteins under protein2dna, against phase 4's genome.  Every
+      comparison with seeds runs on the kernels (the pool plans a band
+      only for those), the TRACK_SID launches are counted, no fallback
+      but the hybrid's band-edge liveness (none expected), and the
+      output equals the native route's (a worker process, read in phase
+      14).  K6/K7 again on each launch of the scans' band batches (CUDA
+      events; the ring route of each launch), then on the affine:local
+      scan's widest comparison alone, held to the plain passes (start
+      scores; column best, live, xband) in two worker processes.
+   e. exonerate-server: the .esd / .esi of phase 4's genome built by the
+      port's db (unmasked); DeviceIndex over [cuda:0] and [cuda:0,
+      cuda:0] (every card where there are two or more) on 4,096
+      word-table words and two misses, equal to Index.lookup_word, timed
+      by CUDA events; then two servers in threads of this process, the
+      host index's and the device index's, and the port's CLI as their
+      client on 4 of the cDNAs, est2genome and the default model: the
+      two servers' outputs equal byte for byte, their vulgar lines the
+      local run's on the genome FASTA.
 6. The SubOpt mask (kernel K3, the MASKED instantiation of K1/K4 and of
    the cluster kernel K2), each run through the port's CLI with no
    fallback:
@@ -225,6 +249,8 @@ second of the script at which it starts:
     so does a build that issues fewer instructions than the ops it counts
     (the SASS of each instantiation, from cuobjdump).
 
+The device index of phase 5e is torch ops, not a kernel (the JAX
+package's is shard_map and jnp), and has no row in the kernels line.
 K5 and K8 are the JAX package's multi-device routes; on one card they
 check every shard, chunk and halo and time the kernels, but cannot show
 the overlap of several cards.  Phases 3-13 run on the card while the
@@ -289,6 +315,15 @@ C2G_ARGV = ["-m", "coding2genome", "--bestn", "1", "--maxintron", "20000",
 P2G_ARGV = ["-m", "protein2genome", "--bestn", "1", "--maxintron", "20000",
             "--showvulgar", "yes", "--showalignment", "no"]
 P2G_E_CUTOVER = 100_000      # optimal.NATIVE_TPU_CELLS for the p2g -E run
+# phase 5d, the non-boundary models on the forced device route (K6/K7
+# built with TRACK_SID): phase 4's cDNAs under affine:local and phase 5b's
+# proteins under protein2dna, against phase 4's genome
+NB_SCANS = (("affine:local", "q"), ("protein2dna", "p"))
+NB_ARGV = ["--bestn", "1", "--showvulgar", "yes", "--showalignment", "no"]
+# phase 5e, exonerate-server: word-table words looked up on the device
+# index (plus two misses), and the cDNAs the client aligns
+SRV_WORDS = 4096
+SRV_QUERIES = 4
 # the -E yes Waterman-Eggert window: calm's two copies interleaved from
 # WE_START, GT..AG gaps of WE_GAP (each copy spans 8,425 bp), WE_LEN bp in
 # all; --score WE_SCORE ends the run after both copies (calm's internal
@@ -343,6 +378,7 @@ T1_CHECK_STEPS = 64
 K8_SPLITS = (2, 4)
 K8_CASES = (("ner_joint_span", 3), ("span_cut", 2), ("c2g_split", 2))
 CROSSCHECK = "sdp device->host: locus score mismatch"
+LIVENESS = "sdp device->host: band edge liveness"
 # the one comparison of the coding2genome scan whose locus cross-check
 # disagrees (query 9, 2008 != 2007), as in the JAX package's device tier
 C2G_MAX_CROSSED = 1
@@ -480,10 +516,13 @@ def _wave_work(ki, out_bytes: int, span=None):
 
 def _band_work(bi, forward: bool):
     """Bytes and int32 operations (an add and a compare per candidate per
-    valid band cell) of one K6 (reverse) or K7 (forward) launch."""
+    valid band cell) of one K6 (reverse) or K7 (forward) launch; what K6
+    hands K7 is the boundary bits, or a non-boundary model's per-seed
+    start scores."""
     dims = bi.dims.long()
     cells = int(((dims[:, 0] + 1) * (dims[:, 1] + 1)).sum())
-    bits = bi.batch * bi.Dp * bi.n_words * 4
+    bits = bi.batch * 4 * (bi.n_seed if bi.track_sid
+                           else bi.Dp * bi.n_words)
     n_in = _nbytes(bi.fwd_plan if forward else bi.rev_plan, bi.spans,
                    bi.dims, bi.qvecs, bi.tvecs, bi.scalars)
     out = bi.batch * 4 * ((bi.Wp + 1) + 2 if forward else 1)
@@ -495,7 +534,10 @@ def _synthetic_sdp_jobs():
     """A ragged est2genome batch (single exon, two exons with an intron,
     two seeds in one column, two distant loci), a ner joint-span pair
     and, per split-codon model, its split case with its wide-flanked
-    twin, from the cases of tests/torch_sdp_cases.py."""
+    twin, from the cases of tests/torch_sdp_cases.py; then the
+    non-boundary models (the TRACK_SID instantiation): a ragged
+    affine:local batch (two seeds sharing a cell among them), ungapped,
+    protein2dna and coding2coding."""
     import torch_sdp_cases as tc
     e2g = tc.case("single_exon")[0]
     ragged = [tc.case(n, e2g)[1:] for n in (
@@ -506,6 +548,13 @@ def _synthetic_sdp_jobs():
     for name in tc.SPLIT_CASES:
         m = tc.case(name)[0]
         out.append((m, [tc.case(n, m)[1:] for n in (name, name + "_wide")]))
+    local = tc.case("affine_local")[0]
+    out.append((local, [tc.case(n, local)[1:] for n in (
+        "affine_local", "affine_local_two_bands", "affine_local_wide",
+        "sid_shared_cell")]))
+    for name in ("ungapped", "protein2dna", "coding2coding"):
+        m, pair, plan = tc.case(name)
+        out.append((m, [(pair, plan)]))
     return out
 
 
@@ -896,6 +945,129 @@ def _write_fasta(path: str, records) -> str:
     return path
 
 
+def _vulgar(out: str) -> list:
+    """The vulgar lines of ``out``, in order."""
+    return [ln for ln in out.splitlines() if ln.startswith("vulgar:")]
+
+
+def _server_phase(dev, genome_fa: str, query_fa: str, tmp: str, cli,
+                  card: str) -> dict:
+    """Phase 5e: exonerate-server on the card.  Builds the .esd / .esi of
+    ``genome_fa`` with the port's db (unmasked), holds DeviceIndex over [dev] and
+    [dev, dev] to Index.lookup_word on SRV_WORDS word-table words and two
+    misses (timed by CUDA events, host prep and the copy back included,
+    beside the host loop's clock), then serves the index from two
+    in-process servers, the host index's and the device index's (every
+    card PyTorch sees), and runs the port's CLI as their client on
+    ``query_fa``, est2genome and the default model: the two servers'
+    outputs must be equal, byte for byte (the port in the echoed command
+    line aside), and their vulgar lines, sorted, the local run's on
+    ``genome_fa``.  ``cli(argv)`` runs the port's CLI and
+    returns (output, host seconds)."""
+    import socket
+    from exonerate_tpu_torch.cli.server import ExonerateServer
+    from exonerate_tpu_torch.db.dataset import dataset_build
+    from exonerate_tpu_torch.db.device_index import DeviceIndex
+    from exonerate_tpu_torch.db.index import Index, index_build
+    t0 = time.perf_counter()
+    esd = os.path.join(tmp, "genome.esd.npz")
+    esi = os.path.join(tmp, "genome.esi.npz")
+    # the whole genome indexed (its lowercase background unmasked), so
+    # that every word of it has its postings, as the local run seeds
+    dataset_build([genome_fa], esd, softmask=False)
+    index_build(esd, esi)
+    index = Index(esi)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(11)
+    words = np.concatenate([
+        rng.choice(index.word_table, SRV_WORDS, replace=False),
+        np.array([0, 10 ** 17])]).astype(index.word_table.dtype)
+    t0 = time.perf_counter()
+    want_w, want_s, want_p = [], [], []
+    for k, w in enumerate(words):
+        s_, p_ = index.lookup_word(int(w))
+        want_w += [k] * len(s_)
+        want_s += s_.tolist()
+        want_p += p_.tolist()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    lookup_ms = {}
+    for devs in ([dev], [dev, dev]):
+        dix = DeviceIndex(index, devs)
+        dix.lookup_words(words)            # warm
+        (got_w, got_s, got_p), ms = _cuda_call(
+            lambda: dix.lookup_words(words))
+        if (got_w.tolist(), got_s.tolist(), got_p.tolist()) != (
+                want_w, want_s, want_p):
+            raise RuntimeError(f"DeviceIndex over {devs} != "
+                               f"Index.lookup_word")
+        lookup_ms[len(devs)] = ms
+    print(f"server index of the {os.path.basename(genome_fa)} genome: "
+          f"{len(index.post_seq)} postings, {len(index.word_table)} words, "
+          f"built in {build_s:.2f} s (host clock); {len(words)} words "
+          f"({len(want_s)} postings) [{card}]: DeviceIndex over 1 / 2 "
+          f"shards on {dev} {lookup_ms[1]:.3f} / {lookup_ms[2]:.3f} ms "
+          f"(CUDA events, host prep and the copy back included) == "
+          f"Index.lookup_word, {host_ms:.3f} ms (host clock)")
+
+    def free_port():
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+
+    servers = {}
+    try:
+        for name, kw in (("host", {}), ("device", {"use_device_index":
+                                                   True})):
+            srv = ExonerateServer(index.dataset, Index(esi), free_port(),
+                                  **kw)
+            srv.start_background()
+            servers[name] = srv
+        for srv in servers.values():
+            for _ in range(300):
+                try:
+                    socket.create_connection(("127.0.0.1", srv.port),
+                                             timeout=1).close()
+                    break
+                except OSError:
+                    time.sleep(0.1)
+        runs = {}
+        for model in (["-m", "est2genome"], []):
+            label = model[1] if model else "default model"
+            argv = model + NB_ARGV
+            outs = {}
+            for name, srv in servers.items():
+                out, secs = cli(argv + [query_fa, f"localhost:{srv.port}"])
+                # the command line echoed names the server's port
+                outs[name] = (out.replace(f"localhost:{srv.port}",
+                                          "localhost:PORT"), secs)
+            local = cli(argv + [query_fa, genome_fa])
+            if outs["device"][0] != outs["host"][0]:
+                raise RuntimeError(f"server {label}: the device index's "
+                                   f"output differs from the host index's")
+            # sorted, as tests/test_server_mode.py compares them: equal
+            # scores of one query may come in another order through the
+            # server, in the JAX package's client as in the port's
+            if sorted(_vulgar(outs["device"][0])) != sorted(
+                    _vulgar(local[0])) or not _vulgar(local[0]):
+                raise RuntimeError(f"server {label}: the client's vulgar "
+                                   f"lines differ from the local run's")
+            runs[label] = (len(_vulgar(local[0])), outs["host"][1],
+                           outs["device"][1], local[1])
+        lookups = servers["device"].device_index.lookups
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+    if lookups < 1:
+        raise RuntimeError("server: the device index served no lookup")
+    for label, (n, h, d, loc) in runs.items():
+        print(f"the port's CLI as a client of the port's server, {label} "
+              f"[{card}]: {n} vulgar lines == the local run's; the device "
+              f"index's output == the host index's; host index {h:.2f} s, "
+              f"device index {d:.2f} s, local {loc:.2f} s (host clock)")
+    print(f"  the device index served {lookups} lookups")
+    return {"lookup_ms": lookup_ms, "host_ms": host_ms, "runs": runs}
+
+
 def _vulgar_ops(out: str) -> list:
     """The operation letters of every vulgar line of ``out``."""
     return [ln.split()[10::3] for ln in out.splitlines()
@@ -1088,10 +1260,10 @@ def main() -> int:
     import cases
     engines = {}
 
-    def run_cli(argv, allow_crosscheck=False):
+    def run_cli(argv, allow=()):
         """The CLI's output and host seconds; raises on any engine
-        fallback, except, with ``allow_crosscheck``, the hybrid's locus
-        cross-check (see scan())."""
+        fallback but those whose reason starts with one of ``allow``
+        (the hybrid's locus cross-check, see scan())."""
         buf = io.StringIO()
         t0 = time.perf_counter()
         if cli_main(argv, out=buf) != 0:
@@ -1099,7 +1271,7 @@ def main() -> int:
         _sync()
         secs = time.perf_counter() - t0
         bad = {k: v for k, v in observe.fallback_counts.items()
-               if not (allow_crosscheck and k.startswith(CROSSCHECK))}
+               if not k.startswith(tuple(allow))}
         if bad:
             raise RuntimeError(f"engine fallbacks: {bad}")
         engines.update(observe.engine_counts)
@@ -1112,7 +1284,8 @@ def main() -> int:
                 "K7": cs.band_forward, "K9": cw.K9, "K3": cw.K3,
                 "K2": cw.K2, "K8": cs.K8, "K5": cw.K5,
                 "ring smem": cw.RING_SMEM, "ring global": cw.RING_GLOBAL,
-                "band smem": cs.BAND_SMEM, "band global": cs.BAND_GLOBAL}
+                "band smem": cs.BAND_SMEM, "band global": cs.BAND_GLOBAL,
+                "K6 sid": cs.K6_SID, "K7 sid": cs.K7_SID}
     main_launches = dict.fromkeys(counters, 0)
 
     def zero_counts():
@@ -1214,11 +1387,15 @@ def main() -> int:
     pools.append(scan_pool)
     scan_natives = []
 
-    def scan(label, argv, mode, want_kernels, force=None, max_crossed=0):
+    def scan(label, argv, mode, want_kernels, force=None, max_crossed=0,
+             liveness=False):
         """The CLI over ``argv`` on the route ``force`` (None: default),
         and on the native route in a worker process; returns (output,
         engines, captured batches, [(batch, comparison) of each locus
-        cross-check mismatch]).
+        cross-check mismatch]).  With ``liveness``, comparisons whose
+        band scan reached its band's edge may go to the host (the
+        hybrid's own rule: the host then prints the same bytes), and are
+        counted in the output line.
 
         The hybrid's locus cross-check may disagree on at most
         ``max_crossed`` comparisons: the host's re-run of one locus alone
@@ -1245,8 +1422,10 @@ def main() -> int:
             os.environ["EXONERATE_TPU_SDP"] = force
         observe.reset()
         zero_counts()
+        allow = (((CROSSCHECK,) if max_crossed else ())
+                 + ((LIVENESS,) if liveness else ()))
         try:
-            out_dev, secs_dev = run_cli(argv, max_crossed > 0)
+            out_dev, secs_dev = run_cli(argv, allow)
             launches = read_counts(label, want_kernels)
             eng = dict(observe.engine_counts)
             falls = dict(observe.fallback_counts)
@@ -1265,7 +1444,8 @@ def main() -> int:
         print(f"{label} [{card}]: {mode} {secs_dev:.2f} s (host clock; the "
               f"native route runs in a worker process); engines {eng}; "
               f"launches {launches}; fallbacks {falls}")
-        if sum(falls.values()) != len(crossed):
+        n_live = sum(v for k, v in falls.items() if k.startswith(LIVENESS))
+        if sum(falls.values()) - n_live != len(crossed):
             raise RuntimeError(f"{label}: fallbacks {falls} are not the "
                                f"{len(crossed)} locus cross-checks found")
         if len(crossed) > max_crossed:
@@ -1606,6 +1786,94 @@ def main() -> int:
         pending.append((f"protein2genome -E launch {n} ({ki.mode}, Qp "
                         f"{ki.Qp} x Tp {ki.Tp})", list(range(ki.batch)),
                         res))
+
+    # -- 5d. the non-boundary models (K6/K7 built with TRACK_SID) --------
+    # phase 4's cDNAs under affine:local and phase 5b's proteins under
+    # protein2dna against phase 4's genome, on the forced device route:
+    # every comparison with seeds on the kernels, the bytes the native
+    # route's; then K6/K7 again on each launch of the scans' band batches
+    # (timed), and the affine:local scan's widest comparison alone,
+    # timed and held to the plain passes in worker processes
+    _mark(t_start, "5d, the non-boundary scans")
+    real_make_plan = hy.make_plan
+    nb_rows = {}
+    for mname, qkind in NB_SCANS:
+        qfile, n_q = ((qf, SCAN_QUERIES) if qkind == "q"
+                      else (pqf, len(proteins)))
+        label = f"{mname} scan {n_q} x {SCAN_LEN / 1e6:.0f} Mb"
+        seeded = [0]
+
+        def count_plan(model_, pair_):
+            # the pool plans a band only for a comparison with seeds
+            seeded[0] += 1
+            return real_make_plan(model_, pair_)
+
+        hy.make_plan = count_plan
+        try:
+            out_nb, eng_nb, batches_nb, _ = scan(
+                label, ["-m", mname] + NB_ARGV + [qfile, tf],
+                "EXONERATE_TPU_SDP=device", ("K6", "K7", "K6 sid", "K7 sid"),
+                force="device", liveness=True)
+        finally:
+            hy.make_plan = real_make_plan
+        nb_jobs = [j for _m, js, _s in batches_nb for j in js]
+        if eng_nb.get(cs.engine_name(dev)) != seeded[0] or \
+                len(nb_jobs) != seeded[0] or not _vulgar(out_nb):
+            raise RuntimeError(f"{label}: {seeded[0]} comparisons with "
+                               f"seeds, {len(nb_jobs)} sent to the card, "
+                               f"engines {eng_nb}")
+        nb_model = batches_nb[0][0]
+        k6_nb, k7_nb, nb_shapes, nb_work = check_launches(
+            mname, nb_model, nb_jobs, [])
+        ws = [pl.W for _, pl in nb_jobs]
+        print(f"  {mname} band batch: {len(nb_jobs)} comparisons, Q "
+              f"{nb_jobs[0][0].region.query_length}, W {min(ws)}-{max(ws)},"
+              f" launches (B, Qp, Wp, K6 / K7 (C, T, ring in shared "
+              f"memory)) {nb_shapes} [{card}]: K6 {k6_nb:.3f} ms, K7 "
+              f"{k7_nb:.3f} ms (CUDA events, summed over the launches); "
+              f"CLI {route_secs[label]:.2f} s host clock")
+        nb_rows[mname] = (k6_nb, k7_nb, nb_work, len(nb_jobs), nb_shapes,
+                          route_secs[label])
+        if mname == "affine:local":
+            wide = max(nb_jobs, key=lambda j: j[1].W)
+            bi = cs.band_inputs(nb_model, [wide], wide[0].args.dropoff, dev)
+            start_w, live_rw = cs.band_reverse(bi)
+            col_w, live_fw, xb_w = cs.band_forward(bi, start_w)
+            nb_k6_ms = (_cuda_ms(lambda: cs.band_reverse(bi), 3)
+                        + _cuda_ms(lambda: cs.band_reverse(bi), 3)) / 2
+            nb_k7_ms = (_cuda_ms(lambda: cs.band_forward(bi, start_w), 3)
+                        + _cuda_ms(lambda: cs.band_forward(bi, start_w), 3)
+                        ) / 2
+            nb_pool, nb_pending = _start_plain_check(
+                "affine:local widest", bi,
+                {"bits": start_w, "live_r": live_rw, "colbest": col_w,
+                 "live_f": live_fw, "xband": xb_w}, tmp_dir,
+                [(False, [0]), (True, [0])])
+            pools.append(nb_pool)
+            pending.extend(nb_pending)
+            nb_work_w = (_band_work(bi, False), _band_work(bi, True))
+            nb_shape = (f"Q {wide[0].region.query_length} x W {wide[1].W}, "
+                        f"{len(wide[0].seeds)} seeds, Qp {bi.Qp} x Wp "
+                        f"{bi.Wp}")
+            print(f"  affine:local's widest comparison alone ({nb_shape}) "
+                  f"[{card}]: K6 {nb_k6_ms:.3f} ms, K7 {nb_k7_ms:.3f} ms "
+                  f"(CUDA events; clusters (C, T, ring in shared memory): "
+                  f"K6 {cs.last_fit[False]}, K7 {cs.last_fit[True]}); "
+                  f"{int((start_w > sd.NEG).sum())} of its seeds with a "
+                  f"start score; the plain passes started in worker "
+                  f"processes")
+            del bi, start_w, col_w
+
+    # -- 5e. exonerate-server with its device index ---------------------
+    _mark(t_start, "5e, exonerate-server and its device index")
+    srv_qf = _write_fasta(os.path.join(tmp_dir, "srv_q.fa"),
+                          [(f"q{k}", q) for k, q in
+                           enumerate(queries[:SRV_QUERIES])])
+    observe.reset()
+    zero_counts()
+    srv_res = _server_phase(dev, tf, srv_qf, tmp_dir, run_cli, card)
+    srv_launches = read_counts("exonerate-server clients", ())
+    print(f"  launches of the server phase's CLI runs: {srv_launches}")
 
     # -- 6. the SubOpt mask (kernel K3) ----------------------------------
     _mark(t_start, "6, the SubOpt mask")
@@ -2697,12 +2965,16 @@ def main() -> int:
             DEADLINE_S - (time.perf_counter() - t_start), 1.0))
         for g, w in zip(got, want):
             if (g["live"], g["xband"]) != (w["live"], w["xband"]) \
-                    or not np.array_equal(g["band_end"], w["band_end"]):
+                    or not np.array_equal(g["band_end"], w["band_end"]) \
+                    or ("start_scores" in g) != ("start_scores" in w) \
+                    or not np.array_equal(g.get("start_scores", 0),
+                                          w.get("start_scores", 0)):
                 raise RuntimeError(f"K6/K7 {label}: run_kernel on the card "
                                    f"!= on the CPU")
     print(f"K6/K7 on the synthetic pairs (phase 3): kernel == plain (bits, "
-          f"column best, live, xband) and run_kernel on the card == on the "
-          f"CPU (band_end per locus, live, xband) on all {len(syn_checks)} "
+          f"or a non-boundary model's start scores; column best, live, "
+          f"xband) and run_kernel on the card == on the CPU (band_end per "
+          f"locus, start scores, live, xband) on all {len(syn_checks)} "
           f"batches")
     if split_band is not None:
         print(f"K7 on the split-codon synthetic batch {split_band[0]} (Qp "
@@ -2810,6 +3082,12 @@ def main() -> int:
     p_rev, p_fwd = (res.get()[2] * 1e3 for _n, _ix, res in g_pending)
     report["K6"] = (band_err, k_rev, p_rev, genomic_work[0])
     report["K7"] = (band_err, k_fwd, p_fwd, genomic_work[1])
+    # the TRACK_SID instantiation's: the affine:local scan's widest
+    # comparison, its plain passes on one host core (worker processes)
+    (_, e6, s6, _), (_, e7, s7, _) = (res.get() for _n, _ix, res
+                                      in nb_pending)
+    report["K6 sid"] = (e6, nb_k6_ms, s6 * 1e3, nb_work_w[0])
+    report["K7 sid"] = (e7, nb_k7_ms, s7 * 1e3, nb_work_w[1])
     _, k1r_err, k1r_s, _ = k1_res["region"].get()
     report["K1_region"] = (k1r_err,) + report["K1_region"][1:2] + (
         k1r_s * 1e3,) + report["K1_region"][3:]
@@ -2938,6 +3216,19 @@ def main() -> int:
          f"{k5_shape}; plain ms on one host core; the whole generation "
          f"{ms5:.3f} ms with host prep)",
          "K5", "K5", src + "wavefront.cu", pw + ":1470"),
+        (f"K6 band_reverse, non-boundary: the TRACK_SID instantiation (a "
+         f"seed id per state; the affine:local scan's widest comparison, "
+         f"{nb_shape}; plain ms on one host core; at the scan's band batch"
+         f" {nb_rows['affine:local'][0]:.3f} ms over "
+         f"{len(nb_rows['affine:local'][4])} launches, the protein2dna "
+         f"scan's {nb_rows['protein2dna'][0]:.3f} ms)", "K6 sid", "K6 sid",
+         src + "sdp_band.cu", sp + ":974"),
+        (f"K7 band_forward, non-boundary: the TRACK_SID instantiation "
+         f"(the START state from the seeds' start scores; {nb_shape}; "
+         f"plain ms on one host core; at the scan's band batch "
+         f"{nb_rows['affine:local'][1]:.3f} ms, the protein2dna scan's "
+         f"{nb_rows['protein2dna'][1]:.3f} ms)", "K7 sid", "K7 sid",
+         src + "sdp_band.cu", sp + ":996"),
         (f"K8 band_reverse_cross / band_forward_cross: the CROSS "
          f"instantiation of K6/K7 (the chain of {k8_shape}, reverse then "
          f"forward; plain ms on one host core per launch, summed; with "
@@ -2949,8 +3240,12 @@ def main() -> int:
     for kname, lkey, rkey, source, replaces in kernels:
         err, ms, plain_ms, (n_bytes, n_ops) = report[rkey][:4]
         bound_ms, bound_by = _bound(n_bytes, n_ops)
+        launches = main_launches[lkey]
+        if lkey in ("K6", "K7"):
+            # the boundary instantiation's: the TRACK_SID launches apart
+            launches -= main_launches[lkey + " sid"]
         rows.append({"name": kname, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": main_launches[lkey],
+                     "replaces": replaces, "launches": launches,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None})
@@ -3000,7 +3295,9 @@ def main() -> int:
                                       ("coding2genome scan", c2g_work, c_rev,
                                        c_fwd),
                                       ("protein2genome scan", p2g_work,
-                                       pk_rev, pk_fwd)):
+                                       pk_rev, pk_fwd)) + tuple(
+            (f"{m} scan (TRACK_SID)", r[2], r[0], r[1])
+            for m, r in nb_rows.items()):
         print(f"bound at the {label}'s batch: K6 {_bound(*rev)[0]:.3f} ms "
               f"({_bound(*rev)[1]}; kernel {k6:.3f} ms), K7 "
               f"{_bound(*fwd)[0]:.3f} ms ({_bound(*fwd)[1]}; kernel "

@@ -49,6 +49,28 @@
 // Only valid cells (0 <= i <= qlen, 0 <= j <= wlen) are walked; the
 // Pallas kernel's extra lanes and diagonals cannot change an output.
 //
+// A non-boundary model (ungapped, affine, protein2dna, coding2coding:
+// the plan's TRACK_SID) runs the semantics of the JAX package's XLA scan
+// with track_sid (exonerate_tpu/engine/sdp_device.py:297, use_boundary
+// false), which its Pallas kernel refuses (sdp_pallas.py:77).  K6 keeps
+// a seed id per state beside the score and pmax, in registers and in
+// the carry ring (one more ring row per ring state, in shared memory and
+// in the halo copy, or in global memory): the END state injected at a
+// seed cell takes the largest seed index of the seeds there, whatever
+// their half scores (sdp_device.py:408-413); an accepted candidate
+// copies its source's id (:470); a START event overwrites the cell's
+// (event score, id) in candidate order (:486-490), and each cell's event
+// raises start[b][id] (:701-705).  K6 writes no boundary bits.  K7
+// seeds its START state at each seed's cell with start[b][k] minus the
+// seed's half score, for the seeds whose start score is set, the largest
+// where several share the cell (:384-397), and has no thaw cells.  The
+// per-seed maximum is an atomicMax on the score alone, keyed by the
+// seed: exact in any order, as nothing rides along.  Each thread keeps
+// the running maximum of its last seed id in registers and flushes it to
+// global memory when its cells' events move to another seed and at the
+// end (a thread's lanes mostly see one seed's band, so this takes the
+// atomics off the per-cell path); no shared-memory stage.
+//
 // The carry ring (SMEM_RING, where band_fit says it fits): each CTA
 // keeps R = K + 1 slots (slot d % R) of its lanes' ring rows in shared
 // memory, sc, pm and forward the lanes of each ring state, laid out
@@ -204,9 +226,11 @@ constexpr int SP_COLS = 4;
 // registers over the lanes and its curr registers in two parity buffers
 // over the lanes and one halo lane.  (RED_BYTES, the block's live and
 // xband, come on top in either route.)
+// A non-boundary model's reverse pass (sid) carries a seed-id row per
+// ring state beside sc and pm.
 size_t band_smem_bytes(int fwd, int R, int NR, int n_sh, int n_spans,
-                       int H, int lanes) {
-    const size_t nrl = (size_t)NR * (2 + (fwd ? n_sh : 0));
+                       int H, int lanes, int sid = 0) {
+    const size_t nrl = (size_t)NR * (2 + (fwd ? n_sh : sid));
     const size_t nsr = 4 + (size_t)n_sh;
     return sizeof(int32_t)
         * ((size_t)R * nrl * (lanes + H)
@@ -216,10 +240,12 @@ size_t band_smem_bytes(int fwd, int R, int NR, int n_sh, int n_spans,
 
 // A pass's threads per CTA at most: as many as the register file (65,536
 // a SM) holds at its cell state (S scores and pmax, forward S x n_sh
-// lanes and a candidate's source lanes) beside ~48 registers of
+// lanes and a candidate's source lanes, a non-boundary reverse pass's S
+// seed ids, a source's and the event's) beside ~48 registers of
 // addressing and loop state.
-constexpr int band_tmax(int fwd, int S, int n_sh) {
-    const int regs = 2 * S + (fwd ? (S + 2) * n_sh : 0) + 48;
+constexpr int band_tmax(int fwd, int S, int n_sh, int sid = 0) {
+    const int regs = 2 * S + (fwd ? (S + 2) * n_sh : 0)
+        + (sid ? S + 2 : 0) + 48;
     return regs <= 64 ? 1024 : regs <= 128 ? 512 : 256;
 }
 
@@ -240,7 +266,7 @@ struct BandFit {
 // C = ceil(rows / T) up to cmax, k = ceil(rows / (C * T)).  The ring is
 // in shared memory when band_smem_bytes of the CTA's k * T lanes fits.
 BandFit band_fit(int fwd, int rows, int B, int sms, int cmax, int tmax,
-                 int R, int NR, int n_sh, int n_spans, int H) {
+                 int R, int NR, int n_sh, int n_spans, int H, int sid = 0) {
     if (rows < 1) rows = 1;
     int C = sms / (B > 0 ? B : 1);
     if (C > cmax) C = cmax;
@@ -257,7 +283,7 @@ BandFit band_fit(int fwd, int rows, int B, int sms, int cmax, int tmax,
     f.T = T;
     f.k = (rows + C * T - 1) / (C * T);
     const size_t ring = band_smem_bytes(fwd, R, NR, n_sh, n_spans, H,
-                                        f.k * T);
+                                        f.k * T, sid);
     f.smem_ring = ring + RED_BYTES <= MAX_SMEM;
     f.smem = (f.smem_ring ? ring : 0) + RED_BYTES;
     return f;
@@ -272,14 +298,18 @@ struct Params {
     int32_t* bits;            // (B, Dp, NW): written by K6, read by K7
     int32_t* ring_sc;         // (B, R, NR, Qp+1), global ring only
     int32_t* ring_pm;         // (B, R, NR, Qp+1), global ring only
-    int32_t* ring_ln;         // (B, R, NR * n_sh, Qp+1), forward
+    int32_t* ring_ln;         // (B, R, NR * n_sh, Qp+1), forward; (B, R,
+                              //   NR, Qp+1) seed ids, non-boundary reverse
     int32_t* span_st;         // (B, n_spans, 4 + n_sh, Qp+1), forward
     int32_t* span_cu;         // (B, 2, n_spans, 4 + n_sh, Qp+1), forward
     int32_t* colbest;         // (B, Wp+1), forward
     int32_t* live;            // (B,)
     int32_t* xband;           // (B,), forward
+    int32_t* start;           // (B, n_seed): non-boundary only, raised by
+                              //   K6 (NEG-filled by the wrapper), read by K7
     int nq, nt, ns, B, Qp, Wp, dropoff;
     int row_seedq, row_seedv, n_layers;
+    int row_seedi, row_seedh, n_seed;   // non-boundary: the seed-id rows
     int k;                    // lanes per thread (BandFit::k)
 };
 
@@ -339,7 +369,10 @@ struct Pass {
     static constexpr int N_ADV = FWD ? BP::N_ADV_FWD : BP::N_ADV_REV;
     static constexpr int NR = FWD ? BP::NR_FWD : BP::NR_REV;
     static constexpr int NSH = FWD ? BP::N_SH : 0;     // lanes carried
-    static constexpr int NRL = NR * (2 + NSH);         // ring rows a slot
+    // a non-boundary model's reverse pass: a seed id per state
+    static constexpr bool SID = !FWD && BP::TRACK_SID != 0;
+    static constexpr int NX = SID ? 1 : NSH;           // rows past sc, pm
+    static constexpr int NRL = NR * (2 + NX);          // ring rows a slot
     static constexpr int NSP = FWD ? BP::N_SPANS : 0;  // span registers
     __host__ __device__ static constexpr int cand(int c, int col) {
         return FWD ? BP::fwd(c, col) : BP::rev(c, col);
@@ -355,7 +388,7 @@ struct Pass {
         return h;
     }
     static constexpr int H = halo();
-    static constexpr int TMAX = band_tmax(FWD, BP::S, BP::N_SH);
+    static constexpr int TMAX = band_tmax(FWD, BP::S, BP::N_SH, SID);
 };
 
 template <bool FWD, bool CROSS, bool SMEM_RING>
@@ -366,6 +399,8 @@ band_kernel(const Params p, const Halo h) {
     constexpr int NR = PS::NR, R = BP::K + 1, H = PS::H, NRL = PS::NRL;
     constexpr int NSP = PS::NSP, NSPA = BP::N_SPANS > 0 ? BP::N_SPANS : 1;
     constexpr int NSR = 4 + BP::N_SH;
+    constexpr bool SID = PS::SID;
+    constexpr int NX = PS::NX, SD = SID ? S : 1;
     constexpr int HL = FWD ? H : 0;     // own lane i at local i - L0 + HL
     static_assert(H <= 32, "one warp copies the halo");
     extern __shared__ __align__(16) int32_t smem[];
@@ -388,9 +423,10 @@ band_kernel(const Params p, const Halo h) {
     const int32_t* scl = p.scalars + (size_t)b * p.ns;
     int32_t* rsc = p.ring_sc + (size_t)b * R * NR * W;
     int32_t* rpm = p.ring_pm + (size_t)b * R * NR * W;
-    int32_t* rln = FWD && NSH ? p.ring_ln + (size_t)b * R * NR * NSH * W
-                              : nullptr;
-    int32_t* bits = p.bits + (size_t)b * Dp * NW;
+    int32_t* rln = NX ? p.ring_ln + (size_t)b * R * NR * NX * W : nullptr;
+    int32_t* bits = p.bits ? p.bits + (size_t)b * Dp * NW : nullptr;
+    int32_t* start = BP::TRACK_SID ? p.start + (size_t)b * p.n_seed
+                                   : nullptr;
     int32_t* st_g = FWD ? p.span_st + (size_t)b * NSPA * NSR * W : nullptr;
     int32_t* cu_g = FWD ? p.span_cu + (size_t)b * 2 * NSPA * NSR * W
                         : nullptr;
@@ -410,14 +446,15 @@ band_kernel(const Params p, const Halo h) {
         return (l >= 0 && l <= p.Qp) ? __ldg(qv + (size_t)row * W + l) : 0;
     };
     // ring row x of slot sl at lane i: sc rows [0, NR), pm rows [NR, 2NR),
-    // lane rows 2NR + rr * NSH + l
+    // lane rows 2NR + rr * NSH + l (forward) or seed-id rows 2NR + rr
+    // (non-boundary reverse)
     auto ring_rd = [&](int sl, int x, int i) -> int32_t {
         if constexpr (SMEM_RING) {
             return s_ring[(sl * NRL + x) * WB + i - L0 + HL];
         } else {
             const int32_t* g = x < NR ? rsc + ((size_t)sl * NR + x) * W
                 : x < 2 * NR ? rpm + ((size_t)sl * NR + x - NR) * W
-                : rln + ((size_t)sl * NR * NSH + x - 2 * NR) * W;
+                : rln + ((size_t)sl * NR * NX + x - 2 * NR) * W;
             return __ldcg(g + i);
         }
     };
@@ -427,7 +464,7 @@ band_kernel(const Params p, const Halo h) {
         } else {
             int32_t* g = x < NR ? rsc + ((size_t)sl * NR + x) * W
                 : x < 2 * NR ? rpm + ((size_t)sl * NR + x - NR) * W
-                : rln + ((size_t)sl * NR * NSH + x - 2 * NR) * W;
+                : rln + ((size_t)sl * NR * NX + x - 2 * NR) * W;
             g[i] = v;
         }
     };
@@ -490,6 +527,16 @@ band_kernel(const Params p, const Halo h) {
     });
 
     bool any_live = false, any_xband = false;
+    // non-boundary reverse: the running start score of the last seed id
+    // this thread's cells raised (flushed by atomicMax on a change of id
+    // and at the end)
+    int acc_sid = -1;
+    int32_t acc_max = NEG;
+    auto flush_start = [&]() {
+        if constexpr (SID) {
+            if (acc_sid >= 0) atomicMax(start + acc_sid, acc_max);
+        }
+    };
     const int n_diag = qlen + wlen + 1;
     for (int step = 0; step < n_diag; ++step) {
         const int d = FWD ? step : n_diag - 1 - step;
@@ -527,14 +574,32 @@ band_kernel(const Params p, const Halo h) {
             bool flag = false;
             if (i >= lo && i <= hi) {
                 const int j = d - i;
-                int32_t csc[S], cpm[S], cln[S][LN];
+                int32_t csc[S], cpm[S], cln[S][LN], csd[SD];
                 each<0, S>([&](auto s) {
                     csc[s] = NEG;
                     cpm[s] = NEG;
                     each<0, LN>([&](auto l) { cln[s][l] = 0; });
                 });
+                each<0, SD>([&](auto s) { csd[s] = 0; });
                 bool thaw = false;
-                if constexpr (FWD) {
+                if constexpr (FWD && BP::TRACK_SID) {
+                    // each seed's start score less its half score at its
+                    // cell, where set; the largest where seeds share it
+                    int32_t r = NEG;
+                    for (int lx = 0; lx < p.n_layers; ++lx)
+                        if (tcol(p.row_seedq + lx, j) - 1 == i) {
+                            const int k = tcol(p.row_seedi + lx, j);
+                            const int32_t got = (k >= 0 && k < p.n_seed)
+                                ? __ldg(start + k) : NEG;
+                            if (got > NEG) {
+                                const int32_t v =
+                                    wsub(got, tcol(p.row_seedh + lx, j));
+                                r = v > r ? v : r;
+                            }
+                        }
+                    csc[BP::START_ID] = r;
+                    cpm[BP::START_ID] = r;
+                } else if constexpr (FWD) {
                     const uint32_t w =
                         (uint32_t)__ldg(bits + (size_t)d * NW + (i >> 5));
                     thaw = (w >> (i & 31)) & 1u;
@@ -543,16 +608,22 @@ band_kernel(const Params p, const Halo h) {
                         cpm[BP::START_ID] = 0;
                     }
                 } else {
-                    int32_t r = NEG;
+                    int32_t r = NEG, rsd = 0;
                     for (int lx = 0; lx < p.n_layers; ++lx)
                         if (tcol(p.row_seedq + lx, j) - 1 == i) {
                             const int32_t v = tcol(p.row_seedv + lx, j);
                             r = v > r ? v : r;
+                            if constexpr (SID) {
+                                // the largest seed index at the cell
+                                const int32_t k = tcol(p.row_seedi + lx, j);
+                                rsd = k > rsd ? k : rsd;
+                            }
                         }
                     csc[BP::END_ID] = r;
                     cpm[BP::END_ID] = r;
+                    if constexpr (SID) csd[BP::END_ID] = rsd;
                 }
-                int32_t ev = NEG;
+                int32_t ev = NEG, ev_sd = 0;
 
                 auto candidate = [&](auto cc) {
                     constexpr int c = decltype(cc)::value;
@@ -583,11 +654,12 @@ band_kernel(const Params p, const Halo h) {
                             == 0)
                             return;
                     }
-                    int32_t s_sc, s_pm;
+                    int32_t s_sc, s_pm, s_sd = 0;
                     int32_t s_ln[LN];
                     if constexpr (adv == 0) {
                         s_sc = csc[r];
                         s_pm = cpm[r];
+                        if constexpr (SID) s_sd = csd[r];
                         each<0, NSH>([&](auto l) { s_ln[l] = cln[r][l]; });
                     } else {
                         constexpr int rr = PS::ring(r);
@@ -613,6 +685,8 @@ band_kernel(const Params p, const Halo h) {
                                                   : slot + adv - R);
                             s_sc = ring_rd(sl, rr, si);
                             s_pm = ring_rd(sl, NR + rr, si);
+                            if constexpr (SID)
+                                s_sd = ring_rd(sl, 2 * NR + rr, si);
                             each<0, NSH>([&](auto l) {
                                 s_ln[l] = ring_rd(sl, 2 * NR + rr * NSH + l,
                                                   si);
@@ -699,6 +773,7 @@ band_kernel(const Params p, const Halo h) {
                     if (!(val > csc[w])) return;        // first max wins
                     csc[w] = val;
                     cpm[w] = s_pm > val ? s_pm : val;
+                    if constexpr (SID) csd[w] = s_sd;
                     if constexpr (NSH > 0) {
                         constexpr int n0 = PS::cand(c, BP_NSTART);
                         each<0, (n0 < MAX_STARTS ? n0 : MAX_STARTS)>(
@@ -719,6 +794,13 @@ band_kernel(const Params p, const Halo h) {
                     }
                     if constexpr (FWD && (flags & BF_EVENT) != 0) {
                         if (val >= s_pm) ev = val;
+                    }
+                    if constexpr (SID && (flags & BF_EVENT) != 0) {
+                        // a START event: overwritten in candidate order
+                        if (val >= s_pm) {
+                            ev = val;
+                            ev_sd = s_sd;
+                        }
                     }
                 };
 
@@ -844,6 +926,16 @@ band_kernel(const Params p, const Halo h) {
                 if (live_cell && tcol(BP::ROW_EDGE, j) != 0) any_live = true;
                 if constexpr (FWD) {
                     if (ev > NEG && ev > __ldcg(colbest + j)) colbest[j] = ev;
+                } else if constexpr (SID) {
+                    if (ev > NEG && ev_sd >= 0 && ev_sd < p.n_seed) {
+                        if (ev_sd != acc_sid) {
+                            flush_start();
+                            acc_sid = ev_sd;
+                            acc_max = ev;
+                        } else if (ev > acc_max) {
+                            acc_max = ev;
+                        }
+                    }
                 } else {
                     flag = csc[BP::START_ID] >= 0;
                     each<0, BP::N_SPANS>([&](auto spc) {
@@ -878,6 +970,8 @@ band_kernel(const Params p, const Halo h) {
                     if constexpr (rr >= 0) {
                         ring_wr(slot, rr, i, csc[s]);
                         ring_wr(slot, NR + rr, i, cpm[s]);
+                        if constexpr (SID)
+                            ring_wr(slot, 2 * NR + rr, i, csd[s]);
                         each<0, NSH>([&](auto l) {
                             ring_wr(slot, 2 * NR + rr * NSH + l, i,
                                     cln[s][l]);
@@ -885,7 +979,7 @@ band_kernel(const Params p, const Halo h) {
                     }
                 });
             }
-            if constexpr (!FWD) {
+            if constexpr (!FWD && !SID) {
                 // 32 lanes per word, a warp's lanes 32-aligned in one CTA
                 const unsigned word = __ballot_sync(0xffffffffu, flag);
                 const int i0 = i - (tid & 31);
@@ -896,6 +990,7 @@ band_kernel(const Params p, const Halo h) {
         }
         cluster.sync();
     }
+    flush_start();
     // a CROSS chunk's span registers, back for the wrapper
     if constexpr (SMEM_RING && CROSS && NSP > 0) {
         for (int m = 0; m < p.k; ++m) {
@@ -949,7 +1044,7 @@ cudaError_t launch(Params p, const Halo& h, int rows, int* fit_out,
     for (const int cmax : {MAX_CLUSTER, PORTABLE_CLUSTER}) {
         const BandFit f = band_fit(FWD, rows, p.B, sms, cmax, PS::TMAX,
                                    BP::K + 1, PS::NR, PS::NSH, PS::NSP,
-                                   PS::H);
+                                   PS::H, PS::SID);
         auto kern = f.smem_ring ? band_kernel<FWD, CROSS, true>
                                 : band_kernel<FWD, CROSS, false>;
         err = cudaFuncSetAttribute(
@@ -1001,16 +1096,24 @@ cudaError_t launch(Params p, const Halo& h, int rows, int* fit_out,
         const int32_t *scalars, int32_t *bits, int32_t *ring_sc,            \
         int32_t *ring_pm, int32_t *ring_ln, int32_t *span_st,               \
         int32_t *span_cu, int32_t *colbest, int32_t *live, int32_t *xband,  \
-        int nq, int nt, int ns, int B, int Qp, int Wp, int dropoff,         \
-        int row_seedq, int row_seedv, int n_layers, int rows, int *fit_out
+        int32_t *start, int nq, int nt, int ns, int B, int Qp, int Wp,      \
+        int dropoff, int row_seedq, int row_seedv, int n_layers,            \
+        int row_seedi, int row_seedh, int n_seed, int rows, int *fit_out
 
+// a non-boundary plan (TRACK_SID) takes start and its seed-id rows in
+// place of the boundary bits
 #define SDP_BAND_PARAMS                                                      \
     if (B <= 0) return 0;                                                    \
     if (n_layers > MAX_SEED_LAYERS) return (int)cudaErrorInvalidValue;      \
-    Params p{spans,    dims,    qvecs,   tvecs,   scalars, bits, ring_sc,   \
-             ring_pm,  ring_ln, span_st, span_cu, colbest, live,            \
-             xband,    nq,      nt,      ns,      B,      Qp,               \
-             Wp,       dropoff, row_seedq, row_seedv, n_layers, 1}
+    if (BP::TRACK_SID ? (start == nullptr || n_seed < 1 || row_seedi < 0   \
+                         || row_seedh < 0)                                  \
+                      : bits == nullptr)                                    \
+        return (int)cudaErrorInvalidValue;                                  \
+    Params p{spans,     dims,      qvecs,     tvecs,    scalars, bits,      \
+             ring_sc,   ring_pm,   ring_ln,   span_st,  span_cu, colbest,   \
+             live,      xband,     start,     nq,       nt,      ns,        \
+             B,         Qp,        Wp,        dropoff,  row_seedq,          \
+             row_seedv, n_layers,  row_seedi, row_seedh, n_seed, 1}
 
 #define SDP_HALO_ARGS                                                        \
     const int32_t *tctx, const int32_t *sc_in, const int32_t *pm_in,        \
@@ -1022,15 +1125,17 @@ cudaError_t launch(Params p, const Halo& h, int rows, int* fit_out,
 // the batch's widest comparison's lanes (its largest qlen + 1), fit_out
 // the cluster launched (C, T, ring in shared memory).
 
-// K6: the reverse pass.  Writes bits and live.
+// K6: the reverse pass.  Writes bits and live (a non-boundary plan:
+// raises start, which comes NEG-filled, and writes live).
 extern "C" int sdp_band_reverse(SDP_BAND_BASE_ARGS, void *stream) {
     SDP_BAND_PARAMS;
     return (int)launch<false, false>(p, Halo{}, rows, fit_out,
                                      (cudaStream_t)stream);
 }
 
-// K7: the forward pass from K6's bits.  Writes colbest, live and xband;
-// span_st / span_cu come initialised (sc rows NEG, the rest 0).
+// K7: the forward pass from K6's bits (a non-boundary plan: from its
+// start scores).  Writes colbest, live and xband; span_st / span_cu come
+// initialised (sc rows NEG, the rest 0).
 extern "C" int sdp_band_forward(SDP_BAND_BASE_ARGS, void *stream) {
     SDP_BAND_PARAMS;
     return (int)launch<true, false>(p, Halo{}, rows, fit_out,
@@ -1042,7 +1147,7 @@ extern "C" int sdp_band_forward(SDP_BAND_BASE_ARGS, void *stream) {
 extern "C" int sdp_band_reverse_cross(SDP_BAND_BASE_ARGS, SDP_HALO_ARGS,
                                       void *stream) {
     SDP_BAND_PARAMS;
-    if (B != 1 || maxat < 1) return (int)cudaErrorInvalidValue;
+    if (B != 1 || maxat < 1 || BP::TRACK_SID) return (int)cudaErrorInvalidValue;
     const Halo h{tctx, sc_in, pm_in, ln_in, sc_out, pm_out, ln_out, maxat};
     return (int)launch<false, true>(p, h, rows, fit_out,
                                     (cudaStream_t)stream);
@@ -1053,7 +1158,7 @@ extern "C" int sdp_band_reverse_cross(SDP_BAND_BASE_ARGS, SDP_HALO_ARGS,
 extern "C" int sdp_band_forward_cross(SDP_BAND_BASE_ARGS, SDP_HALO_ARGS,
                                       void *stream) {
     SDP_BAND_PARAMS;
-    if (B != 1 || maxat < 1) return (int)cudaErrorInvalidValue;
+    if (B != 1 || maxat < 1 || BP::TRACK_SID) return (int)cudaErrorInvalidValue;
     const Halo h{tctx, sc_in, pm_in, ln_in, sc_out, pm_out, ln_out, maxat};
     return (int)launch<true, true>(p, h, rows, fit_out,
                                    (cudaStream_t)stream);

@@ -10,6 +10,15 @@ Counterpart of ``exonerate_tpu/engine/sdp_pallas.py``.  Two kernels of
   ``pallas_call`` ``:996``): boundary injection, span registers, the
   per-column best end score, ``live`` and ``xband``.
 
+A non-boundary model (ungapped, affine, protein2dna, coding2coding:
+``model_uses_boundary`` False) runs the same two kernels built with the
+plan's ``TRACK_SID`` flag: the reverse pass carries a seed id per state
+and hands each seed's best start score to the forward pass, which seeds
+its START state from them (the JAX package's XLA ``build_pass`` with
+``track_sid``, ``sdp_device.py:297``; its Pallas kernel refuses these
+models, ``sdp_pallas.py:77``).  ``seed_id_rows`` adds the seed ids to
+the seed layers.
+
 K8, the cross-chip band scan (``build_sdp_kernel(cross=True)``,
 ``pallas_call`` ``:904`` / ``:929``, driven by ``run_kernel_cross_chip``
 ``:1220``), is the CROSS instantiation of the same source behind
@@ -78,6 +87,11 @@ MAX_CAND = 64
 # one per chunk of a comparison
 K8 = _LaunchCount()
 
+# the launches of K6 / K7 built with TRACK_SID (a non-boundary model's
+# passes; band_reverse / band_forward count them too)
+K6_SID = _LaunchCount()
+K7_SID = _LaunchCount()
+
 # the band kernels' launches (K6, K7, K8) by the home of their carry ring:
 # shared memory (each CTA its lanes', band_fit), or global memory where it
 # does not fit
@@ -95,10 +109,10 @@ BAND_BYTES = 2 << 30
 
 def kernel_supported(model: Model, use_boundary: bool, n_layers: int,
                      pair=None) -> bool:
-    """Is the band kernel applicable?  (``sdp_pallas.py:73``; callers also
-    require ``sdp_device.supported(model)``.)"""
-    if not use_boundary:
-        return False
+    """Is the band kernel applicable?  (``sdp_pallas.py:73``, but for
+    non-boundary models too, which the kernels' ``TRACK_SID``
+    instantiation serves; callers also require
+    ``sdp_device.supported(model)``.)"""
     if n_layers > MAX_SEED_LAYERS:
         return False
     for c in model.calcs:
@@ -231,6 +245,36 @@ def prepare_kernel_inputs(model: Model, pair, plan, Qp: int, Wp: int,
     return flat, kinds, meta
 
 
+def seed_id_rows(pair, plan, Wp: int, n_layers: int) -> dict:
+    """A non-boundary model's seed ids, in the layers of
+    ``prepare_kernel_inputs`` (at column v the seeds' distinct query
+    positions, sorted): ``_seedi{lx}``, the largest seed index among the
+    seeds at that cell, which the reverse pass's END state carries
+    whatever their half scores (``sdp_device.py:408-413``), and
+    ``_seedh{lx}``, that seed's half score, which the forward pass
+    takes off its start score (``:384-397``)."""
+    by_v: dict = {}
+    band_ix = 0
+    for k, s in enumerate(pair.seeds):
+        while not (plan.bands[band_ix].t0 <= s.t_cobs
+                   <= plan.bands[band_ix].t1):
+            band_ix += 1
+        v = plan.to_v(band_ix, s.t_cobs)
+        slot = by_v.setdefault(v, {})
+        slot[s.q_cobs] = max(slot.get(s.q_cobs, -1), k)
+    si = np.zeros((n_layers, Wp + 1), np.int32)
+    sh = np.zeros((n_layers, Wp + 1), np.int32)
+    for v, dd in by_v.items():
+        for lx, (q, k) in enumerate(sorted(dd.items())):
+            si[lx, v] = k
+            sh[lx, v] = pair.seeds[k].hsp_score >> 1
+    out = {}
+    for lx in range(n_layers):
+        out[f"_seedi{lx}"] = si[lx]
+        out[f"_seedh{lx}"] = sh[lx]
+    return out
+
+
 def _ring_plan(model: Model, is_forward: bool) -> list:
     """States needing carry-ring rows: the reads of advancing candidates."""
     adv_plan, _ = sd._plan_transitions(model, is_forward)
@@ -254,9 +298,6 @@ def unsupported_reason(model: Model, pair=None, plan=None) -> Optional[str]:
     missing piece; None when they can."""
     if not sd.supported(model):
         return "model not expressible by the band scan"
-    if not model_uses_boundary(model):
-        return ("non-boundary model: the start-score attribution scan "
-                "(track_sid) is not ported")
     for c in model.calcs:
         if c.pallas_fn is not None:
             if c.kernel_inputs_fn is None:
@@ -305,9 +346,12 @@ def unsupported_reason(model: Model, pair=None, plan=None) -> Optional[str]:
 # ---------------------------------------------------------------------------
 
 def _plan_table(model: Model, forward: bool, qrow: dict, trow: dict,
-                srow: dict, kind_map: dict, ncls: dict) -> tuple:
+                srow: dict, kind_map: dict, ncls: dict,
+                track_sid: bool) -> tuple:
     """The int32 candidate table of one pass (advancing rows first) and
-    the number of advancing rows."""
+    the number of advancing rows.  BF_EVENT marks the forward pass's
+    writes of the END state and, with ``track_sid``, the reverse pass's
+    writes of the START state (the seeds' start events)."""
     adv, silent = sd._plan_transitions(model, forward)
     rows = np.zeros((len(adv) + len(silent), BP_COLS), np.int32)
     for r, e in enumerate(adv + silent):
@@ -317,7 +361,8 @@ def _plan_table(model: Model, forward: bool, qrow: dict, trow: dict,
         row[BP_C0] = row[BP_C1] = row[BP_C2] = row[BP_CONTIG] = -1
         flags = ((BF_P_UNDER if e["p_under"] else 0)
                  | (BF_P_OVER if e["p_over"] else 0)
-                 | (BF_EVENT if forward and e["event"] else 0))
+                 | (BF_EVENT if e["event"] and (forward or track_sid)
+                    else 0))
         if e["at"]:
             row[BP_CONTIG] = trow[f"_contig{e['at']}"]
         c = e["calc"]
@@ -386,10 +431,19 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
     kinds and seed layers) and the candidate tables of ``model`` onto
     ``device``.  A name some pairs lack (an all-zero override plane)
     ships zeros for them.  ``ctx`` (K8's chunks): per pair, each W-axis
-    vector's values at columns -1 .. -maxat."""
+    vector's values at columns -1 .. -maxat.  A non-boundary model's
+    flats also hold its ``seed_id_rows``, and its metas ``n_seed``, the
+    pair's seed count."""
     reason = unsupported_reason(model)
     if reason is not None:
         raise ValueError(f"cuda_sdp cannot run {model.name}: {reason}")
+    use_boundary = model_uses_boundary(model)
+    if not use_boundary and ctx is not None:
+        raise ValueError(f"cuda_sdp: the cross-chip band scan takes "
+                         f"boundary models only, not {model.name}")
+    if not use_boundary and any("_seedi0" not in f for f in flats):
+        raise ValueError(f"cuda_sdp: {model.name} is a non-boundary model "
+                         f"and needs its seed ids (seed_id_rows)")
     B = len(flats)
     n_layers = metas[0]["n_layers"]
     tnames = set(metas[0]["tnames"])
@@ -435,7 +489,8 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         qnames += [f"kc{ci}:R{a}" for a in range(25)]
     # the seed layers last, so that the other rows' numbers, which the
     # compiled plan holds, do not depend on the batch's layer count
-    seed_rows = [f"_seed{x}{lx}" for x in "qv" for lx in range(n_layers)]
+    seed_rows = [f"_seed{x}{lx}" for x in ("qv" if use_boundary else "qvih")
+                 for lx in range(n_layers)]
     tnames_l = [n for n in tnames_l if n not in seed_rows] + seed_rows
     qrow = {n: r for r, n in enumerate(qnames)}
     trow = {n: r for r, n in enumerate(tnames_l)}
@@ -448,9 +503,9 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
                                              axis=1))
 
     rev_plan, n_adv_rev = _plan_table(model, False, qrow, trow, srow,
-                                      kind_map, ncls)
+                                      kind_map, ncls, not use_boundary)
     fwd_plan, n_adv_fwd = _plan_table(model, True, qrow, trow, srow,
-                                      kind_map, ncls)
+                                      kind_map, ncls, not use_boundary)
     spans = sd._span_plan(model)
     span_tab = np.zeros((max(len(spans), 1), SP_COLS), np.int32)
     for k, sp in enumerate(spans):
@@ -484,7 +539,8 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         NR_rev=rings[0][1], NR_fwd=rings[1][1],
         start_id=model.start_state.state.id,
         end_id=model.end_state.state.id, row_abs_t=trow["_abs_t"],
-        row_edge=trow["_edge"], row_seg=trow["_seg"])
+        row_edge=trow["_edge"], row_seg=trow["_seg"],
+        track_sid=not use_boundary)
     return BandInputs(
         rev_plan=put(rev_plan), fwd_plan=put(fwd_plan), spans=put(span_tab),
         rev_ring=put(rings[0][0]), fwd_ring=put(rings[1][0]),
@@ -500,6 +556,9 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         row_abs_t=trow["_abs_t"], row_edge=trow["_edge"],
         row_seg=trow["_seg"], row_seedq=trow["_seedq0"],
         row_seedv=trow["_seedv0"], n_layers=n_layers,
+        use_boundary=use_boundary,
+        row_seedi=trow.get("_seedi0", -1), row_seedh=trow.get("_seedh0", -1),
+        n_seed=max([1] + [m.get("n_seed", 0) for m in metas]),
         split=bool((fwd_plan[:, BP_CALC] == K_SPLIT).any()),
         tctx=tctx, maxat=maxat,
         span_joint=tuple(sp["max_query"] > 0 for sp in spans),
@@ -508,15 +567,17 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
 
 def pair_bytes(model: Model, Qp: int, Wp: int, n_tvec: int) -> int:
     """Device bytes one pair of a launch pair holds: boundary bits,
-    W-axis inputs and column best, the carry rings of both passes and
-    the span registers."""
+    W-axis inputs and column best, the carry rings of both passes (a
+    non-boundary model's reverse ring with its seed-id plane) and the
+    span registers."""
     W = Qp + 1
     S, n_sh, R = len(model.states), model.total_shadow_designations, \
         _max_advance(model) + 1
     n_spans = len(model.spans)
+    sid = 0 if model_uses_boundary(model) else 1
     return 4 * ((Qp + Wp + 1) * ((Qp + 32) // 32)
                 + (n_tvec + 1) * (Wp + 1)
-                + R * S * (2 + n_sh) * W
+                + R * S * (2 + n_sh + sid) * W
                 + 3 * n_spans * (4 + n_sh) * W)
 
 
@@ -531,8 +592,8 @@ def max_batch(model: Model, Qp: int, Wp: int, n_tvec: int) -> int:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 14 + [_I] * 11 + [ctypes.POINTER(_I), _P]
-_CROSS_ARGTYPES = ([_P] * 14 + [_I] * 11 + [ctypes.POINTER(_I)] + [_P] * 7
+_ARGTYPES = [_P] * 15 + [_I] * 14 + [ctypes.POINTER(_I), _P]
+_CROSS_ARGTYPES = ([_P] * 15 + [_I] * 14 + [ctypes.POINTER(_I)] + [_P] * 7
                    + [_I, _P])
 
 
@@ -565,13 +626,15 @@ def _check_inputs(bi: BandInputs) -> None:
         raise ValueError(f"no band-scan engine for device {dev}")
 
 
-def _launch(bi: BandInputs, forward: bool, bits: torch.Tensor,
+def _launch(bi: BandInputs, forward: bool, carry: torch.Tensor,
             halo: Optional[sd.Halo] = None):
     """Launch one pass of csrc/sdp_band.cu, built with the plan of
     ``bi.header``, on the current stream of the tensors' card: K6 / K7,
     or with ``halo`` K8's pass over one chunk, whose outgoing Halo comes
-    last.  Counts the launch by its ring route (``BAND_SMEM`` /
-    ``BAND_GLOBAL``)."""
+    last.  ``carry`` is what K6 hands K7: the boundary bits, or a
+    non-boundary model's per-seed start scores (B, n_seed), which K6
+    raises and K7 reads.  Counts the launch by its ring route
+    (``BAND_SMEM`` / ``BAND_GLOBAL``)."""
     name = "sdp_band_forward" if forward else "sdp_band_reverse"
     fn = (_lib("sdp_band", name, _ARGTYPES, bi.header) if halo is None
           else _lib("sdp_band", name + "_cross", _CROSS_ARGTYPES,
@@ -579,11 +642,15 @@ def _launch(bi: BandInputs, forward: bool, bits: torch.Tensor,
     dev = bi.dims.device
     B, W, R = bi.batch, bi.Qp + 1, bi.K + 1
     NR = max(bi.NR_fwd if forward else bi.NR_rev, 1)
+    bits, start = (None, carry) if bi.track_sid else (carry, None)
     i32 = dict(dtype=torch.int32, device=dev)
     ring_sc = torch.empty((B, R, NR, W), **i32)
     ring_pm = torch.empty((B, R, NR, W), **i32)
     ring_ln = span_st = span_cu = colbest = xband = None
     nsr = 4 + bi.n_sh
+    if bi.track_sid and not forward:
+        # the reverse ring's seed-id plane, a row per ring state
+        ring_ln = torch.empty((B, R, NR, W), **i32)
     if forward:
         ring_ln = torch.empty((B, R, max(NR * bi.n_sh, 1), W), **i32)
         span_st = torch.zeros((B, max(bi.n_spans, 1), nsr, W), **i32)
@@ -620,9 +687,10 @@ def _launch(bi: BandInputs, forward: bool, bits: torch.Tensor,
                 ptr(bi.scalars),
                 ptr(bits), ptr(ring_sc), ptr(ring_pm), ptr(ring_ln),
                 ptr(span_st), ptr(span_cu), ptr(colbest), ptr(live),
-                ptr(xband), bi.qvecs.shape[1], bi.tvecs.shape[1],
-                bi.scalars.shape[1], B, bi.Qp, bi.Wp, bi.dropoff,
-                bi.row_seedq, bi.row_seedv, bi.n_layers,
+                ptr(xband), ptr(start), bi.qvecs.shape[1],
+                bi.tvecs.shape[1], bi.scalars.shape[1], B, bi.Qp, bi.Wp,
+                bi.dropoff, bi.row_seedq, bi.row_seedv, bi.n_layers,
+                bi.row_seedi, bi.row_seedh, bi.n_seed,
                 (bi.qmax or bi.Qp) + 1, fit, *cross, stream)
     if rc != 0:
         which = "forward" if forward else "reverse"
@@ -652,10 +720,19 @@ last_fit: dict = {}
 def band_reverse(bi: BandInputs):
     """K6: the reverse pass of a batch.  Returns (bits (B, Dp, NW) int32,
     bit i & 31 of word i >> 5 set where lane i of diagonal d is a
-    boundary cell; live (B,) bool)."""
+    boundary cell; live (B,) bool); for a non-boundary model (start (B,
+    n_seed) int32, each seed's best start score, NEG where none;
+    live)."""
     _check_inputs(bi)
     if bi.dims.device.type == "cpu":
         return sd.plain_band_reverse(bi)
+    if bi.track_sid:
+        start = torch.full((bi.batch, bi.n_seed), sd.NEG, dtype=torch.int32,
+                           device=bi.dims.device)
+        live = _launch(bi, False, start)
+        count(band_reverse)
+        count(K6_SID)
+        return start, live
     bits = torch.zeros((bi.batch, bi.Dp, bi.n_words), dtype=torch.int32,
                        device=bi.dims.device)
     live = _launch(bi, False, bits)
@@ -667,18 +744,22 @@ band_reverse.launches = 0
 
 
 def band_forward(bi: BandInputs, bits: torch.Tensor):
-    """K7: the forward pass of a batch from K6's boundary bits.  Returns
-    (colbest (B, Wp+1) int32, live (B,) bool, xband (B,) bool)."""
+    """K7: the forward pass of a batch from K6's boundary bits (a
+    non-boundary model: from K6's start scores).  Returns (colbest (B,
+    Wp+1) int32, live (B,) bool, xband (B,) bool)."""
     _check_inputs(bi)
-    want = (bi.batch, bi.Dp, bi.n_words)
+    want = ((bi.batch, bi.n_seed) if bi.track_sid
+            else (bi.batch, bi.Dp, bi.n_words))
     if bits.device != bi.dims.device or bits.dtype != torch.int32 \
             or not bits.is_contiguous() or tuple(bits.shape) != want:
-        raise ValueError(f"band_forward: bits must be contiguous int32 "
+        what = "start scores" if bi.track_sid else "bits"
+        raise ValueError(f"band_forward: {what} must be contiguous int32 "
                          f"{want} on {bi.dims.device}")
     if bi.dims.device.type == "cpu":
         return sd.plain_band_forward(bi, bits)
     out = _launch(bi, True, bits)
     count(band_forward)
+    count(K7_SID, bi.track_sid)
     count(K9, bi.split)
     return out
 
@@ -772,12 +853,19 @@ def _pads(pair, plan) -> tuple:
 def band_inputs(model: Model, jobs: list, dropoff: int,
                 device: torch.device) -> BandInputs:
     """One K6/K7 batch of (pair, plan) jobs on ``device``, padded to the
-    largest job's (Qp, Wp) and seed layers."""
+    largest job's (Qp, Wp) and seed layers (a non-boundary model's with
+    its seed ids)."""
     Qp = max(_pads(*job)[0] for job in jobs)
     Wp = max(_pads(*job)[1] for job in jobs)
     n_layers = max(count_seed_layers(pair, plan) for pair, plan in jobs)
     preps = [prepare_kernel_inputs(model, pair, plan, Qp, Wp, n_layers)
              for pair, plan in jobs]
+    if not model_uses_boundary(model):
+        for (flat, _k, meta), (pair, plan) in zip(preps, jobs):
+            ids = seed_id_rows(pair, plan, Wp, n_layers)
+            flat.update(ids)
+            meta["tnames"] += tuple(ids)
+            meta["n_seed"] = len(pair.seeds)
     kinds = preps[0][1]
     if any(p[1] != kinds for p in preps):
         raise ValueError("band_inputs: the jobs' calc kinds differ")
@@ -808,7 +896,9 @@ def run_kernel(model: Model, jobs: list, dropoff: int,
     many contiguous shards, one per device (the JAX package's batch over
     a mesh, ``sdp_pallas.py:1033-1042``), all launched before any result
     is fetched.  Returns per-job dicts {"band_end": [n_loci] int64,
-    "live": bool, "xband": bool}."""
+    "live": bool, "xband": bool}, and for a non-boundary model
+    "start_scores": [n_seeds] int64, each seed's best start score (NEG
+    where none)."""
     out: list = [None] * len(jobs)
     pending = []
     for chunk in launch_batches(model, jobs):
@@ -818,17 +908,22 @@ def run_kernel(model: Model, jobs: list, dropoff: int,
             shard = chunk[k:k + step]
             dev = devices[k // step] if devices else device
             bi = band_inputs(model, [jobs[ix] for ix in shard], dropoff, dev)
-            bits, live_r = band_reverse(bi)
-            colbest, live_f, xband = band_forward(bi, bits)
-            del bits
-            pending.append((shard, colbest, live_r | live_f, xband))
-    for shard, colbest, live, xband in pending:
+            carry, live_r = band_reverse(bi)
+            colbest, live_f, xband = band_forward(bi, carry)
+            start = carry if bi.track_sid else None
+            del carry
+            pending.append((shard, colbest, live_r | live_f, xband, start))
+    for shard, colbest, live, xband, start in pending:
         colbest = colbest.cpu().numpy()
         live = live.cpu().numpy()
         xband = xband.cpu().numpy()
+        if start is not None:
+            start = start.cpu().numpy().astype(np.int64)
         for b, ix in enumerate(shard):
             out[ix] = {"band_end": locus_best(colbest[b], jobs[ix][1]),
                        "live": bool(live[b]), "xband": bool(xband[b])}
+            if start is not None:
+                out[ix]["start_scores"] = start[b, :len(jobs[ix][0].seeds)]
     return out
 
 

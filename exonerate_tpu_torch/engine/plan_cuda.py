@@ -17,7 +17,9 @@ reads each row through a ``constexpr`` accessor, unrolled in plan order:
 - ``band_header``: K6/K7/K8 (``csrc/sdp_band.cu``): both passes'
   candidate tables (advancing rows first), the span table's shape
   (``span_shape``), the ring maps, S, the shadow lanes, K, the start and
-  end states and the W-axis rows of ``_abs_t``, ``_edge`` and ``_seg``.
+  end states, the W-axis rows of ``_abs_t``, ``_edge`` and ``_seg``, and
+  ``TRACK_SID``: a non-boundary model, whose reverse pass attributes
+  start scores to seeds in place of the boundary bits.
 
 What stays run-time data is per pair or per run: dims, the q-axis and
 W-axis vectors, tables, scalars, the seed layers, the mask plane, the
@@ -101,7 +103,7 @@ def band_header(model_name: str, rev_plan: np.ndarray, n_adv_rev: int,
                 n_spans: int, rev_ring: np.ndarray, fwd_ring: np.ndarray, *,
                 S: int, n_sh: int, K: int, NR_rev: int, NR_fwd: int,
                 start_id: int, end_id: int, row_abs_t: int, row_edge: int,
-                row_seg: int) -> str:
+                row_seg: int, track_sid: bool) -> str:
     """The band scan's ``struct BandPlan``: both passes' candidate tables
     and the numbers ``to_band_inputs`` passes the launcher (NR at least
     1, as the carry rings are allocated)."""
@@ -111,6 +113,6 @@ def band_header(model_name: str, rev_plan: np.ndarray, n_adv_rev: int,
              N_FWD=len(fwd_plan), N_ADV_FWD=n_adv_fwd, N_SPANS=n_spans,
              NR_REV=max(NR_rev, 1), NR_FWD=max(NR_fwd, 1),
              START_ID=start_id, END_ID=end_id, ROW_ABS_T=row_abs_t,
-             ROW_EDGE=row_edge, ROW_SEG=row_seg),
+             ROW_EDGE=row_edge, ROW_SEG=row_seg, TRACK_SID=int(track_sid)),
         dict(rev=rev_plan, fwd=fwd_plan, spans=spans, rev_ring=rev_ring,
              fwd_ring=fwd_ring))

@@ -9,11 +9,15 @@ Two parts:
 - ``plain_band_reverse`` / ``plain_band_forward`` (together
   ``plain_band_scan``): the plain PyTorch version of the hand-written
   band kernels K6 and K7 in ``csrc/sdp_band.cu``.  They are the torch
-  twin of ``build_pass`` (``sdp_device.py:297``) in boundary mode,
-  batched over B and vectorised over the query lanes i in [0, Qp], one
-  Python loop step per compressed diagonal, and interpret the int32
-  candidate tables that the kernels compile in (built by
-  ``cuda_sdp.to_band_inputs``).
+  twin of ``build_pass`` (``sdp_device.py:297``), batched over B and
+  vectorised over the query lanes i in [0, Qp], one Python loop step per
+  compressed diagonal, and interpret the int32 candidate tables that the
+  kernels compile in (built by ``cuda_sdp.to_band_inputs``).  A boundary
+  model's reverse pass emits the boundary bits that seed the forward
+  pass; a non-boundary model's (``use_boundary=False``, ``track_sid``
+  in ``build_pass``) carries a seed id per state and cell and hands the
+  forward pass each seed's best start score instead
+  (``sdp_device.py:384-413``, ``:470``, ``:486-490``, ``:701-705``).
   Given a ``Halo`` they are the plain version of K8, the cross-chip band
   scan, on one chunk of a comparison (``cuda_sdp.cross_chunks``).
 
@@ -323,6 +327,13 @@ class BandInputs:
     row_seedq: int           # first of n_layers _seedq rows, then _seedv
     row_seedv: int
     n_layers: int
+    # non-boundary models: per seed layer, the largest seed index of the
+    # seeds at the cell (_seedi rows) and that seed's half score (_seedh
+    # rows); n_seed the width of the per-seed start scores (B, n_seed)
+    use_boundary: bool = True
+    row_seedi: int = -1
+    row_seedh: int = -1
+    n_seed: int = 0
     split: bool = False      # the forward table holds a split-codon row (K9)
     # K8 (one chunk of one comparison): the W-axis rows at columns -1 ..
     # -maxat, (B, NT, maxat), and which spans are joint (query and target)
@@ -337,6 +348,12 @@ class BandInputs:
     @property
     def batch(self) -> int:
         return int(self.dims.shape[0])
+
+    @property
+    def track_sid(self) -> bool:
+        """The reverse pass attributes start scores to seeds
+        (``build_pass``'s ``track_sid``)."""
+        return not self.use_boundary
 
     @property
     def n_words(self) -> int:
@@ -476,16 +493,22 @@ def _calc(fr: _Frame, row, forward: bool):
 def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None,
               lane_split=None):
     """One pass over the diagonals.  Reverse: returns (bits (B, Dp, NW)
-    int32, live (B,) bool).  Forward: (colbest (B, Wp+1) int32, live,
-    xband).  With ``halo`` (K8, a batch of one chunk) the sources up to
-    ``bi.maxat`` columns past the chunk's edge read the neighbour's edge
-    planes, the spans start from its registers, and the outgoing Halo is
-    returned last.  ``lane_split`` (tests only) replaces the whole-diagonal
-    reads of the carry ring and of the joint spans' curr registers by an
-    emulation of the kernels' lane split: ``lane_split.start(d)`` at each
-    diagonal, ``.source(d, adv, r, shift)`` for a ring source,
-    ``.shift_curr(plane, fill)`` for a joint span, and
-    ``.store(d, sc, pm, ln)`` after each diagonal."""
+    int32, live (B,) bool), or for a non-boundary model (start (B,
+    n_seed) int32, each seed's best start score, NEG where none, live).
+    Forward: (colbest (B, Wp+1) int32, live, xband), from ``bits_in``,
+    the reverse pass's first output.  With ``halo`` (K8, a batch of one
+    chunk of a boundary model) the sources up to ``bi.maxat`` columns
+    past the chunk's edge read the neighbour's edge planes, the spans
+    start from its registers, and the outgoing Halo is returned last.
+    ``lane_split`` (tests only, boundary models) replaces the
+    whole-diagonal reads of the carry ring and of the joint spans' curr
+    registers by an emulation of the kernels' lane split:
+    ``lane_split.start(d)`` at each diagonal, ``.source(d, adv, r,
+    shift)`` for a ring source, ``.shift_curr(plane, fill)`` for a joint
+    span, and ``.store(d, sc, pm, ln)`` after each diagonal."""
+    if bi.track_sid and (halo is not None or lane_split is not None):
+        raise ValueError("the cross-chip band scan and the lane-split "
+                         "emulation take boundary models only")
     fr = _Frame(bi)
     B, W, S, n_sh, K = bi.batch, fr.W, bi.S, bi.n_sh, bi.K
     dev = bi.dims.device
@@ -494,11 +517,14 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None,
     ring = (bi.fwd_ring if forward else bi.rev_ring).tolist()
     spans = bi.spans.tolist()[:bi.n_spans] if forward else []
     lanes = forward and n_sh > 0
+    # the reverse pass of a non-boundary model: a seed id per state
+    track = bi.track_sid and not forward
     i, qlen, wlen = fr.i, fr.qlen, fr.wlen
     neg = torch.full((B, W), NEG, dtype=torch.int32, device=dev)
     zero = torch.zeros((B, W), dtype=torch.int32, device=dev)
     no_ln = [zero] * n_sh
-    blank = ([neg] * S, [neg] * S, [no_ln] * S)
+    no_sd = [zero] * S if track else None
+    blank = ([neg] * S, [neg] * S, [no_ln] * S, no_sd)
     prev = [blank] * K                 # prev[k]: diagonal d -/+ (k + 1)
     live = torch.zeros(B, dtype=torch.bool, device=dev)
     xband = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -519,6 +545,9 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None,
             regs = [[v[None] for v in halo.span[spx].reshape(-1, W)]
                     for spx in range(len(spans))]
         bit_ix = torch.arange(32, dtype=torch.int32, device=dev)
+    elif track:
+        start = torch.full((B, bi.n_seed), NEG, dtype=torch.int32,
+                           device=dev)
     else:
         bits = torch.zeros((B, bi.Dp, NW), dtype=torch.int32, device=dev)
         weights = (torch.ones(32, dtype=torch.int64, device=dev)
@@ -534,35 +563,60 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None,
         sc = [neg] * S
         pm = [neg] * S
         ln = [no_ln] * S
+        sd = list(no_sd) if track else None
         thaw = None
-        if forward:
+        if forward and bi.track_sid:
+            # each seed's start score less its half score, at its cell
+            # (the largest of the seeds there whose start score is set)
+            row_sc = neg
+            for lx in range(bi.n_layers):
+                hit = ((fr.t(bi.row_seedq + lx, 0) - 1) == i) & cell_ok
+                sid = fr.t(bi.row_seedi + lx, 0).clamp(0, bi.n_seed - 1)
+                got = torch.gather(bits_in, 1, sid.long())
+                val = torch.where(hit & (got > NEG),
+                                  got - fr.t(bi.row_seedh + lx, 0), NEG)
+                row_sc = torch.maximum(row_sc, val)
+            sc[bi.start_id] = pm[bi.start_id] = row_sc
+        elif forward:
             word = bits_in[:, d, :]
             b = ((word[:, :, None] >> bit_ix) & 1).reshape(B, -1)[:, :W]
             thaw = (b != 0) & cell_ok
             sc[bi.start_id] = pm[bi.start_id] = torch.where(thaw, zero, neg)
         else:
             row_sc = neg
+            row_sd = zero
             for lx in range(bi.n_layers):
                 hit = ((fr.t(bi.row_seedq + lx, 0) - 1) == i) & cell_ok
                 row_sc = torch.where(
                     hit, torch.maximum(row_sc, fr.t(bi.row_seedv + lx, 0)),
                     row_sc)
+                if track:
+                    # the largest seed index of the cell's seeds, whatever
+                    # their half scores (``sdp_device.py:408-413``)
+                    row_sd = torch.where(
+                        hit, torch.maximum(row_sd,
+                                           fr.t(bi.row_seedi + lx, 0)),
+                        row_sd)
             sc[bi.end_id] = pm[bi.end_id] = row_sc
+            if track:
+                sd[bi.end_id] = row_sd
         ev_row = neg
+        ev_sd = zero
         reads: dict = {}
         masks: dict = {}
 
         def evaluate(row):
-            nonlocal ev_row
+            nonlocal ev_row, ev_sd
             aq, at = row[BP_AQ], row[BP_AT]
             adv, r = aq + at, row[BP_READ]
             if adv == 0:
                 s_sc, s_pm, s_ln = sc[r], pm[r], ln[r]
+                s_sd = sd[r] if track else None
             else:
                 key = (r, adv, aq)
                 got = reads.get(key)
                 if got is None:
-                    p_sc, p_pm, p_ln = prev[adv - 1]
+                    p_sc, p_pm, p_ln, p_sd = prev[adv - 1]
                     k = aq if forward else -aq
                     if lane_split is not None:
                         got = lane_split.source(d, adv, r, k)
@@ -574,8 +628,10 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None,
                     if maxat and adv > aq:
                         got = _halo_read(got, halo, ring[r], adv - aq, aq,
                                          j, wlen, forward, n_sh, maxat)
+                    got = tuple(got) + ((_shift(p_sd[r], k, 0) if track
+                                         else None),)
                     reads[key] = got
-                s_sc, s_pm, s_ln = got
+                s_sc, s_pm, s_ln, s_sd = got
             src_ok = masks.get((aq, at))
             if src_ok is None:
                 si, sj = (i - aq, j - at) if forward else (i + aq, j + at)
@@ -625,6 +681,8 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None,
             take = ok & (val > sc[w])
             sc[w] = torch.where(take, val, sc[w])
             pm[w] = torch.where(take, torch.maximum(s_pm, val), pm[w])
+            if track:
+                sd[w] = torch.where(take, s_sd, sd[w])
             if lanes:
                 new_l = list(s_ln)
                 for k in range(row[BP_NSTART]):
@@ -636,7 +694,11 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None,
                 ln[w] = [torch.where(take, a, o)
                          for a, o in zip(new_l, ln[w])]
             if flags & BF_EVENT:
-                ev_row = torch.where(take & (val >= s_pm), val, ev_row)
+                # the cell's event, overwritten in candidate order
+                ev = take & (val >= s_pm)
+                ev_row = torch.where(ev, val, ev_row)
+                if track:
+                    ev_sd = torch.where(ev, s_sd, ev_sd)
 
         for row in plan[:n_adv]:
             evaluate(row)
@@ -682,6 +744,12 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None,
                 jj = (d - ii).long()
                 colbest[bb, jj] = torch.maximum(colbest[bb, jj],
                                                 ev_row[bb, ii])
+        elif track:
+            # each seed's best start score (``sdp_device.py:701-705``)
+            ev = ev_row > NEG
+            start.scatter_reduce_(
+                1, torch.where(ev, ev_sd, 0).long(),
+                torch.where(ev, ev_row, NEG), "amax")
         else:
             flag = sc[bi.start_id] >= 0
             for sp in bi.spans.tolist()[:bi.n_spans]:
@@ -689,7 +757,7 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None,
             flag = F.pad(flag & cell_ok, (0, NW * 32 - W))
             word = (flag.reshape(B, NW, 32).long() * weights).sum(dim=2)
             bits[:, d] = (word - ((word >> 31) << 32)).to(torch.int32)
-        prev = [(sc, pm, ln)] + prev[:-1]
+        prev = [(sc, pm, ln, sd)] + prev[:-1]
         if lane_split is not None:
             lane_split.store(d, sc, pm, ln)
     if halo is not None:
@@ -703,7 +771,7 @@ def _run_pass(bi: BandInputs, forward: bool, bits_in=None, halo=None,
                 else (bits, live, out))
     if forward:
         return colbest, live, xband
-    return bits, live
+    return (start if track else bits), live
 
 
 def _halo_read(got, halo: Halo, rr: int, at: int, aq: int, j, wlen,
@@ -799,18 +867,19 @@ def plain_band_reverse(bi: BandInputs, halo: Optional[Halo] = None,
                        lane_split=None):
     """K6's plain version: the reverse pass.  Returns (bits (B, Dp, NW)
     int32 with bit i & 31 of word i >> 5 set where lane i of diagonal d is
-    a boundary cell, live (B,) bool); with ``halo``, K8's reverse pass on
-    one chunk, and the outgoing Halo last."""
+    a boundary cell, live (B,) bool); for a non-boundary model (start (B,
+    n_seed) int32, each seed's best start score, live); with ``halo``,
+    K8's reverse pass on one chunk, and the outgoing Halo last."""
     return _run_pass(bi, forward=False, halo=halo, lane_split=lane_split)
 
 
 def plain_band_forward(bi: BandInputs, bits: torch.Tensor,
                        halo: Optional[Halo] = None, lane_split=None):
     """K7's plain version: the forward pass from the reverse pass's
-    boundary bits.  Returns (colbest (B, Wp+1) int32, the best end score
-    per compressed column, NEG where none; live (B,) bool; xband (B,)
-    bool); with ``halo``, K8's forward pass on one chunk, and the
-    outgoing Halo last."""
+    boundary bits (a non-boundary model: its start scores).  Returns
+    (colbest (B, Wp+1) int32, the best end score per compressed column,
+    NEG where none; live (B,) bool; xband (B,) bool); with ``halo``, K8's
+    forward pass on one chunk, and the outgoing Halo last."""
     return _run_pass(bi, forward=True, bits_in=bits, halo=halo,
                      lane_split=lane_split)
 
@@ -818,8 +887,12 @@ def plain_band_forward(bi: BandInputs, bits: torch.Tensor,
 def plain_band_scan(bi: BandInputs) -> dict:
     """Both passes in plain PyTorch: {"colbest", "live", "xband"} per pair
     of the batch (``live`` from either pass, ``xband`` from the forward
-    pass).  ``cuda_sdp.locus_best`` reduces ``colbest`` to each locus's
-    best end score."""
-    bits, live_r = plain_band_reverse(bi)
-    colbest, live_f, xband = plain_band_forward(bi, bits)
-    return {"colbest": colbest, "live": live_r | live_f, "xband": xband}
+    pass), and for a non-boundary model "start_scores" (B, n_seed).
+    ``cuda_sdp.locus_best`` reduces ``colbest`` to each locus's best end
+    score."""
+    carry, live_r = plain_band_reverse(bi)
+    colbest, live_f, xband = plain_band_forward(bi, carry)
+    out = {"colbest": colbest, "live": live_r | live_f, "xband": xband}
+    if bi.track_sid:
+        out["start_scores"] = carry
+    return out

@@ -13,12 +13,18 @@ global path, so the output bytes never depend on the device.
 Routing is the JAX package's: the same size gates (``DEVICE_MIN_*``),
 and ``EXONERATE_TPU_SDP=device`` forces the device tier.  On the CPU the
 forced tier runs the plain scan under ``SCAN_DIAG_CAP``, as the JAX
-package's XLA scan does.  A job the kernels cannot serve raises
-``HybridFallback`` for its comparison with the missing piece named.
-With ``EXONERATE_TPU_CROSS_CHIP=N`` and N cards visible, a comparison of
-at least ``EXONERATE_TPU_CROSS_CHIP_MIN_W`` compressed columns runs
-alone across them on K8 (``cuda_sdp.run_kernel_cross_chip``); with
-fewer cards the knob is ignored, as in the JAX package.  The row-scan
+package's XLA scan does.  The non-boundary models (ungapped, affine,
+protein2dna, coding2coding) run on the forced tier too, on K6/K7's
+``TRACK_SID`` instantiation (the JAX package's XLA scan with
+``track_sid``); by default they stay on the host, as the JAX package's
+default device tier needs its Pallas kernel, which refuses them
+(``hub/gam.py`` ``sdp_device_active``).  A job the kernels cannot serve
+raises ``HybridFallback`` for its comparison with the missing piece
+named.  With ``EXONERATE_TPU_CROSS_CHIP=N`` and N cards visible, a
+boundary model's comparison of at least
+``EXONERATE_TPU_CROSS_CHIP_MIN_W`` compressed columns runs alone across
+them on K8 (``cuda_sdp.run_kernel_cross_chip``); with fewer cards the
+knob is ignored, as in the JAX package.  The row-scan
 tier (``EXONERATE_TPU_SDP_ROWS``) is not ported and is refused.
 """
 from __future__ import annotations
@@ -33,7 +39,7 @@ from .. import observe
 from ..align.alignment import Alignment
 from . import sdp_bands
 from .region import Region
-from .sdp import NEG, SDPPair, SdpArgs
+from .sdp import NEG, SDPPair, SdpArgs, model_uses_boundary
 from ..model.ir import Model
 
 from .. import device as default_device
@@ -75,14 +81,20 @@ def _devices(device: torch.device) -> list:
     return [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
 
 
-def _cross_chip_config(plan, device: torch.device) -> int:
+def _cross_chip_config(plan, device: torch.device,
+                       model: Optional[Model] = None) -> int:
     """Cross-chip routing (``exonerate_tpu/engine/sdp_hybrid.py:366-389``):
     with ``EXONERATE_TPU_CROSS_CHIP=N`` (N >= 2), a comparison whose
     compressed band has at least ``EXONERATE_TPU_CROSS_CHIP_MIN_W``
     (default 1M) columns runs across N of ``_devices(device)`` when there
-    are N.  Returns N, or 0 for the single-device path."""
+    are N.  A non-boundary ``model`` never does: the JAX package reaches
+    its cross-chip route only through its Pallas kernel, which refuses
+    such models (``sdp_hybrid.py:366-389``, ``sdp_pallas.py:77``).
+    Returns N, or 0 for the single-device path."""
     n = int(os.environ.get("EXONERATE_TPU_CROSS_CHIP", "0") or 0)
     if n < 2 or plan is None:
+        return 0
+    if model is not None and not model_uses_boundary(model):
         return 0
     min_w = int(os.environ.get("EXONERATE_TPU_CROSS_CHIP_MIN_W",
                                str(1 << 20)))
@@ -294,7 +306,8 @@ def run_device_batch(model: Model, jobs: list,
     by_drop: dict = {}
     for ix, (pair, plan) in enumerate(jobs):
         reason = cuda_sdp.unsupported_reason(model, pair, plan)
-        n_chips = _cross_chip_config(plan, device) if reason is None else 0
+        n_chips = (_cross_chip_config(plan, device, model)
+                   if reason is None else 0)
         if reason is not None:
             out[ix] = {"fallback": "sdp device->host: band kernel "
                                    f"unsupported ({reason})"}

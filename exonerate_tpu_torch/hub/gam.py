@@ -290,15 +290,20 @@ class GAM:
     def sdp_device_active(self) -> bool:
         """True when the heuristic's SDP passes run on the device tier
         (``exonerate_tpu/hub/gam.py:270-304``): by default when the GAM's
-        device is a CUDA card and the band kernels serve the model;
+        device is a CUDA card, the model uses the boundary protocol (the
+        JAX package's default tier needs its Pallas kernel, which refuses
+        the non-boundary models) and the band kernels serve it;
         ``EXONERATE_TPU_SDP=device`` forces the tier (the plain scan on
-        the CPU), ``=native`` / ``=python`` force the host engines."""
+        the CPU), for the non-boundary models too; ``=native`` /
+        ``=python`` force the host engines."""
         from ..engine import cuda_sdp, sdp_hybrid
+        from ..engine.sdp import model_uses_boundary
         env = os.environ.get("EXONERATE_TPU_SDP", "")
         if env in ("native", "python"):
             return False
         if env != "device" and (
                 self.device.type != "cuda"
+                or not model_uses_boundary(self.model)
                 or cuda_sdp.unsupported_reason(self.model) is not None):
             return False
         return sdp_hybrid.eligible(self.model, self._sdp_args(), None)

@@ -44,6 +44,8 @@ ALL4 = os.path.join(os.path.dirname(__file__), "golden", "data", "all4.fa")
 MODES = ("score", "region", "path")
 BAND_CASES = ("single_exon", "two_exons_intron", "ner_joint_span",
               "p2g_split", "c2g_split", "cd2g_split")
+# non-boundary plans (TRACK_SID): the reverse pass carries seed ids
+NB_BAND_CASES = ("ungapped", "affine_local", "protein2dna", "coding2coding")
 
 
 def _wave_jobs():
@@ -155,15 +157,18 @@ def test_wave_headers_hold_the_launchers_tables(tmp_path):
 
 _BAND_INTS = ("S", "N_SH", "K", "N_REV", "N_ADV_REV", "N_FWD", "N_ADV_FWD",
               "N_SPANS", "NR_REV", "NR_FWD", "START_ID", "END_ID",
-              "ROW_ABS_T", "ROW_EDGE", "ROW_SEG")
+              "ROW_ABS_T", "ROW_EDGE", "ROW_SEG", "TRACK_SID")
 
 
 def test_band_headers_hold_the_launchers_tables(tmp_path):
     """Every band plan (est2genome, ner, protein2genome, coding2genome,
-    cdna2genome: the registry's boundary models): the header's numbers
-    are both passes' candidate tables, the span table, the ring maps and
-    the numbers ``to_band_inputs`` passes the launcher."""
-    bis = [(n, _band_inputs(n)) for n in BAND_CASES]
+    cdna2genome: the registry's boundary models; and the non-boundary
+    ungapped, affine:local, protein2dna and coding2coding, TRACK_SID
+    set and their reverse tables marking the START events): the
+    header's numbers are both passes' candidate tables, the span table,
+    the ring maps and the numbers ``to_band_inputs`` passes the
+    launcher."""
+    bis = [(n, _band_inputs(n)) for n in BAND_CASES + NB_BAND_CASES]
 
     def body(n):
         ints = " ".join("%d" for _ in _BAND_INTS)
@@ -187,7 +192,12 @@ def test_band_headers_hold_the_launchers_tables(tmp_path):
         want = [bi.S, bi.n_sh, bi.K, bi.rev_plan.shape[0], bi.n_adv_rev,
                 bi.fwd_plan.shape[0], bi.n_adv_fwd, bi.n_spans,
                 max(bi.NR_rev, 1), max(bi.NR_fwd, 1), bi.start_id,
-                bi.end_id, bi.row_abs_t, bi.row_edge, bi.row_seg]
+                bi.end_id, bi.row_abs_t, bi.row_edge, bi.row_seg,
+                int(bi.track_sid)]
+        assert bi.track_sid == (name in NB_BAND_CASES)
+        rev_events = bool((bi.rev_plan[:, tsd.BP_FLAGS]
+                           & tsd.BF_EVENT).any())
+        assert rev_events == bi.track_sid, name
         spans = bi.spans.clone()
         for col in (tsd.SP_MAX_T, tsd.SP_MAX_Q):
             spans[:, col] = spans[:, col] > 0      # the window's length is
@@ -257,10 +267,11 @@ def _extract(src: str, head: str, tail: str = "\n}") -> str:
     return src[start:src.index(tail, start) + len(tail)]
 
 
-def _compiled_fit(tmp_path):
+def _compiled_fit(tmp_path, sid: bool = False):
     """sdp_band.cu's constants, band_smem_bytes, band_tmax, BandFit and
     band_fit, compiled by the host's C++ compiler into a program that
-    reads ``fwd rows B sms cmax S R NR n_sh n_spans H`` lines and prints
+    reads ``fwd rows B sms cmax S R NR n_sh n_spans H`` lines (with
+    ``sid``, one more number: a non-boundary reverse pass) and prints
     ``tmax C T k smem_ring smem``."""
     with open(os.path.join(CSRC, "sdp_band.cu")) as fh:
         src = fh.read()
@@ -270,17 +281,20 @@ def _compiled_fit(tmp_path):
              _extract(src, "constexpr int band_tmax("),
              _extract(src, "struct BandFit {", "\n};"),
              _extract(src, "BandFit band_fit(")]
+    n = 12 if sid else 11
+    extra = ", sid" if sid else ""
     prog = tmp_path / "fit.cpp"
     prog.write_text(
         "#include <cstdint>\n#include <cstddef>\n#include <cstdio>\n"
         f"{consts}\n" + "\n".join(parts) + "\n"
         "int main() {\n"
-        "  int fwd, rows, B, sms, cmax, S, R, NR, n_sh, n_spans, H;\n"
-        "  while (scanf(\"%d %d %d %d %d %d %d %d %d %d %d\", &fwd, &rows,"
-        " &B, &sms, &cmax, &S, &R, &NR, &n_sh, &n_spans, &H) == 11) {\n"
-        "    const int tmax = band_tmax(fwd, S, n_sh);\n"
+        "  int fwd, rows, B, sms, cmax, S, R, NR, n_sh, n_spans, H, sid;\n"
+        f"  while (scanf(\"{' '.join(['%d'] * n)}\", &fwd, &rows,"
+        " &B, &sms, &cmax, &S, &R, &NR, &n_sh, &n_spans, &H"
+        f"{', &sid' if sid else ''}) == {n}) {{\n"
+        f"    const int tmax = band_tmax(fwd, S, n_sh{extra});\n"
         "    BandFit f = band_fit(fwd, rows, B, sms, cmax, tmax, R, NR,"
-        " n_sh, n_spans, H);\n"
+        f" n_sh, n_spans, H{extra});\n"
         "    printf(\"%d %d %d %d %d %zu\\n\", tmax, f.C, f.T, f.k,"
         " f.smem_ring, f.smem);\n"
         "  }\n}\n")
@@ -347,6 +361,36 @@ def test_band_fit_bytes_and_cluster(tmp_path):
         assert fit[("two_exons_intron", fwd, 1281, 1, 8)][:3] == (8, 192, 1)
     assert fit[("c2g_split", 1, 1281, 32, 16)][3] == 0
     assert fit[("c2g_split", 0, 1281, 16, 16)][3] == 1
+
+
+def test_band_fit_counts_the_seed_id_plane(tmp_path):
+    """A non-boundary model's reverse pass (``band_fit``'s ``sid``) keeps
+    a seed-id row per ring state beside sc and pm, in shared memory and
+    in the halo lanes: its ring holds 3 rows a ring state where the
+    boundary plan's reverse ring holds 2, and its register bound counts
+    S more ids; its forward pass is the boundary rule's."""
+    exe = _compiled_fit(tmp_path, sid=True)
+    cases = []
+    for name in NB_BAND_CASES:
+        bi = _band_inputs(name)
+        for fwd in (0, 1):
+            for rows, B in ((1281, 16), (257, 3), (40000, 1)):
+                cases.append((name, fwd, rows, B, 132, 16)
+                             + _pass_numbers(bi, bool(fwd)) + (1 - fwd,))
+    lines = "".join(" ".join(map(str, c[1:])) + "\n" for c in cases)
+    got = subprocess.run([str(exe)], input=lines, capture_output=True,
+                         text=True, check=True, timeout=60).stdout.split("\n")
+    for case, line in zip(cases, got):
+        name, fwd, rows, B, sms, cmax, S, R, NR, n_sh, n_spans, H, sid = case
+        tmax, C, T, k, smem_ring, smem = map(int, line.split())
+        regs = 2 * S + sid * (S + 2) + 48
+        assert n_sh == 0 and n_spans == 0, case
+        assert tmax == (1024 if regs <= 64 else 512 if regs <= 128
+                        else 256), case
+        assert C * T * k >= rows and T % 32 == 0, case
+        ring = 4 * R * NR * (2 + sid) * (k * T + H)
+        assert bool(smem_ring) == (ring + 16 <= 232448), case
+        assert smem == (ring if smem_ring else 0) + 16, case
 
 
 # -- the lane split, emulated --------------------------------------------

@@ -6,8 +6,13 @@ its Pallas kernel in interpret mode (``sdp_pallas.run_kernel``) and the
 oracle scheduler's per-locus best end score, on the synthetic pairs of
 ``tests/test_sdp_pallas.py`` and on protein2genome, coding2genome and
 cdna2genome pairs whose exons split codons of both phases (kernel K9,
-the split-codon calc, inside K7).  Each case is built twice, from the
-port's host layer and from the JAX package's (``torch_sdp_cases``).
+the split-codon calc, inside K7).  The non-boundary models (ungapped,
+affine, protein2dna, coding2coding), whose reverse pass attributes start
+scores to seeds, are held to the XLA scan (the Pallas kernel refuses
+them) on ``band_end``, ``start_scores``, ``live`` and ``xband``, and to
+the oracle's per-seed start and end scores where the band is not live.
+Each case is built twice, from the port's host layer and from the JAX
+package's (``torch_sdp_cases``).
 Tests marked ``gpu`` hold the CUDA kernels K6/K7 to the plain version on
 a card and skip without one.
 """
@@ -23,7 +28,8 @@ from exonerate_tpu_torch.model.registry import ModelType, get_model
 from exonerate_tpu_torch.engine import cuda_sdp
 from exonerate_tpu_torch.engine import sdp_device as tsd
 from exonerate_tpu_torch.engine import sdp_hybrid as thy
-from torch_sdp_cases import CASES, SPLIT_CASES
+from exonerate_tpu_torch.engine.sdp import model_uses_boundary
+from torch_sdp_cases import CASES, NB_CASES, SPLIT_CASES
 from torch_sdp_cases import case as _case
 
 DD = (AlphabetType.DNA, AlphabetType.DNA)
@@ -80,10 +86,12 @@ def test_host_prep_equals_jax(name):
     n = cuda_sdp.count_seed_layers(pair, plan)
     assert n == sdp_pallas.count_seed_layers(jpair, jplan)
     for layers in (1, 5):
+        # the port's kernels take the non-boundary models too (their
+        # TRACK_SID instantiation), which the Pallas kernel refuses: the
+        # Pallas rule as it reads a boundary model
         assert cuda_sdp.kernel_supported(model, pair.use_boundary, layers,
                                          pair) == \
-            sdp_pallas.kernel_supported(jmodel, jpair.use_boundary, layers,
-                                        jpair)
+            sdp_pallas.kernel_supported(jmodel, True, layers, jpair)
     _eq(cuda_sdp.prepare_kernel_inputs(model, pair, plan, 256, 1024, n),
         sdp_pallas.prepare_kernel_inputs(jmodel, jpair, jplan, 256, 1024,
                                          n))
@@ -155,6 +163,72 @@ def test_plain_scan_equals_xla_pallas_and_oracle(name):
         assert not got["live"]
 
 
+@pytest.mark.parametrize("name", sorted(NB_CASES))
+def test_non_boundary_scan_equals_xla_and_oracle(name):
+    """The non-boundary models: the plain scan (its reverse pass carrying
+    a seed id per state) equals the XLA scan with ``track_sid`` exactly,
+    start scores included, and the oracle where the band is not live."""
+    model, pair, plan = _case(name)
+    jmodel, jpair, jplan = _case(name, pkg="exonerate_tpu")
+    assert not pair.use_boundary
+    assert cuda_sdp.unsupported_reason(model, pair, plan) is None
+    got = _single(name)
+    want = _xla(jmodel, jpair, jplan)
+    n, ns = len(plan.loci), len(pair.seeds)
+    assert got["live"] == bool(want["live"])
+    assert got["xband"] == bool(want["xband"]) is False
+    np.testing.assert_array_equal(
+        got["band_end"][:n], np.asarray(want["band_end"][:n], np.int64))
+    np.testing.assert_array_equal(
+        got["start_scores"], np.asarray(want["start_scores"][:ns], np.int64))
+    if not got["live"] and name != "sid_shared_cell":
+        np.testing.assert_array_equal(got["band_end"][:n],
+                                      _oracle(pair, plan))
+        np.testing.assert_array_equal(
+            got["start_scores"], [s.max_start.score for s in pair.seeds])
+
+
+def test_shared_cell_takes_the_largest_seed_index():
+    """Two seeds at one cell, the smaller half score on the larger index:
+    the reverse pass's END state takes the larger half score but the
+    larger index, so only that seed gets a start score, and the forward
+    pass takes that seed's own half score off it (the XLA scan's
+    ``zero.at[q].max(sids)``, ``sdp_device.py:408-413``)."""
+    model, pair, plan = _case("sid_shared_cell")
+    s0, s1 = pair.seeds
+    assert (s0.q_cobs, s0.t_cobs) == (s1.q_cobs, s1.t_cobs)
+    assert s1.hsp_score >> 1 < s0.hsp_score >> 1
+    bi = cuda_sdp.band_inputs(model, [(pair, plan)], pair.args.dropoff, CPU)
+    v = plan.to_v(0, s0.t_cobs)
+    assert bi.tvecs[0, bi.row_seedv, v] == s0.hsp_score >> 1
+    assert bi.tvecs[0, bi.row_seedi, v] == 1
+    assert bi.tvecs[0, bi.row_seedh, v] == s1.hsp_score >> 1
+    start = _single("sid_shared_cell")["start_scores"]
+    assert start[0] == tsd.NEG and start[1] > tsd.NEG
+    # the same pair with the first seed alone: the same start score,
+    # and the forward pass seeded with its own (larger) half score
+    # taken off it ends lower
+    alone = _single("affine_local_wide")
+    assert alone["start_scores"][0] == start[1]
+    assert alone["band_end"][0] < _single("sid_shared_cell")["band_end"][0]
+
+
+def test_non_boundary_ragged_batch_equals_single_runs():
+    """A batch of affine:local jobs of different widths and seed counts
+    (the start scores padded to the batch's largest seed count) equals
+    each job run alone."""
+    names = ["affine_local", "affine_local_two_bands", "sid_shared_cell"]
+    model = _case(names[0])[0]
+    jobs = [_case(n, model)[1:] for n in names]
+    batch = cuda_sdp.run_kernel(model, jobs, 50, CPU)
+    for name, got in zip(names, batch):
+        want = _single(name)
+        assert got["live"] == want["live"] and got["xband"] == want["xband"]
+        np.testing.assert_array_equal(got["band_end"], want["band_end"])
+        np.testing.assert_array_equal(got["start_scores"],
+                                      want["start_scores"])
+
+
 @pytest.mark.slow
 def test_plain_scan_two_distant_loci():
     _check("distant_loci")
@@ -208,11 +282,22 @@ def test_unsupported_reason_names_the_missing_kernel():
         cuda_sdp.unsupported_reason(g2g)
     assert cuda_sdp.unsupported_reason(
         get_model(ModelType.EST2GENOME, *DD)) is None
-    assert "non-boundary" in cuda_sdp.unsupported_reason(
-        get_model(ModelType.AFFINE_LOCAL, *DD))
+    # the 9 non-boundary models run on the kernels' TRACK_SID
+    # instantiation (their plain scan here)
+    PD = (AlphabetType.PROTEIN, AlphabetType.DNA)
+    nb = [("UNGAPPED", DD), ("UNGAPPED_TRANS", DD), ("AFFINE_GLOBAL", DD),
+          ("AFFINE_BESTFIT", DD), ("AFFINE_LOCAL", DD),
+          ("AFFINE_OVERLAP", DD), ("PROTEIN2DNA", PD),
+          ("PROTEIN2DNA_BESTFIT", PD), ("CODING2CODING", DD)]
+    for mt, alpha in nb:
+        m = get_model(ModelType[mt], *alpha)
+        assert not model_uses_boundary(m), mt
+        assert cuda_sdp.unsupported_reason(m) is None, mt
     model, pair, plan = _case("affine_local")
     out = thy.run_device_batch(model, [(pair, plan)], CPU)[0]
-    assert "band kernel unsupported (non-boundary" in out["fallback"]
+    assert "fallback" not in out
+    np.testing.assert_array_equal(out["band_end"],
+                                  _single("affine_local")["band_end"])
 
 
 def test_device_tier_gates_and_refusals(monkeypatch):
@@ -283,6 +368,24 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
         cuda_sdp.band_forward(bi, bits[:, :-1])
     with pytest.raises(ValueError):
         cuda_sdp.band_forward(bi, bits.long())
+    # a non-boundary batch hands K7 its start scores, not bits
+    model, pair, plan = _case("ungapped")
+    nbi = cuda_sdp.band_inputs(model, [(pair, plan)], 50, CPU)
+    start, _ = cuda_sdp.band_reverse(nbi)
+    assert start.shape == (1, len(pair.seeds))
+    cuda_sdp.band_forward(nbi, start)
+    with pytest.raises(ValueError, match="start scores"):
+        cuda_sdp.band_forward(nbi, bits)
+    # without its seed ids a non-boundary model cannot be packed, and the
+    # cross-chip band scan takes boundary models only
+    n = cuda_sdp.count_seed_layers(pair, plan)
+    flat, kinds, meta = cuda_sdp.prepare_kernel_inputs(
+        model, pair, plan, 512, 1024, n)
+    with pytest.raises(ValueError, match="seed ids"):
+        cuda_sdp.to_band_inputs(model, [flat], kinds, [meta], 512, 1024, 50,
+                                CPU)
+    with pytest.raises(ValueError, match="boundary models only"):
+        cuda_sdp.cross_chunks(model, pair, plan, 50, 2, [CPU, CPU])
     bi.tvecs = bi.tvecs.long()
     with pytest.raises(ValueError):
         cuda_sdp.band_reverse(bi)
@@ -311,7 +414,8 @@ def _need_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", sorted(CASES) + sorted(SPLIT_CASES))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(SPLIT_CASES)
+                         + sorted(NB_CASES))
 def test_k6_k7_equal_plain(name):
     dev = _need_card()
     model, pair, plan = _case(name)

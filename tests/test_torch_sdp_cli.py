@@ -5,7 +5,13 @@ seeded heuristic's SDP passes run the port's band scan (the plain
 PyTorch version of K6/K7 on the CPU).  Every in-repo est2genome heuristic
 golden, and every in-repo split-codon golden (coding2genome and
 cdna2genome, kernel K9 inside K7), must be byte-equal, with
-``torch-sdp`` counted and no fallback.
+``torch-sdp`` counted and no fallback.  The non-boundary models
+(affine:local, protein2dna) take the same forced route, the reverse pass
+attributing start scores to seeds, and print what the JAX CLI prints on
+its XLA scan; ungapped prints the JAX CLI's bytes through its ungapped
+route (its results are the HSPs, no band scan in either package).  By
+default a card keeps the non-boundary models on the host, as the JAX
+package's Pallas tier does, and their jobs never go across chips.
 """
 import io
 import os
@@ -144,6 +150,83 @@ def test_forced_route_without_jax_equals_native_route(monkeypatch,
     for got, want in zip(outs, native):
         assert cases.normalize(got) == cases.normalize(want)
     assert " S " in outs[1]
+
+
+def _nb_argv(model, tmp_path):
+    """The non-boundary routes' in-repo inputs: cdna_mut x genome_small
+    (affine:local, ungapped) and the calm protein (calm's CDS, record 1
+    of all4.fa, translated) x all4.fa (protein2dna)."""
+    if model == "protein2dna":
+        q = sc.write_fasta(str(tmp_path / "calm_p.fa"),
+                           [("calm_p", sc.calm_protein())])
+        files = [q, os.path.join(cases.FIXDIR, "all4.fa")]
+    else:
+        files = [CDNA_MUT, GENOME_SMALL]
+    return ["-m", model] + files + ["--showvulgar", "yes",
+                                    "--showalignment", "no"]
+
+
+@pytest.mark.parametrize("model", ["affine:local", "ungapped",
+                                   "protein2dna"])
+def test_forced_non_boundary_route_equals_jax_cli(forced, tmp_path, model):
+    from exonerate_tpu import observe as jobserve
+    from exonerate_tpu.cli.exonerate import main as jax_main
+    argv = _nb_argv(model, tmp_path)
+    observe.reset()
+    got = _cli(argv)
+    jobserve.reset()
+    jbuf = io.StringIO()
+    assert jax_main(list(argv), out=jbuf) == 0
+    assert got == jbuf.getvalue()
+    assert "vulgar:" in got
+    assert not observe.fallback_counts, dict(observe.fallback_counts)
+    if model == "ungapped":
+        assert "torch-sdp" not in observe.engine_counts
+        assert "sdp-device" not in jobserve.engine_counts
+    else:
+        # the JAX CLI's XLA scan (sdp-device), the port's plain scan
+        assert observe.engine_counts["torch-sdp"] >= 1, dict(
+            observe.engine_counts)
+        assert observe.engine_counts["torch-sdp"] == \
+            jobserve.engine_counts["sdp-device"]
+
+
+def test_default_route_on_a_card_keeps_non_boundary_models_on_the_host(
+        monkeypatch):
+    """A GAM on a card (the device patched: no card here) takes the
+    device tier by default for the boundary models the kernels serve,
+    and keeps the non-boundary ones on the host, as the JAX package's
+    default tier does (it needs its Pallas kernel); the forced tier
+    takes both.  A non-boundary job never goes across chips."""
+    import torch
+    from exonerate_tpu_torch.alphabet import AlphabetType
+    from exonerate_tpu_torch.engine import sdp_hybrid as thy
+    from exonerate_tpu_torch.hub.gam import GAM, GamArgs
+    from exonerate_tpu_torch.model.registry import ModelType, get_model
+    import torch_sdp_cases as tc
+    monkeypatch.delenv("EXONERATE_TPU_SDP", raising=False)
+    card = torch.device("cuda", 0)
+    DD = (AlphabetType.DNA, AlphabetType.DNA)
+    PD = (AlphabetType.PROTEIN, AlphabetType.DNA)
+    want = {("EST2GENOME", DD): True, ("AFFINE_LOCAL", DD): False,
+            ("AFFINE_GLOBAL", DD): False, ("PROTEIN2DNA", PD): False,
+            ("CODING2CODING", DD): False, ("PROTEIN2GENOME", PD): True}
+    for (mt, alpha), on in want.items():
+        gam = GAM(get_model(ModelType[mt], *alpha), GamArgs(), None,
+                  device=card)
+        assert gam.sdp_device_active() is on, mt
+        gam.device = torch.device("cpu")
+        assert gam.sdp_device_active() is False, mt
+        monkeypatch.setenv("EXONERATE_TPU_SDP", "device")
+        assert gam.sdp_device_active() is True, mt
+        monkeypatch.delenv("EXONERATE_TPU_SDP")
+    monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP", "2")
+    monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP_MIN_W", "1")
+    monkeypatch.setattr(thy, "_devices", lambda device: [card] * 2)
+    nb_model, _pair, nb_plan = tc.case("affine_local")
+    b_model, _pair, b_plan = tc.case("single_exon")
+    assert thy._cross_chip_config(nb_plan, card, nb_model) == 0
+    assert thy._cross_chip_config(b_plan, card, b_model) == 2
 
 
 @pytest.mark.parametrize("knob", [("EXONERATE_TPU_SDP_ROWS", "1")])

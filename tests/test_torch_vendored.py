@@ -29,7 +29,8 @@ JAX_PKG = os.path.join(ROOT, "exonerate_tpu")
 # package docstring
 COUNTERPARTS = {"__init__.py", "engine/wavefront.py", "engine/sdp_device.py",
                 "engine/sdp_hybrid.py", "engine/optimal.py", "hub/gam.py",
-                "hub/analysis.py", "cli/exonerate.py"}
+                "hub/analysis.py", "cli/exonerate.py", "cli/server.py",
+                "db/device_index.py"}
 
 
 def _port_files(exts):
@@ -80,7 +81,9 @@ def test_copy_list_covers_the_host_layer():
                 "sdplib.cpp", "seedlib.cpp", "align/gff.py", "align/ryo.py",
                 "model/phase.py", "model/registry.py", "seeds/seeder.py",
                 "engine/sdp.py", "engine/sdp_native.py", "engine/reference.py",
-                "hub/bsdp.py", "hub/client.py", "cli/args.py"):
+                "hub/bsdp.py", "hub/client.py", "cli/args.py",
+                "db/__init__.py", "db/dataset.py", "db/index.py",
+                "db/rangetree.py"):
         assert rel in COPIES, rel
 
 

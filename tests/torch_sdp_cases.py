@@ -9,7 +9,10 @@ build them (``tests/test_sdp_pallas.py``).  ``case(name)`` returns
 package (the two packages share no objects).  Every case has its own
 seed.  The split-codon cases (``SPLIT_CASES``) cut their exons like
 ``torch_split_cases``, so that their best paths cross a phase-1 and a
-phase-2 split codon.
+phase-2 split codon.  ``NB_CASES`` are the non-boundary models (the
+reverse pass attributes start scores to seeds), after the JAX package's
+own cases (``tests/test_sdp_device.py``), with one pair whose two seeds
+share a cell.
 """
 import importlib
 from types import SimpleNamespace
@@ -47,11 +50,15 @@ def mutate(rng, s, n):
 
 
 def pair_and_plan(mtname, q, t, hsp_list, margin=64, qt="DD", model=None,
-                  qadv=1, tadv=1, cds=None, pkg=PORT):
+                  qadv=1, tadv=1, cds=None, share=False, pkg=PORT):
     """(model, pair, plan) of q against t with the given HSPs
     (query_start, target_start, length, score; lengths in advances of
     ``qadv`` / ``tadv``).  ``qt`` names the alphabets (D = DNA, P =
-    protein); ``cds`` (start, length) annotates the query's CDS."""
+    protein); ``cds`` (start, length) annotates the query's CDS.  With
+    ``share``, a last seed joins the first at its cell with half its
+    score (the HSP seeds of a comparison never share a cell: the device
+    scan must still take the cell's largest half score and its largest
+    seed index)."""
     X = _ns(pkg)
     alpha = {"D": X.AlphabetType.DNA, "P": X.AlphabetType.PROTEIN}
     mt = X.ModelType[mtname]
@@ -66,6 +73,11 @@ def pair_and_plan(mtname, q, t, hsp_list, margin=64, qt="DD", model=None,
     hs = SimpleNamespace(qadv=qadv, tadv=tadv, hsps=hl)
     comp = SimpleNamespace(query=qs, target=ts, hspsets=lambda: [hs])
     pair = X.SDPPair(model, comp, data, None, X.SdpArgs())
+    if share:
+        seeds = [(s.q_cobs, s.t_cobs, s.hsp_score, s.hsp) for s in pair.seeds]
+        q0, t0, score, hsp = seeds[0]
+        pair = X.SDPPair(model, comp, data, None, X.SdpArgs(),
+                         seeds_override=seeds + [(q0, t0, score // 2, hsp)])
     pair._find_starts()
     pair._find_ends()
     extents = [(s.hsp.target_start, s.hsp.target_start + s.hsp.length * tadv)
@@ -131,6 +143,56 @@ def _affine_local(rng):
             [(60, 10, 80, 300)], {})
 
 
+def _affine(mtname, share=False):
+    """The JAX package's affine pair (``test_affine_local_single_band``)
+    under ``mtname``, its band over the whole target."""
+    def make(rng):
+        base = dna(rng, 400)
+        return (mtname, base[:200], mutate(rng, base[50:350], 20),
+                [(60, 10, 80, 300)], {"share": share, "margin": 300})
+    return make
+
+
+def _affine_two_bands(rng):
+    base = dna(rng, 400)
+    q = base[:200]
+    t = (dna(rng, 500) + q[:120] + dna(rng, 800) + mutate(rng, q[60:200], 10)
+         + dna(rng, 400))
+    return ("AFFINE_LOCAL", q, t, [(5, 505, 100, 350), (70, 1430, 110, 320)],
+            {"margin": 100})
+
+
+def _ungapped(rng):
+    base = dna(rng, 500)
+    return ("UNGAPPED", base[:300], mutate(rng, base[40:460], 12),
+            [(80, 40, 60, 240)], {"margin": 200})
+
+
+def _ungapped_trans(rng):
+    base = dna(rng, 500)
+    return ("UNGAPPED_TRANS", base[:300], mutate(rng, base[40:460], 12),
+            [(60, 20, 40, 200)], {"qadv": 3, "tadv": 3, "margin": 200})
+
+
+def _protein2dna(mtname, margin=90):
+    """The JAX package's protein2dna pair (``test_sdp_device.py:175``)."""
+    def make(rng):
+        from exonerate_tpu_torch.translate import default_code
+        t = dna(rng, 600)
+        pep = default_code().translate(
+            np.frombuffer(t[90:390].encode(), np.uint8), 1)
+        pep = pep.tobytes().decode().replace("*", "S")
+        return (mtname, pep, t, [(5, 105, 30, 180)],
+                {"qt": "PD", "qadv": 1, "tadv": 3, "margin": margin})
+    return make
+
+
+def _coding2coding(rng):
+    base = dna(rng, 500)
+    return ("CODING2CODING", base[:300], mutate(rng, base[40:460], 20),
+            [(30, 5, 45, 220)], {"qadv": 3, "tadv": 3, "margin": 120})
+
+
 def _split(mtname, kind, cuts=sc.CUTS, flank=40):
     """A small split pair of ``torch_split_cases`` with one HSP inside
     each of its three exons."""
@@ -169,8 +231,22 @@ WIDE_SPLIT_CASES = {
     "c2g_split_wide": (_split("CODING2GENOME", "cdna", sc.C2G_CUTS, 300),
                        32),
     "cd2g_split_wide": (_split("CDNA2GENOME", "cdna", flank=300), 33)}
+# the non-boundary models (ungapped, affine, protein2dna, coding2coding)
+NB_CASES = {
+    "affine_local": (_affine_local, 7),
+    "affine_local_two_bands": (_affine_two_bands, 8),
+    "affine_global": (_affine("AFFINE_GLOBAL"), 9),
+    "affine_bestfit": (_affine("AFFINE_BESTFIT"), 10),
+    "affine_overlap": (_affine("AFFINE_OVERLAP"), 15),
+    "ungapped": (_ungapped, 16),
+    "ungapped_trans": (_ungapped_trans, 17),
+    "protein2dna": (_protein2dna("PROTEIN2DNA"), 21),
+    "protein2dna_bestfit": (_protein2dna("PROTEIN2DNA_BESTFIT", 400), 24),
+    "coding2coding": (_coding2coding, 22),
+    "affine_local_wide": (_affine("AFFINE_LOCAL"), 25),
+    "sid_shared_cell": (_affine("AFFINE_LOCAL", share=True), 25)}
 ALL_CASES = dict(CASES, distant_loci=(_distant_loci, 14),
-                 affine_local=(_affine_local, 7), span_cut=(_span_cut, 5),
+                 span_cut=(_span_cut, 5), **NB_CASES,
                  **SPLIT_CASES, **WIDE_SPLIT_CASES)
 
 
