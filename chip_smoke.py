@@ -102,6 +102,26 @@ second of the script at which it starts:
       client on 4 of the cDNAs, est2genome and the default model: the
       two servers' outputs equal byte for byte, their vulgar lines the
       local run's on the genome FASTA.
+   f. The row-scan tier (engine/sdp_rows.py, torch ops, no kernel): the
+      first ROWS_PROTEINS of phase 5b's proteins, both strands, with
+      EXONERATE_TPU_SDP=device and EXONERATE_TPU_SDP_ROWS=1 through the
+      CLI; comparisons counted on sdp-rows, every row-pass output on the
+      card; each row pass timed (host clock, synchronised), with its
+      bucket's rows and sweeps.  In phase 14 the bytes must equal the
+      same run's on the CPU, the engine counts and fallbacks the CPU
+      run's, and the first bucket's row-pass outputs the CPU's field by
+      field; against the native route no query may score higher (the
+      JAX package's row tier reports a worse alignment for p1 on this
+      input, ROADMAP Queue 3; the lines that differ are printed).  Both
+      references run in worker processes.
+   g. --multihost query: MH_RANKS processes on cuda:0 over gloo
+      (127.0.0.1), phase 4's first MH_QUERIES cDNAs against its genome;
+      rank 0's merged report equals one process's, the other ranks print
+      their header and footer only.
+   h. dryrun_multichip([cuda:0, cuda:0]) (parallel/dryrun.py): the
+      sharded ungapped scan, K5, the sharded and target-tiled pair, the
+      band batch over the devices and K8, each against one device, and
+      sdp_hybrid.run_device taking K8; its launches counted.
 6. The SubOpt mask (kernel K3, the MASKED instantiation of K1/K4 and of
    the cluster kernel K2), each run through the port's CLI with no
    fallback:
@@ -236,7 +256,8 @@ second of the script at which it starts:
     live, xband), and every K1/K2/K4 launch handed to them its plain
     version (scores, ends, starts; traceback cube, walk-back), and every
     K8 launch handed to them its plain version; phase 3's run_kernel on
-    the CPU; the native routes' bytes (phases 4-6a and 9) and the
+    the CPU; phase 5f's references; the native routes' bytes (phases
+    4-6a and 9) and the
     genome2genome CPU run's (phase 13); K1 at the full shape against K2;
     the span launches of phases 9d-e; phase 7's model zoo.
 15. T1, the elementwise-throughput probe (exonerate_tpu_torch/tools/
@@ -249,8 +270,10 @@ second of the script at which it starts:
     so does a build that issues fewer instructions than the ops it counts
     (the SASS of each instantiation, from cuobjdump).
 
-The device index of phase 5e is torch ops, not a kernel (the JAX
-package's is shard_map and jnp), and has no row in the kernels line.
+The device index of phase 5e, the row-scan tier of phase 5f and the
+multi-device routes of phases 5g-h but K5 and K8 are torch ops (or
+gloo), not kernels (the JAX package's are shard_map, jnp and XLA's
+lax.scan), and have no row in the kernels line.
 K5 and K8 are the JAX package's multi-device routes; on one card they
 check every shard, chunk and halo and time the kernels, but cannot show
 the overlap of several cards.  Phases 3-13 run on the card while the
@@ -324,6 +347,14 @@ NB_ARGV = ["--bestn", "1", "--showvulgar", "yes", "--showalignment", "no"]
 # index (plus two misses), and the cDNAs the client aligns
 SRV_WORDS = 4096
 SRV_QUERIES = 4
+# phase 5f, the row-scan tier (engine/sdp_rows.py, torch ops): the first
+# ROWS_PROTEINS of phase 5b's proteins, both strands, on the forced device
+# route with the rows knob set
+ROWS_PROTEINS = 2
+ROWS_ENV = {"EXONERATE_TPU_SDP": "device", "EXONERATE_TPU_SDP_ROWS": "1"}
+# phase 5g, --multihost query: MH_RANKS processes on cuda:0 over gloo, phase
+# 4's first MH_QUERIES cDNAs against its genome, each rank given MH_TIMEOUT s
+MH_RANKS, MH_QUERIES, MH_TIMEOUT = 2, 2, 240
 # the -E yes Waterman-Eggert window: calm's two copies interleaved from
 # WE_START, GT..AG gaps of WE_GAP (each copy spans 8,425 bp), WE_LEN bp in
 # all; --score WE_SCORE ends the run after both copies (calm's internal
@@ -672,6 +703,88 @@ def _cpu_cli(argv: list, env: dict = None, tpu_cells: int = None,
         raise RuntimeError(f"CLI exit status for {argv}")
     return (buf.getvalue(), time.perf_counter() - t0,
             dict(observe.engine_counts), dict(observe.fallback_counts))
+
+
+def _rows_cpu(argv: list):
+    """Worker process, CPU only: the port's CLI over ``argv`` on the
+    forced row-scan route (phase 5f's reference).  Returns (output, host
+    seconds, engine counts, fallback counts, the row pass's outputs per
+    bucket as numpy dicts)."""
+    os.environ.update(ROWS_ENV)
+    os.environ["EXONERATE_TPU_TORCH_DEVICE"] = "cpu"
+    sys.path.insert(0, ROOT)
+    from exonerate_tpu_torch import observe
+    from exonerate_tpu_torch.cli.exonerate import main as cli_main
+    from exonerate_tpu_torch.engine import sdp_rows
+    torch.set_num_threads(1)
+    buckets = []
+    real_get_fn = sdp_rows.get_fn
+
+    def spy(*args, **kwargs):
+        fn = real_get_fn(*args, **kwargs)
+
+        def kept(inputs, device=None):
+            out = fn(inputs, device=device)
+            buckets.append({k: v.numpy() for k, v in out.items()})
+            return out
+        return kept
+    sdp_rows.get_fn = spy
+    observe.reset()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    if cli_main(argv, out=buf) != 0:
+        raise RuntimeError(f"CLI exit status for {argv}")
+    return (buf.getvalue(), time.perf_counter() - t0,
+            dict(observe.engine_counts), dict(observe.fallback_counts),
+            buckets)
+
+
+def _best_scores(out: str) -> dict:
+    """Each query's best vulgar score in a CLI output."""
+    best: dict = {}
+    for line in out.splitlines():
+        if line.startswith("vulgar: "):
+            f = line.split()
+            best[f[1]] = max(best.get(f[1], int(f[9])), int(f[9]))
+    return best
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _multihost(argv: list, axis: str) -> tuple:
+    """``argv`` with ``--multihost axis`` in MH_RANKS processes on cuda:0
+    over gloo (127.0.0.1).  Returns (each rank's stdout, host seconds)."""
+    env = dict(os.environ, PYTHONPATH=ROOT, WORLD_SIZE=str(MH_RANKS),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    env.pop("EXONERATE_TPU_TORCH_DEVICE", None)
+    cmd = [sys.executable, "-m", "exonerate_tpu_torch.cli.exonerate"] + \
+        argv + ["--multihost", axis]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r),
+                                            LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=ROOT)
+             for r in range(MH_RANKS)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=MH_TIMEOUT))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    secs = time.perf_counter() - t0
+    bad = [(r, proc.returncode, outs[r][1][-2000:])
+           for r, proc in enumerate(procs) if proc.returncode != 0]
+    if bad:
+        raise RuntimeError(f"--multihost {axis}: ranks failed: {bad}")
+    return [o for o, _e in outs], secs
 
 
 def _synthetic_run_kernel(k: int):
@@ -1306,9 +1419,9 @@ def main() -> int:
     captured = []
     real_batch = hy.run_device_batch
 
-    def spy(model_, jobs_, device_):
+    def spy(model_, jobs_, device_, devices_=None):
         t0 = time.perf_counter()
-        res = real_batch(model_, jobs_, device_)
+        res = real_batch(model_, jobs_, device_, devices_)
         captured.append((model_, list(jobs_), time.perf_counter() - t0))
         return res
 
@@ -1320,6 +1433,20 @@ def main() -> int:
     pools, pending = [], []
     syn_pool = _pool(2)
     pools.append(syn_pool)
+    # phase 5f's references, the longest of them ~150 s on one core,
+    # start now: phase 5b's first proteins against its genome on the CPU
+    # (forced rows route; native route)
+    rqf = _write_fasta(os.path.join(tmp_dir, "rows_q.fa"),
+                       [(f"p{k}", p) for k, p in enumerate(
+                           sc.mutated_proteins(8)[:ROWS_PROTEINS])])
+    rtf = _write_fasta(os.path.join(tmp_dir, "rows_t.fa"),
+                       [("split_genome", sc.scan_genome(sc.CUTS)[1])])
+    rows_argv = P2G_ARGV + [rqf, rtf]
+    rows_pool = _pool(2)
+    pools.append(rows_pool)
+    rows_ref = rows_pool.apply_async(_rows_cpu, (rows_argv,))
+    rows_nat = rows_pool.apply_async(
+        _cpu_cli, (rows_argv, {"EXONERATE_TPU_SDP": "native"}))
     syn_checks = []
     band_err = 0
     split_band = None
@@ -1874,6 +2001,104 @@ def main() -> int:
     srv_res = _server_phase(dev, tf, srv_qf, tmp_dir, run_cli, card)
     srv_launches = read_counts("exonerate-server clients", ())
     print(f"  launches of the server phase's CLI runs: {srv_launches}")
+
+    # -- 5f. the row-scan tier (engine/sdp_rows.py, torch ops) ----------
+    # phase 5b's first proteins on the forced rows route: the bytes the
+    # native route's, the fallbacks the same run's on the CPU, one
+    # bucket's row-pass outputs the CPU's field by field (both references
+    # in worker processes, read in phase 14)
+    _mark(t_start, "5f, the row-scan tier")
+    from exonerate_tpu_torch.engine import sdp_rows
+    rows_calls = []
+    real_rows_fn = sdp_rows.get_fn
+
+    def spy_rows(*args, **kwargs):
+        fn = real_rows_fn(*args, **kwargs)
+
+        def timed(inputs, device=None):
+            t0 = time.perf_counter()
+            res = fn(inputs, device=device)
+            _sync()
+            rows_calls.append((time.perf_counter() - t0, res))
+            return res
+        return timed
+
+    os.environ.update(ROWS_ENV)
+    sdp_rows.get_fn = spy_rows
+    observe.reset()
+    zero_counts()
+    try:
+        rows_out, rows_secs = run_cli(rows_argv, ("sdp device->host",))
+        rows_launches = read_counts("row-scan tier", ())
+        rows_eng = dict(observe.engine_counts)
+        rows_falls = dict(observe.fallback_counts)
+    finally:
+        sdp_rows.get_fn = real_rows_fn
+        for knob in ROWS_ENV:
+            os.environ.pop(knob, None)
+    if rows_eng.get("sdp-rows", 0) < 1 or not rows_calls:
+        raise RuntimeError(f"row-scan tier: no comparison on sdp-rows: "
+                           f"{rows_eng}")
+    off_card = [k for _s, res in rows_calls for k, v in res.items()
+                if v.device.type != "cuda"]
+    if off_card:
+        raise RuntimeError(f"row-scan tier: outputs {off_card} not on the "
+                           f"card")
+    rows_dp = sum(int(res["live"].shape[0]) for _s, res in rows_calls)
+    rows_kernel_s = sum(secs for secs, _r in rows_calls)
+    rows_shape = [(int(res["live"].shape[0]),
+                   int(res["row_sweeps_rev"].shape[1]),
+                   int(res["row_sweeps_rev"].sum()),
+                   int(res["row_sweeps_fwd"].sum()),
+                   int(res["sweeps"].max()), round(secs, 3))
+                  for secs, res in rows_calls]
+    rows_first = {k: v.cpu().numpy() for k, v in rows_calls[0][1].items()}
+    print(f"row-scan tier, protein2genome {ROWS_PROTEINS} x "
+          f"{SCAN_LEN / 1e6:.0f} Mb both strands [{card}]: CLI "
+          f"{rows_secs:.2f} s host clock; row passes {rows_kernel_s:.2f} s "
+          f"over {rows_dp} DPs ({rows_kernel_s / rows_dp * 1e3:.1f} ms per "
+          f"DP); per bucket (B, rows a pass, sweeps reverse, sweeps "
+          f"forward (summed over rows and pairs), most sweeps a row, s) "
+          f"{rows_shape}; engines {rows_eng}; fallbacks {rows_falls}; "
+          f"launches {rows_launches}; the native route and the CPU run in "
+          f"worker processes")
+    del rows_calls
+
+    # -- 5g. --multihost query: 2 ranks on cuda:0 over gloo -------------
+    _mark(t_start, "5g, --multihost query over gloo")
+    mh_qf = _write_fasta(os.path.join(tmp_dir, "mh_q.fa"),
+                         [(f"q{k}", q) for k, q in
+                          enumerate(queries[:MH_QUERIES])])
+    mh_argv = SCAN_ARGV + [mh_qf, tf]
+    observe.reset()
+    mh_one, mh_one_secs = run_cli(mh_argv)
+    mh_outs, mh_secs = _multihost(mh_argv, "query")
+    merged = mh_outs[0].replace(" --multihost query", "")
+    if merged != mh_one or "vulgar:" not in merged:
+        raise RuntimeError("--multihost query: rank 0's merged report "
+                           "differs from one process's")
+    if any(len(o.splitlines()) != 3 for o in mh_outs[1:]):
+        raise RuntimeError("--multihost query: a rank > 0 printed more "
+                           "than its header and footer")
+    print(f"--multihost query, {MH_RANKS} ranks on cuda:0 over gloo, "
+          f"{MH_QUERIES} cDNAs x {SCAN_LEN / 1e6:.0f} Mb est2genome "
+          f"[{card}]: {mh_secs:.2f} s host clock (processes started to "
+          f"ended), one process {mh_one_secs:.2f} s; rank 0's merged "
+          f"report == one process's ({len(_vulgar(merged))} vulgar lines)")
+
+    # -- 5h. the multi-device dry run on [cuda:0, cuda:0] ---------------
+    _mark(t_start, "5h, the multi-device dry run")
+    from exonerate_tpu_torch.parallel.dryrun import dryrun_multichip
+    zero_counts()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip([dev, dev])
+    _sync()
+    dry_secs = time.perf_counter() - t0
+    dry_launches = read_counts("dryrun_multichip",
+                               ("K1", "K5", "K6", "K7", "K8"))
+    print(f"dryrun_multichip([cuda:0, cuda:0]) [{card}]: every route "
+          f"equal to one device in {dry_secs:.2f} s host clock; launches "
+          f"{dry_launches}; {dry}")
 
     # -- 6. the SubOpt mask (kernel K3) ----------------------------------
     _mark(t_start, "6, the SubOpt mask")
@@ -2994,6 +3219,42 @@ def main() -> int:
         print(f"{label}: the {mode} output == EXONERATE_TPU_SDP=native's "
               f"({secs_nat:.2f} s host clock in a worker process; engines "
               f"{eng_nat})")
+    # phase 5f's references: the native route and the same run on the CPU
+    left = DEADLINE_S - (time.perf_counter() - t_start)
+    out_nat, secs_nat, eng_nat, falls_nat = rows_nat.get(
+        timeout=max(left, 1.0))
+    left = DEADLINE_S - (time.perf_counter() - t_start)
+    out_rc, secs_rc, eng_rc, falls_rc, buckets_rc = rows_ref.get(
+        timeout=max(left, 1.0))
+    if rows_out != out_rc:
+        raise RuntimeError("row-scan tier: the card's output differs from "
+                           "the CPU run's")
+    # the JAX package's row tier reports a worse alignment for p1 on this
+    # input than the native route (ROADMAP Queue 3): the tier may lose an
+    # alignment, never report a better one than the host's
+    rows_best, nat_best = _best_scores(rows_out), _best_scores(out_nat)
+    worse = {q: (rows_best.get(q), s_) for q, s_ in nat_best.items()
+             if rows_best.get(q) != s_}
+    if set(rows_best) - set(nat_best) or any(
+            r is not None and r > s_ for r, s_ in worse.values()):
+        raise RuntimeError(f"row-scan tier: scores over the native route's: "
+                           f"{worse}")
+    if rows_falls != falls_rc or rows_eng != eng_rc:
+        raise RuntimeError(f"row-scan tier: engines {rows_eng} / fallbacks "
+                           f"{rows_falls} on the card, {eng_rc} / "
+                           f"{falls_rc} on the CPU")
+    bad = [k for k in buckets_rc[0]
+           if not np.array_equal(rows_first.get(k), buckets_rc[0][k])]
+    if bad or set(rows_first) != set(buckets_rc[0]):
+        raise RuntimeError(f"row-scan tier: the first bucket's fields {bad} "
+                           f"differ between the card and the CPU")
+    print(f"row-scan tier (phase 5f): output == the CPU run's "
+          f"({secs_rc:.2f} s, one core); against EXONERATE_TPU_SDP=native's "
+          f"({secs_nat:.2f} s host clock in a worker process): "
+          f"{'equal' if rows_out == out_nat else 'differs'}, queries whose "
+          f"best score differs (rows, native) {worse}; engines and "
+          f"fallbacks as on the CPU; the first bucket's {len(rows_first)} "
+          f"fields equal the CPU's")
     # phase 13's reference: the genome2genome -E run on the CPU
     left = DEADLINE_S - (time.perf_counter() - t_start)
     cpu_g2g, cpu_g2g_s, cpu_g2g_eng, cpu_g2g_falls = g2g_res.get(

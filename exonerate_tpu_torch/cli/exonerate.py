@@ -10,7 +10,9 @@ locus heuristic on the wavefront kernels.  Run it as ``python -m
 exonerate_tpu_torch.cli.exonerate <query> <target> [flags]``;
 ``EXONERATE_TPU_TORCH_DEVICE`` picks the device (``cuda`` by default,
 ``cpu`` for the plain PyTorch engines).
-``--multihost`` is not ported and is refused.
+``--multihost query|target`` runs one chunk per ``torch.distributed``
+rank (``parallel/multihost.py``; launch it with ``torchrun``), rank 0
+printing the merged report.
 """
 from __future__ import annotations
 
@@ -296,7 +298,7 @@ def _alphabet_type(s: str):
     return None
 
 
-def make_analysis(v: dict, out=None) -> Analysis:
+def make_analysis(v: dict, out=None, device=None) -> Analysis:
     model_type = model_type_from_string(v["model"])
     gas = GamArgs(
         model_type=model_type,
@@ -393,7 +395,7 @@ def make_analysis(v: dict, out=None) -> Analysis:
         target_type=_alphabet_type(v["targettype"]),
         annotation_path=v["annotation"],
         fasta_suffix=v["fastasuffix"],
-        out=out, verbosity=v["verbose"],
+        out=out, verbosity=v["verbose"], device=device,
     )
     optimal.DP_MEMORY_LIMIT = v["dpmemory"] << 20
     analysis.gam.align_args = AlignmentArgs(
@@ -410,13 +412,14 @@ def main(argv=None, out=None):
     observe.set_verbosity(v["verbose"])
     observe.reset()
     out = out or sys.stdout
-    if v["multihost"] not in ("none", "false", "no"):
-        raise SystemExit("exonerate: --multihost is not ported to "
-                         "exonerate_tpu_torch yet")
     out.write("Command line: [exonerate " + " ".join(argv) + "]\n")
     out.write("Hostname: [%s]\n" % socket.gethostname())
-    analysis = make_analysis(v, out=out)
-    analysis.process()
+    if v["multihost"] not in ("none", "false", "no"):
+        from ..parallel.multihost import run_multihost
+        run_multihost(v, v["multihost"], out)
+    else:
+        analysis = make_analysis(v, out=out)
+        analysis.process()
     out.write("-- completed exonerate analysis\n")
     observe.report()
     return 0

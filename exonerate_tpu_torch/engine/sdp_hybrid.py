@@ -24,8 +24,11 @@ named.  With ``EXONERATE_TPU_CROSS_CHIP=N`` and N cards visible, a
 boundary model's comparison of at least
 ``EXONERATE_TPU_CROSS_CHIP_MIN_W`` compressed columns runs alone across
 them on K8 (``cuda_sdp.run_kernel_cross_chip``); with fewer cards the
-knob is ignored, as in the JAX package.  The row-scan
-tier (``EXONERATE_TPU_SDP_ROWS``) is not ported and is refused.
+knob is ignored, as in the JAX package.  With
+``EXONERATE_TPU_SDP_ROWS=1`` (or ``all``) a comparison the row-scan tier
+can express runs there first (``sdp_rows.py``, torch ops on the caller's
+device), as in the JAX package, where the tier is opt-in too; an
+unconverged row fixpoint falls back to the host like edge liveness.
 """
 from __future__ import annotations
 
@@ -45,6 +48,8 @@ from ..model.ir import Model
 from .. import device as default_device
 from . import cuda_sdp
 from . import sdp_device as sd
+from . import sdp_rows
+from .wavefront import _bucket
 
 # margin of dense band around seed extents; extension escaping it trips
 # edge liveness and falls back to the host engine
@@ -64,15 +69,6 @@ class HybridFallback(Exception):
     """Device result unusable for this comparison; redo on host."""
 
 
-def unported_tier() -> Optional[str]:
-    """The error for a device tier the port does not have, if its knob
-    is set."""
-    if os.environ.get("EXONERATE_TPU_SDP_ROWS", "") in ("1", "all"):
-        return ("exonerate: EXONERATE_TPU_SDP_ROWS (the row-scan SDP "
-                "tier) is not ported to exonerate_tpu_torch yet")
-    return None
-
-
 def _devices(device: torch.device) -> list:
     """The devices a cross-chip scan may use for a caller on ``device``:
     the cards PyTorch sees when it is a card, none on the CPU."""
@@ -82,7 +78,8 @@ def _devices(device: torch.device) -> list:
 
 
 def _cross_chip_config(plan, device: torch.device,
-                       model: Optional[Model] = None) -> int:
+                       model: Optional[Model] = None,
+                       devices: Optional[list] = None) -> int:
     """Cross-chip routing (``exonerate_tpu/engine/sdp_hybrid.py:366-389``):
     with ``EXONERATE_TPU_CROSS_CHIP=N`` (N >= 2), a comparison whose
     compressed band has at least ``EXONERATE_TPU_CROSS_CHIP_MIN_W``
@@ -90,7 +87,8 @@ def _cross_chip_config(plan, device: torch.device,
     are N.  A non-boundary ``model`` never does: the JAX package reaches
     its cross-chip route only through its Pallas kernel, which refuses
     such models (``sdp_hybrid.py:366-389``, ``sdp_pallas.py:77``).
-    Returns N, or 0 for the single-device path."""
+    ``devices`` replaces ``_devices(device)``.  Returns N, or 0 for the
+    single-device path."""
     n = int(os.environ.get("EXONERATE_TPU_CROSS_CHIP", "0") or 0)
     if n < 2 or plan is None:
         return 0
@@ -98,7 +96,9 @@ def _cross_chip_config(plan, device: torch.device,
         return 0
     min_w = int(os.environ.get("EXONERATE_TPU_CROSS_CHIP_MIN_W",
                                str(1 << 20)))
-    if plan.W < min_w or len(_devices(device)) < n:
+    if devices is None:
+        devices = _devices(device)
+    if plan.W < min_w or len(devices) < n:
         return 0
     return n
 
@@ -157,7 +157,9 @@ class HybridSDPPair:
         if self.plan is None or self.device_out is None:
             plan = (self.plan if self.plan is not None
                     else make_plan(self.model, pair))
-            if not device_worthwhile(plan, pair.region.query_length):
+            if not device_worthwhile(
+                    plan, pair.region.query_length,
+                    rows_ok=rows_usable(self.model, pair, plan)):
                 observe.count_fallback(
                     "sdp device->host: below device size floor")
                 raise HybridFallback()
@@ -167,10 +169,12 @@ class HybridSDPPair:
         if "fallback" in out:
             observe.count_fallback(out["fallback"])
             raise HybridFallback()
-        if out["live"] or out["xband"]:
+        if out["live"] or out["xband"] or out.get("unconverged", False):
             observe.count_fallback(
                 "sdp device->host: band edge liveness" if out["live"]
-                else "sdp device->host: cross-locus thaw")
+                else ("sdp device->host: cross-locus thaw"
+                      if out["xband"]
+                      else "sdp device->host: row fixpoint unconverged"))
             raise HybridFallback()
         self._locus_scores = np.asarray(
             out["band_end"][:len(self.plan.loci)], np.int64)
@@ -271,10 +275,13 @@ def make_plan(model: Model, pair: SDPPair) -> sdp_bands.BandPlan:
         span_window=sw + 2 * BAND_MARGIN)
 
 
-def device_worthwhile(plan, query_length: int = None) -> bool:
+def device_worthwhile(plan, query_length: int = None,
+                      rows_ok: bool = False) -> bool:
     """Size/shape gate of the default routing: tiny comparisons and
     lane-starved shapes stay on the host scheduler
-    (``EXONERATE_TPU_SDP=device`` lifts it)."""
+    (``EXONERATE_TPU_SDP=device`` lifts it).  ``rows_ok`` lifts the
+    short-query gate: the row scan is the shape the band kernels starve
+    on (``exonerate_tpu/engine/sdp_hybrid.py:242-259``)."""
     if os.environ.get("EXONERATE_TPU_SDP", "") == "device":
         return True
     if plan is None or plan.W < DEVICE_MIN_W:
@@ -282,38 +289,123 @@ def device_worthwhile(plan, query_length: int = None) -> bool:
     if query_length is not None:
         if (query_length + 1) * (plan.W + 1) < DEVICE_MIN_CELLS:
             return False
-        if query_length < DEVICE_MIN_Q:
+        if query_length < DEVICE_MIN_Q and not rows_ok:
             return False
     return True
 
 
+def rows_usable(model: Model, pair: SDPPair, plan=None) -> bool:
+    """Route through the q-major row-scan tier (``sdp_rows.py``)?  Opt-in
+    only (``EXONERATE_TPU_SDP_ROWS=1`` or ``=all``), as in the JAX
+    package (``sdp_hybrid.py:262-283``), for a model and pair the row
+    scan can express."""
+    if os.environ.get("EXONERATE_TPU_SDP_ROWS", "") not in ("1", "all"):
+        return False
+    if not sdp_rows.supported(model):
+        return False
+    try:
+        sdp_rows.chain_ext_values(model, pair)
+    except sdp_rows.RowUnsupported:
+        return False
+    return True
+
+
+def _rows_preferred(model: Model, pair: SDPPair, plan) -> bool:
+    """Among the device tiers, the row scan only when forced (see
+    ``rows_usable``)."""
+    return rows_usable(model, pair, plan)
+
+
+def _pow2(n: int) -> int:
+    p = 8
+    while p < n:
+        p <<= 1
+    return p
+
+
+def run_rows_batch(model: Model, jobs: list,
+                   device: torch.device) -> list[dict]:
+    """Batched row-scan passes on ``device``: one call of the row pass
+    per (shape, kinds, exts) bucket, bucketed as the JAX package's
+    ``run_rows_batch`` (``sdp_hybrid.py:292-336``)."""
+    out: list = [None] * len(jobs)
+    shape_max: dict = {}
+    for pair, plan in jobs:
+        gkey = (pair.use_boundary, pair.args.dropoff)
+        cur = shape_max.get(gkey, (0, 0, 0))
+        shape_max[gkey] = (max(cur[0], pair.region.query_length),
+                           max(cur[1], len(pair.seeds)),
+                           max(cur[2], len(plan.loci) + 1))
+    buckets: dict = {}
+    for ix, (pair, plan) in enumerate(jobs):
+        mq, ms, mg = shape_max[(pair.use_boundary, pair.args.dropoff)]
+        Qp = _bucket(mq)
+        Wp = _pow2(max(plan.W, 1024))
+        n_seed_pad, n_seg_pad = _pow2(ms), _pow2(mg)
+        inputs, kinds = sd.prepare_inputs(model, pair, plan,
+                                          pad_to=(Qp, Wp))
+        inputs.update(sd.prepare_seeds(pair, plan, n_seed_pad))
+        exts = sdp_rows.chain_ext_values(model, pair)
+        key = (Qp, Wp, kinds, pair.use_boundary, n_seed_pad, n_seg_pad,
+               pair.args.dropoff, exts)
+        buckets.setdefault(key, []).append((ix, inputs))
+    for (Qp, Wp, kinds, ub, nsp, ngp, dropoff, exts), items \
+            in buckets.items():
+        fn = sdp_rows.get_fn(model, Qp, Wp, kinds, ub, nsp, ngp,
+                             dropoff, exts, batched=True)
+        observe.count_engine("sdp-rows", len(items))
+        res = fn(_stack([inp for _, inp in items]), device=device)
+        res = {k: v.cpu().numpy() for k, v in res.items()}
+        for b, (ix, _) in enumerate(items):
+            out[ix] = {k: v[b] for k, v in res.items()}
+    return out
+
+
+def _stack(items: list):
+    """Per-pair input trees stacked along a leading batch axis."""
+    if isinstance(items[0], dict):
+        return {k: _stack([d[k] for d in items]) for k in items[0]}
+    return np.stack([np.asarray(x) for x in items])
+
+
 def run_device(model: Model, pair: SDPPair, plan: sdp_bands.BandPlan,
-               device: torch.device) -> dict:
+               device: torch.device, devices: Optional[list] = None
+               ) -> dict:
     """Single-comparison device call (the pooled path batches many)."""
-    return run_device_batch(model, [(pair, plan)], device)[0]
+    return run_device_batch(model, [(pair, plan)], device, devices)[0]
 
 
-def run_device_batch(model: Model, jobs: list,
-                     device: torch.device) -> list[dict]:
+def run_device_batch(model: Model, jobs: list, device: torch.device,
+                     devices: Optional[list] = None) -> list[dict]:
     """Batched band scans of many comparisons' (pair, plan) jobs on
     ``device``: one K6 + K7 launch pair per (Qp, Wp) bucket.  A job the
     device tier cannot serve gets ``{"fallback": reason}``, which its
-    HybridSDPPair counts and turns into a HybridFallback."""
-    msg = unported_tier()
-    if msg is not None:
-        raise RuntimeError(msg)
+    HybridSDPPair counts and turns into a HybridFallback.  ``devices``
+    are those a cross-chip scan may use (default: the visible cards,
+    ``_devices``).  The row-scan
+    tier takes its jobs first, as in the JAX package
+    (``sdp_hybrid.py:444-457``)."""
     out: list = [None] * len(jobs)
+    rows = [ix for ix, (pair, plan) in enumerate(jobs)
+            if _rows_preferred(model, pair, plan)]
+    if rows:
+        for ix, r in zip(rows, run_rows_batch(
+                model, [jobs[ix] for ix in rows], device)):
+            out[ix] = r
     by_drop: dict = {}
     for ix, (pair, plan) in enumerate(jobs):
+        if out[ix] is not None:
+            continue
         reason = cuda_sdp.unsupported_reason(model, pair, plan)
-        n_chips = (_cross_chip_config(plan, device, model)
+        n_chips = (_cross_chip_config(plan, device, model, devices)
                    if reason is None else 0)
         if reason is not None:
             out[ix] = {"fallback": "sdp device->host: band kernel "
                                    f"unsupported ({reason})"}
         elif n_chips:
             # a chromosome-scale comparison alone across the devices
-            devs = _devices(device)[:n_chips]
+            devs = (devices if devices is not None
+                    else _devices(device))[:n_chips]
             observe.count_engine(cuda_sdp.engine_name(devs[0]) + "-xchip")
             out[ix] = cuda_sdp.run_kernel_cross_chip(
                 model, pair, plan, pair.args.dropoff, n_chips, devices=devs)

@@ -364,6 +364,229 @@ def split_codon(phase: int, tin, sel, cand, rows):
     return torch.where(tin >= phase, score, NEG)
 
 
+class Lanes:
+    """A run of query lanes ``[lo, lo + n)`` of a batch's diagonals on one
+    device: what the cell step (``cell_step``) reads.  ``plain_wavefront``
+    runs one over every lane; ``parallel/sharded_pair.py`` runs one per
+    device, a query slab each, or reads the target vectors from the
+    devices that hold their tiles (``twin``)."""
+
+    def __init__(self, ki: KernelInputs, lo: int = 0, n: int = None,
+                 device: torch.device = None, twin=None):
+        dev = device if device is not None else ki.dims.device
+        n = ki.Qp + 1 - lo if n is None else n
+        self.ki, self.lo, self.n, self.dev = ki, lo, n, dev
+        self.B = ki.batch
+        self.plan = ki.plan.tolist()
+        self.i = torch.arange(lo, lo + n, dtype=torch.int32, device=dev)
+        self.i_long = self.i.long()
+        dims = ki.dims.to(dev)
+        self.qstart, self.tstart, self.qlen, self.tlen = (
+            dims[:, c:c + 1] for c in range(4))
+        self.neg = torch.full((self.B, n), NEG, dtype=torch.int32,
+                              device=dev)
+        self.zero = torch.zeros((self.B, n), dtype=torch.int32, device=dev)
+        self.qv = ki.qvecs[:, :, lo:lo + n].to(dev)
+        self.tabs = ki.tables.to(dev)
+        self.scal = ki.scalars.to(dev)
+        self.blocked = ki.blocked.to(dev) if ki.masked else None
+        if twin is None:
+            trev = reversed_targets(ki).to(dev)
+
+            def twin(c, st):
+                return trev[:, c, st + lo:st + lo + n]
+        self.twin = twin
+
+
+def reversed_targets(ki: KernelInputs) -> torch.Tensor:
+    """The (B, NT, 2 W + Tp + 1 + K) reversed, padded target vectors whose
+    slice from ``W + Tp - d + at`` holds diagonal d's values for the lanes
+    0..W-1 (W = Qp + 1), as ``Lanes`` builds them."""
+    W = ki.Qp + 1
+    return F.pad(torch.flip(ki.tvecs, dims=(2,)), (W, W + ki.K))
+
+
+def cell_step(c: Lanes, d: int, fetch) -> tuple:
+    """The cells of diagonal ``d`` on the lanes ``c``: every plan row in
+    order, for one diagonal.  ``fetch(inp, adv, aq)`` returns the source
+    state's score plane and lane planes of diagonal ``d - adv``, shifted
+    down ``aq`` lanes (the fill below lane 0 is NEG and 0).  Returns
+    (scores, lanes, tbv): per state a (B, n) plane or None where nothing
+    reached it, its lanes, and its winning plan ids (path mode)."""
+    ki = c.ki
+    want_region = ki.mode == "region"
+    want_path = ki.mode == "path"
+    S, L = ki.S, ki.L
+    rs_q, rs_t = ki.n_shadow, ki.n_shadow + 1
+    i, W, dev = c.i, c.n, c.dev
+    zero, neg = c.zero, c.neg
+    qv, tabs, scal = c.qv, c.tabs, c.scal
+    qstart, tstart, qlen, tlen = c.qstart, c.tstart, c.qlen, c.tlen
+    j = d - i
+    cell_ok = (j >= 0) & (j <= tlen) & (i <= qlen)           # (B, n)
+    masks: dict = {}
+    reads: dict = {}
+    calcs: dict = {}
+    scores: list = [None] * S
+    lanes: list = [[None] * L for _ in range(S)]
+    tbv: list = [None] * S
+    if c.blocked is not None:
+        # the blocked destination cells (i, d - i) of this diagonal:
+        # their bits of the packed plane, np.packbits order
+        i_long = c.i_long
+        jd = (d - i_long).clamp(0, ki.Tp)
+        byte = c.blocked[:, i_long, jd >> 3]
+        blk = (((byte >> (7 - (jd & 7)).to(torch.uint8)) & 1) != 0) \
+            & (d - i_long >= 0) & (d - i_long <= ki.Tp)
+    for pid, row in enumerate(c.plan):
+        aq, at = row[P_AQ], row[P_AT]
+        inp, out, flags = row[P_IN], row[P_OUT], row[P_FLAGS]
+        adv = aq + at
+        si, sj = i - aq, j - at
+        ok = masks.get((aq, at))
+        if ok is None:
+            ok = masks[(aq, at)] = cell_ok & (i >= aq) & (j >= at)
+        if flags & F_FROM_START:
+            sm = _scope_start(ki.start_scope, si, sj)
+            if sm is not None:
+                ok = ok & sm
+            base = 0
+            src_l = [zero] * L
+        elif adv == 0:
+            if scores[inp] is None:
+                continue             # nothing reached this state yet
+            base = scores[inp]
+            src_l = [v if v is not None else zero for v in lanes[inp]]
+        else:
+            hit = reads.get((inp, adv, aq))
+            if hit is None:
+                hit = reads[(inp, adv, aq)] = fetch(inp, adv, aq)
+            base, src_l = hit
+        if flags & F_TO_END:
+            em = _scope_end(ki.end_scope, i, j, qlen, tlen)
+            if em is not None:
+                ok = ok & em
+        kind = row[P_CALC]
+        st = ki.Qp + 1 + ki.Tp - d + at
+        ckey = (kind, row[P_C0], row[P_C1], at)
+        calc = calcs.get(ckey) if kind != C_SPLIT else None
+        if kind == C_SPLIT:
+            # reads the source cell's lanes: never shared
+            if row[P_C2] == 1:
+                sel = src_l[row[P_C4]]
+                cand = [c.twin(row[P_C1] + k, st) for k in range(3)]
+            else:
+                sel = c.twin(row[P_C1], st)
+                cand = [src_l[row[x]] for x in (P_C4, P_C5, P_C6)]
+            calc = split_codon(row[P_C2], src_l[row[P_C3]], sel, cand,
+                               qv[:, row[P_C0]:row[P_C0] + 25])
+        elif calc is None:
+            if kind == C_NONE:
+                calc = 0
+            elif kind == C_SCALAR:
+                calc = scal[:, row[P_C0]:row[P_C0] + 1]
+            elif kind == C_QVEC:
+                calc = qv[:, row[P_C0]]
+            elif kind == C_TVEC:
+                calc = c.twin(row[P_C0], st)
+            else:                    # C_FACTORED
+                idx = (qv[:, row[P_C0]] * row[P_C3]
+                       + c.twin(row[P_C1], st) + row[P_C2])
+                g = torch.gather(tabs, 1, idx.long())
+                ov = qv[:, row[P_C4]]
+                calc = torch.where(ov != 0, ov, g)
+            calcs[ckey] = calc
+        if flags & (F_SH_Q | F_SH_T):
+            # intron length window (model/intron.py:140-149) on the
+            # SOURCE position and the source cell's shadow lane
+            lo = scal[:, row[P_SH_MIN]:row[P_SH_MIN] + 1]
+            hi = scal[:, row[P_SH_MAX]:row[P_SH_MAX] + 1]
+            bad = None
+            for flag, pos, lane in ((F_SH_Q, si + qstart, P_SH_LANE_Q),
+                                    (F_SH_T, sj + tstart, P_SH_LANE_T)):
+                if flags & flag:
+                    length = pos - src_l[row[lane]] + 2
+                    b = (length < lo) | (length > hi)
+                    bad = b if bad is None else bad | b
+            calc = torch.where(bad, NEG, torch.as_tensor(
+                calc, dtype=torch.int32, device=dev))
+        val = base + calc            # int32, wraps like the reference
+        if not torch.is_tensor(val):
+            val = torch.full((c.B, W), val, dtype=torch.int32, device=dev)
+        if flags & F_P_UNDER:
+            val = torch.clamp(val, min=NEG)
+        if flags & F_P_OVER:
+            val = torch.clamp(val, max=IMPOSSIBLY_HIGH_SCORE)
+        val = torch.clamp(val, min=NEG)
+        keep = ok if flags & F_FROM_START else ok & (base > NEG)
+        if c.blocked is not None and flags & F_MATCH:
+            keep = keep & ~blk
+        val = torch.where(keep, val, NEG)
+        cur = scores[out] if scores[out] is not None else neg
+        take = val > cur             # strict: first max wins
+        scores[out] = torch.where(take, val, cur)
+        if want_path:
+            old = tbv[out] if tbv[out] is not None else zero
+            tbv[out] = torch.where(take, pid + 1, old)
+        if L:
+            new_l = list(src_l)
+            for k in range(row[P_NSTART]):
+                des, src = row[P_ST_DES0 + 2 * k], row[P_ST_SRC0 + 2 * k]
+                if src == ST_TARGET:
+                    new_l[des] = sj + tstart
+                elif src == ST_QUERY:
+                    new_l[des] = si + qstart
+                else:
+                    new_l[des] = c.twin(src - ST_TVEC, st)
+            if want_region and flags & F_FROM_START:
+                new_l[rs_q], new_l[rs_t] = si, sj
+            for ln in range(L):
+                old = lanes[out][ln]
+                lanes[out][ln] = torch.where(
+                    take, new_l[ln], old if old is not None else zero)
+    return scores, lanes, tbv
+
+
+class EndCells:
+    """Per-lane best end cells of a run of lanes (score, j and, in region
+    mode, the region's start lanes): per lane (fixed i) j grows with d,
+    so strict > keeps the smallest-j end cell of each score."""
+
+    def __init__(self, c: Lanes):
+        self.sc, self.j, self.qs, self.ts = c.neg, c.zero, c.zero, c.zero
+
+    def update(self, c: Lanes, d: int, scores: list, lanes: list) -> None:
+        ki = c.ki
+        es = scores[ki.end_id]
+        if es is None:
+            return
+        take_e = es > self.sc
+        self.sc = torch.where(take_e, es, self.sc)
+        self.j = torch.where(take_e, d - c.i, self.j)
+        if ki.mode == "region":
+            e_ln = lanes[ki.end_id]
+            self.qs = torch.where(take_e, e_ln[ki.n_shadow], self.qs)
+            self.ts = torch.where(take_e, e_ln[ki.n_shadow + 1], self.ts)
+
+
+def end_winner(b_sc, b_j, b_qs, b_ts, i) -> torch.Tensor:
+    """The (5, B) lexicographic winner of per-lane best planes: max score,
+    then min j, then min i; NEG, 0, 0, 0, 0 where no cell scored."""
+    big = 1 << 30
+    m = b_sc.max(dim=1).values
+    tie = b_sc == m[:, None]
+    jmin = torch.where(tie, b_j, big).min(dim=1).values
+    tie2 = tie & (b_j == jmin[:, None])
+    imin = torch.where(tie2, i, big).min(dim=1).values
+    sel = tie2 & (i == imin[:, None])
+    qs = torch.where(sel, b_qs, 0).sum(dim=1)
+    ts = torch.where(sel, b_ts, 0).sum(dim=1)
+    found = m > NEG
+    return torch.stack([torch.where(found, x, dead).to(torch.int32)
+                        for x, dead in ((m, NEG), (imin, 0), (jmin, 0),
+                                        (qs, 0), (ts, 0))])
+
+
 def plain_wavefront(ki: KernelInputs, span=None, ring=None):
     """The whole wavefront for a batch, in plain PyTorch.
 
@@ -379,23 +602,14 @@ def plain_wavefront(ki: KernelInputs, span=None, ring=None):
     before it, as the launch over [0, d0) left them) and written with
     the span's last diagonals; ``out`` is the best end cell within the
     span, and ``tb`` holds its d1 - d0 diagonals."""
-    want_region = ki.mode == "region"
     want_path = ki.mode == "path"
-    dev = ki.dims.device
+    c = Lanes(ki)
+    dev = c.dev
     B, W, D = ki.batch, ki.Qp + 1, ki.Qp + ki.Tp + 1
     d0, d1 = span if span is not None else (0, D)
     S, L, K = ki.S, ki.L, ki.K
-    rs_q, rs_t = ki.n_shadow, ki.n_shadow + 1
-    plan = ki.plan.tolist()
-    i = torch.arange(W, dtype=torch.int32, device=dev)
-    qstart, tstart, qlen, tlen = (ki.dims[:, c:c + 1] for c in range(4))
-    neg = torch.full((B, W), NEG, dtype=torch.int32, device=dev)
-    zero = torch.zeros((B, W), dtype=torch.int32, device=dev)
-    # target vectors reversed and padded: v[d - i - at] for i = 0..W-1 is
-    # the contiguous slice starting at W + Tp - d + at
-    trev = F.pad(torch.flip(ki.tvecs, dims=(2,)), (W, W + K))
-    qv, tabs, scal = ki.qvecs, ki.tables, ki.scalars
-    b_sc, b_j, b_qs, b_ts = neg, zero, zero, zero    # per-lane best planes
+    neg, zero = c.neg, c.zero
+    ends = EndCells(c)
     tb = (torch.zeros((B, d1 - d0, S, W), dtype=torch.uint8, device=dev)
           if want_path else None)
     blank = ([neg] * S, [[zero] * L for _ in range(S)])
@@ -411,149 +625,18 @@ def plain_wavefront(ki: KernelInputs, span=None, ring=None):
                 [ring[0][:, slot, r] if r >= 0 else neg for r in ring_row],
                 [[ring[1][:, slot, lr] if lr >= 0 else zero
                   for lr in lane_row[s][:L]] for s in range(S)])
-    masked = ki.masked
-    i_long = i.long()
 
     def shift(x, aq, fill):
         return F.pad(x[:, :W - aq], (aq, 0), value=fill) if aq else x
 
+    def fetch(inp, adv, aq):
+        p_sc, p_ln = prev[adv - 1]
+        return (shift(p_sc[inp], aq, NEG),
+                [shift(v, aq, 0) for v in p_ln[inp]])
+
     for d in range(d0, d1):
-        j = d - i
-        cell_ok = (j >= 0) & (j <= tlen) & (i <= qlen)           # (B, W)
-        masks: dict = {}
-        reads: dict = {}
-        calcs: dict = {}
-        scores: list = [None] * S
-        lanes: list = [[None] * L for _ in range(S)]
-        tbv: list = [None] * S
-        if masked:
-            # the blocked destination cells (i, d - i) of this diagonal:
-            # their bits of the packed plane, np.packbits order
-            jd = (d - i_long).clamp(0, ki.Tp)
-            byte = ki.blocked[:, i_long, jd >> 3]
-            blk = (((byte >> (7 - (jd & 7)).to(torch.uint8)) & 1) != 0) \
-                & (d - i_long >= 0) & (d - i_long <= ki.Tp)
-        for pid, row in enumerate(plan):
-            aq, at = row[P_AQ], row[P_AT]
-            inp, out, flags = row[P_IN], row[P_OUT], row[P_FLAGS]
-            adv = aq + at
-            si, sj = i - aq, j - at
-            ok = masks.get((aq, at))
-            if ok is None:
-                ok = masks[(aq, at)] = cell_ok & (i >= aq) & (j >= at)
-            if flags & F_FROM_START:
-                sm = _scope_start(ki.start_scope, si, sj)
-                if sm is not None:
-                    ok = ok & sm
-                base = 0
-                src_l = [zero] * L
-            elif adv == 0:
-                if scores[inp] is None:
-                    continue             # nothing reached this state yet
-                base = scores[inp]
-                src_l = [v if v is not None else zero for v in lanes[inp]]
-            else:
-                hit = reads.get((inp, adv, aq))
-                if hit is None:
-                    p_sc, p_ln = prev[adv - 1]
-                    hit = reads[(inp, adv, aq)] = (
-                        shift(p_sc[inp], aq, NEG),
-                        [shift(v, aq, 0) for v in p_ln[inp]])
-                base, src_l = hit
-            if flags & F_TO_END:
-                em = _scope_end(ki.end_scope, i, j, qlen, tlen)
-                if em is not None:
-                    ok = ok & em
-            kind = row[P_CALC]
-            st = W + ki.Tp - d + at
-            ckey = (kind, row[P_C0], row[P_C1], at)
-            calc = calcs.get(ckey) if kind != C_SPLIT else None
-            if kind == C_SPLIT:
-                # reads the source cell's lanes: never shared
-                if row[P_C2] == 1:
-                    sel = src_l[row[P_C4]]
-                    cand = [trev[:, row[P_C1] + k, st:st + W]
-                            for k in range(3)]
-                else:
-                    sel = trev[:, row[P_C1], st:st + W]
-                    cand = [src_l[row[c]] for c in (P_C4, P_C5, P_C6)]
-                calc = split_codon(row[P_C2], src_l[row[P_C3]], sel, cand,
-                                   qv[:, row[P_C0]:row[P_C0] + 25])
-            elif calc is None:
-                if kind == C_NONE:
-                    calc = 0
-                elif kind == C_SCALAR:
-                    calc = scal[:, row[P_C0]:row[P_C0] + 1]
-                elif kind == C_QVEC:
-                    calc = qv[:, row[P_C0]]
-                elif kind == C_TVEC:
-                    calc = trev[:, row[P_C0], st:st + W]
-                else:                    # C_FACTORED
-                    idx = (qv[:, row[P_C0]] * row[P_C3]
-                           + trev[:, row[P_C1], st:st + W] + row[P_C2])
-                    g = torch.gather(tabs, 1, idx.long())
-                    ov = qv[:, row[P_C4]]
-                    calc = torch.where(ov != 0, ov, g)
-                calcs[ckey] = calc
-            if flags & (F_SH_Q | F_SH_T):
-                # intron length window (model/intron.py:140-149) on the
-                # SOURCE position and the source cell's shadow lane
-                lo = scal[:, row[P_SH_MIN]:row[P_SH_MIN] + 1]
-                hi = scal[:, row[P_SH_MAX]:row[P_SH_MAX] + 1]
-                bad = None
-                for flag, pos, lane in ((F_SH_Q, si + qstart, P_SH_LANE_Q),
-                                        (F_SH_T, sj + tstart, P_SH_LANE_T)):
-                    if flags & flag:
-                        length = pos - src_l[row[lane]] + 2
-                        b = (length < lo) | (length > hi)
-                        bad = b if bad is None else bad | b
-                calc = torch.where(bad, NEG, torch.as_tensor(
-                    calc, dtype=torch.int32, device=dev))
-            val = base + calc            # int32, wraps like the reference
-            if not torch.is_tensor(val):
-                val = torch.full((B, W), val, dtype=torch.int32, device=dev)
-            if flags & F_P_UNDER:
-                val = torch.clamp(val, min=NEG)
-            if flags & F_P_OVER:
-                val = torch.clamp(val, max=IMPOSSIBLY_HIGH_SCORE)
-            val = torch.clamp(val, min=NEG)
-            keep = ok if flags & F_FROM_START else ok & (base > NEG)
-            if masked and flags & F_MATCH:
-                keep = keep & ~blk
-            val = torch.where(keep, val, NEG)
-            cur = scores[out] if scores[out] is not None else neg
-            take = val > cur             # strict: first max wins
-            scores[out] = torch.where(take, val, cur)
-            if want_path:
-                old = tbv[out] if tbv[out] is not None else zero
-                tbv[out] = torch.where(take, pid + 1, old)
-            if L:
-                new_l = list(src_l)
-                for k in range(row[P_NSTART]):
-                    des, src = row[P_ST_DES0 + 2 * k], row[P_ST_SRC0 + 2 * k]
-                    if src == ST_TARGET:
-                        new_l[des] = sj + tstart
-                    elif src == ST_QUERY:
-                        new_l[des] = si + qstart
-                    else:
-                        new_l[des] = trev[:, src - ST_TVEC, st:st + W]
-                if want_region and flags & F_FROM_START:
-                    new_l[rs_q], new_l[rs_t] = si, sj
-                for ln in range(L):
-                    old = lanes[out][ln]
-                    lanes[out][ln] = torch.where(
-                        take, new_l[ln], old if old is not None else zero)
-        es = scores[ki.end_id]
-        if es is not None:
-            # per lane (fixed i) j grows with d, so strict > keeps the
-            # smallest-j end cell of each score
-            take_e = es > b_sc
-            b_sc = torch.where(take_e, es, b_sc)
-            b_j = torch.where(take_e, j, b_j)
-            if want_region:
-                e_ln = lanes[ki.end_id]
-                b_qs = torch.where(take_e, e_ln[rs_q], b_qs)
-                b_ts = torch.where(take_e, e_ln[rs_t], b_ts)
+        scores, lanes, tbv = cell_step(c, d, fetch)
+        ends.update(c, d, scores, lanes)
         if want_path:
             tb[:, d - d0] = torch.stack([v if v is not None else zero
                                          for v in tbv], dim=1).to(torch.uint8)
@@ -572,20 +655,7 @@ def plain_wavefront(ki: KernelInputs, span=None, ring=None):
                 for ln, lr in enumerate(lane_row[s][:L]):
                     if lr >= 0:
                         ring[1][:, slot, lr] = p_ln[s][ln]
-    # lexicographic winner: max score, then min j, then min i
-    big = 1 << 30
-    m = b_sc.max(dim=1).values
-    tie = b_sc == m[:, None]
-    jmin = torch.where(tie, b_j, big).min(dim=1).values
-    tie2 = tie & (b_j == jmin[:, None])
-    imin = torch.where(tie2, i, big).min(dim=1).values
-    sel = tie2 & (i == imin[:, None])
-    qs = torch.where(sel, b_qs, 0).sum(dim=1)
-    ts = torch.where(sel, b_ts, 0).sum(dim=1)
-    found = m > NEG
-    out = torch.stack([torch.where(found, x, dead).to(torch.int32)
-                       for x, dead in ((m, NEG), (imin, 0), (jmin, 0),
-                                       (qs, 0), (ts, 0))])
+    out = end_winner(ends.sc, ends.j, ends.qs, ends.ts, c.i)
     return out, tb
 
 

@@ -15,9 +15,8 @@ end of the scan, on the card and on the CPU alike.  With ``--cores N``
 as the JAX package does: no deferral, the GAM's ``devices`` set to the
 visible cards (up to N; ``[cpu]`` for a caller on the CPU), each worker
 launching on CUDA streams of its own, and the results submitted strictly
-in comparison order, so the bytes are those of ``--cores 1``.  The SDP
-row-scan tier (``sdp_hybrid.unported_tier``) is not ported and is
-refused with a clear error.  The cross-chip band scan
+in comparison order, so the bytes are those of ``--cores 1``.  The
+cross-chip band scan
 (``EXONERATE_TPU_CROSS_CHIP``) runs where that many cards are visible
 and is ignored elsewhere, as in the JAX package.
 """
@@ -77,10 +76,6 @@ class Analysis:
                  fasta_suffix: str = ".fa",
                  out=None, verbosity: int = 0,
                  device: Optional[torch.device] = None):
-        from ..engine import sdp_hybrid
-        tier = sdp_hybrid.unported_tier()
-        if tier is not None:
-            raise SystemExit(tier)
         self.device = device if device is not None else default_device()
         self.gas = gas or GamArgs()
         self.aas = aas or AnalysisArgs()

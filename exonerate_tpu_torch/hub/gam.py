@@ -17,7 +17,8 @@ path DP); the seeded
 heuristic's device tier (``sdp_device_active``, ``run_sdp_pool``,
 ``_make_sdp_pair``) runs the port's SDP hybrid on it: the band kernels
 K6/K7 on a card, their plain PyTorch versions on the CPU when
-``EXONERATE_TPU_SDP=device`` forces the tier there.  The pooled locus
+``EXONERATE_TPU_SDP=device`` forces the tier there, and the row-scan tier
+(``engine/sdp_rows.py``) first under ``EXONERATE_TPU_SDP_ROWS``.  The pooled locus
 heuristic (``EXONERATE_TPU_HEURISTIC=locus``, ``result_heuristic_pooled``)
 runs its generation-batched Waterman-Eggert on the wavefront kernels on
 the GAM's device: each generation one SubOpt-masked region batch (K1
@@ -118,6 +119,9 @@ class GAM:
         # query_id -> list of stored results (bestn mode)
         self.bestn_store: dict[str, list[_Stored]] = {}
         self._order = 0
+        # --multihost: suppress the local bestn replay so that the stores
+        # can merge across processes first (parallel/multihost.py)
+        self.defer_report = False
         self.geneseed_threshold = 0
         # --cores N: the devices the locus route's path DPs take in turn
         # (exonerate_tpu/hub/gam.py:97-101), set by the Analysis's pool;
@@ -292,20 +296,26 @@ class GAM:
         (``exonerate_tpu/hub/gam.py:270-304``): by default when the GAM's
         device is a CUDA card, the model uses the boundary protocol (the
         JAX package's default tier needs its Pallas kernel, which refuses
-        the non-boundary models) and the band kernels serve it;
+        the non-boundary models) and the band kernels serve it, or
+        ``EXONERATE_TPU_SDP_ROWS`` is set and the row scan serves the
+        model (``exonerate_tpu/hub/gam.py:297-302``);
         ``EXONERATE_TPU_SDP=device`` forces the tier (the plain scan on
         the CPU), for the non-boundary models too; ``=native`` /
         ``=python`` force the host engines."""
-        from ..engine import cuda_sdp, sdp_hybrid
+        from ..engine import cuda_sdp, sdp_hybrid, sdp_rows
         from ..engine.sdp import model_uses_boundary
         env = os.environ.get("EXONERATE_TPU_SDP", "")
         if env in ("native", "python"):
             return False
-        if env != "device" and (
-                self.device.type != "cuda"
-                or not model_uses_boundary(self.model)
-                or cuda_sdp.unsupported_reason(self.model) is not None):
-            return False
+        if env != "device":
+            if self.device.type != "cuda":
+                return False
+            rows_on = os.environ.get("EXONERATE_TPU_SDP_ROWS", "") in \
+                ("1", "all")
+            if not ((model_uses_boundary(self.model)
+                     and cuda_sdp.unsupported_reason(self.model) is None)
+                    or (rows_on and sdp_rows.supported(self.model))):
+                return False
         return sdp_hybrid.eligible(self.model, self._sdp_args(), None)
 
     def run_sdp_pool(self, comparisons: list):
@@ -333,7 +343,9 @@ class GAM:
             plan = (sdp_hybrid.make_plan(self.model, gpair)
                     if gpair.seeds else None)
             if plan is not None and not sdp_hybrid.device_worthwhile(
-                    plan, gpair.region.query_length):
+                    plan, gpair.region.query_length,
+                    rows_ok=sdp_hybrid.rows_usable(self.model, gpair,
+                                                   plan)):
                 # small comparison: host scheduler directly
                 metas.append((comp, data, gpair, "host"))
                 continue
@@ -481,7 +493,9 @@ class GAM:
             plan = (sdp_hybrid.make_plan(self.model, gpair)
                     if gpair.seeds else None)
             if plan is not None and not sdp_hybrid.device_worthwhile(
-                    plan, gpair.region.query_length):
+                    plan, gpair.region.query_length,
+                    rows_ok=sdp_hybrid.rows_usable(self.model, gpair,
+                                                   plan)):
                 return gpair
             return sdp_hybrid.HybridSDPPair(
                 self.model, comparison, data, gpair.subopt,
@@ -864,7 +878,7 @@ class GAM:
     def report(self):
         """Final bestn replay (ref: GAM_report, gam.c:550-556): per query
         in id-sorted order, descending score, ranks 1..N."""
-        if not self.gas.best_n:
+        if not self.gas.best_n or self.defer_report:
             return
         for qid in sorted(self.bestn_store):
             store = self.bestn_store[qid]

@@ -309,13 +309,24 @@ def test_device_tier_gates_and_refusals(monkeypatch):
     out = thy.run_device_batch(model, [(pair, plan)], CPU)[0]
     assert out == {"fallback": "sdp device->host: kernel unavailable, "
                                "scan too long"}
+    # the row-scan tier takes the job first, with the JAX package's
+    # results (its run_device_batch on the same case), sweeps included
+    from exonerate_tpu.engine import sdp_hybrid as jhy
+    from exonerate_tpu_torch import observe
     monkeypatch.setenv("EXONERATE_TPU_SDP_ROWS", "1")
-    with pytest.raises(RuntimeError, match="not ported"):
-        thy.run_device_batch(model, [(pair, plan)], CPU)
+    assert thy.rows_usable(model, pair, plan)
+    observe.reset()
+    out = thy.run_device_batch(model, [(pair, plan)], CPU)[0]
+    assert observe.engine_counts["sdp-rows"] == 1
+    jmodel, jpair, jplan = _case("two_exons_intron", pkg="exonerate_tpu")
+    want = jhy.run_device_batch(jmodel, [(jpair, jplan)])[0]
+    assert sorted(out) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(out[k], want[k], err_msg=k)
+    assert thy.device_worthwhile(plan, 180, rows_ok=True)
     monkeypatch.delenv("EXONERATE_TPU_SDP_ROWS")
     # the cross-chip tier (K8): N devices, and a band of MIN_W columns
     monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP", "4")
-    assert thy.unported_tier() is None
     assert thy._cross_chip_config(plan, CPU) == 0     # W under 1M
     monkeypatch.setenv("EXONERATE_TPU_CROSS_CHIP_MIN_W", "1")
     # a caller on the CPU gets no cards, however many are visible

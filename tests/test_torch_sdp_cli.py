@@ -231,9 +231,21 @@ def test_default_route_on_a_card_keeps_non_boundary_models_on_the_host(
 
 @pytest.mark.parametrize("knob", [("EXONERATE_TPU_SDP_ROWS", "1")])
 def test_unported_tiers_are_refused(forced, monkeypatch, knob):
+    """The row-scan knob on the forced route: the port's CLI prints the
+    JAX CLI's bytes with the same knob, its comparisons on the row-scan
+    tier (``sdp-rows``), with the JAX CLI's fallbacks."""
+    from exonerate_tpu import observe as jobserve
+    from exonerate_tpu.cli.exonerate import main as jax_main
     monkeypatch.setenv(*knob)
-    with pytest.raises(SystemExit, match="not ported"):
-        main(list(SMALL_ARGV), out=io.StringIO())
+    observe.reset()
+    got = _cli(SMALL_ARGV)
+    counts, fallbacks = (dict(observe.engine_counts),
+                         dict(observe.fallback_counts))
+    jbuf = io.StringIO()
+    assert jax_main(list(SMALL_ARGV), out=jbuf) == 0
+    assert got == jbuf.getvalue()
+    assert counts["sdp-rows"] >= 1, counts
+    assert fallbacks == dict(jobserve.fallback_counts)
 
 
 def test_cross_chip_knob_on_one_device_prints_the_default_bytes(

@@ -25,12 +25,14 @@ PORT = os.path.join(ROOT, "exonerate_tpu_torch")
 JAX_PKG = os.path.join(ROOT, "exonerate_tpu")
 
 # the port's own counterparts of modules that reach JAX in the JAX
-# package (engines, the merged GAM, Analysis and CLI) and its own
-# package docstring
+# package (engines, the merged GAM, Analysis and CLI, parallel/) and its
+# own package docstring
 COUNTERPARTS = {"__init__.py", "engine/wavefront.py", "engine/sdp_device.py",
-                "engine/sdp_hybrid.py", "engine/optimal.py", "hub/gam.py",
-                "hub/analysis.py", "cli/exonerate.py", "cli/server.py",
-                "db/device_index.py"}
+                "engine/sdp_hybrid.py", "engine/optimal.py",
+                "engine/sdp_rows.py", "hub/gam.py", "hub/analysis.py",
+                "cli/exonerate.py", "cli/server.py", "db/device_index.py",
+                "parallel/multihost.py", "parallel/sharded_pair.py",
+                "parallel/ungapped_scan.py"}
 
 
 def _port_files(exts):
