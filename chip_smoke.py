@@ -94,8 +94,9 @@ second of the script at which it starts:
       scan's widest comparison alone, held to the plain passes (start
       scores; column best, live, xband) in two worker processes.
    e. exonerate-server: the .esd / .esi of phase 4's genome built by the
-      port's db (unmasked); DeviceIndex over [cuda:0] and [cuda:0,
-      cuda:0] (every card where there are two or more) on 4,096
+      port's fasta2esd (--softmask FALSE) and esd2esi, through
+      cli/fastautils.main as a user runs them; DeviceIndex over [cuda:0]
+      and [cuda:0, cuda:0] (every card where there are two or more) on 4,096
       word-table words and two misses, equal to Index.lookup_word, timed
       by CUDA events; then two servers in threads of this process, the
       host index's and the device index's, and the port's CLI as their
@@ -122,6 +123,13 @@ second of the script at which it starts:
       sharded ungapped scan, K5, the sharded and target-tiled pair, the
       band batch over the devices and K8, each against one device, and
       sdp_hybrid.run_device taking K8; its launches counted.
+   i. The host tools (cli/ipcress.py, no kernel): the port's ipcress on
+      phase 4's genome with two experiments, each with primers cut
+      around one planted gene copy (their exons match every copy, so
+      several products come out), with the default flags and with
+      --mismatch 1 --products TRUE; its stdout equals the C reference's
+      build/ref/bin/ipcress on the same files (the phase fails where the
+      binary is absent or not executable); both runs' host clock.
 6. The SubOpt mask (kernel K3, the MASKED instantiation of K1/K4 and of
    the cluster kernel K2), each run through the port's CLI with no
    fallback:
@@ -273,7 +281,8 @@ second of the script at which it starts:
 The device index of phase 5e, the row-scan tier of phase 5f and the
 multi-device routes of phases 5g-h but K5 and K8 are torch ops (or
 gloo), not kernels (the JAX package's are shard_map, jnp and XLA's
-lax.scan), and have no row in the kernels line.
+lax.scan), and have no row in the kernels line; nor have phase 5i's host
+tools, host code in both packages.
 K5 and K8 are the JAX package's multi-device routes; on one card they
 check every shard, chunk and halo and time the kernels, but cannot show
 the overlap of several cards.  Phases 3-13 run on the card while the
@@ -347,6 +356,13 @@ NB_ARGV = ["--bestn", "1", "--showvulgar", "yes", "--showalignment", "no"]
 # index (plus two misses), and the cDNAs the client aligns
 SRV_WORDS = 4096
 SRV_QUERIES = 4
+# phase 5i, ipcress: primers cut around the planted gene copies IPCRESS_GENES
+# of phase 4's genome (A the copy's first IPCRESS_PRIMER bases, B the
+# reverse complement of the IPCRESS_PRIMER bases that end IPCRESS_PRODUCT
+# bases on), a product window of IPCRESS_WINDOW, and the flag sets run
+IPCRESS_GENES = (1, 5)
+IPCRESS_PRIMER, IPCRESS_PRODUCT, IPCRESS_WINDOW = 20, 1500, (1000, 2000)
+IPCRESS_FLAGS = ([], ["--mismatch", "1", "--products", "TRUE"])
 # phase 5f, the row-scan tier (engine/sdp_rows.py, torch ops): the first
 # ROWS_PROTEINS of phase 5b's proteins, both strands, on the forced device
 # route with the rows knob set
@@ -1051,6 +1067,58 @@ def _breakdown(acc: dict, total: float) -> str:
             f"{total - sum(acc.values()):.2f} s")
 
 
+def _ipcress_phase(genome: str, genome_fa: str, tmp: str,
+                   card: str) -> None:
+    """Phase 5i: the port's ipcress against the C reference's on
+    ``genome_fa`` (phase 4's genome, ``genome`` its text), with an
+    experiment per gene copy of IPCRESS_GENES, under each of
+    IPCRESS_FLAGS: the outputs must be equal, byte for byte, and hold a
+    product of each experiment."""
+    from exonerate_tpu_torch.cli import ipcress
+    ref = os.path.join(ROOT, "build", "ref", "bin", "ipcress")
+    if not os.access(ref, os.X_OK):
+        raise RuntimeError(f"ipcress: {ref} is absent or not executable")
+    comp = str.maketrans("ACGTacgt", "TGCATGCA")
+    # scan_genome's eight gene copies, copy g from spacing * (g + 1) on
+    spacing = len(genome) // 9
+    exp = os.path.join(tmp, "genes.ipcress")
+    with open(exp, "w") as fh:
+        for g in IPCRESS_GENES:
+            at = spacing * (g + 1)
+            end = at + IPCRESS_PRODUCT
+            a = genome[at:at + IPCRESS_PRIMER].upper()
+            b = genome[end - IPCRESS_PRIMER:end].translate(comp)[::-1]
+            fh.write(f"copy{g} {a} {b} {IPCRESS_WINDOW[0]} "
+                     f"{IPCRESS_WINDOW[1]}\n")
+    for flags in IPCRESS_FLAGS:
+        argv = flags + [exp, genome_fa]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        if ipcress.main(list(argv), out=buf) != 0:
+            raise RuntimeError(f"ipcress {flags}: the port's run failed")
+        port_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = subprocess.run([ref] + argv, capture_output=True, text=True,
+                           timeout=300)
+        c_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise RuntimeError(f"ipcress {flags}: the C reference's run "
+                               f"failed: {r.stderr[-500:]}")
+        if buf.getvalue() != r.stdout:
+            raise RuntimeError(f"ipcress {flags}: the port's output differs "
+                               f"from the C reference's")
+        found = [ln.split()[2] for ln in r.stdout.splitlines()
+                 if ln.startswith("ipcress:")]
+        if {f"copy{g}" for g in IPCRESS_GENES} - set(found):
+            raise RuntimeError(f"ipcress {flags}: an experiment found no "
+                               f"product: {found}")
+        print(f"ipcress {' '.join(flags) or '(default flags)'}, "
+              f"{len(IPCRESS_GENES)} experiments x {len(genome) / 1e6:.0f} "
+              f"Mb [{card}]: {len(found)} products, output == the C "
+              f"reference's; the port {port_s:.3f} s, C {c_s:.3f} s (host "
+              f"clock, the C binary's process start included)")
+
+
 def _write_fasta(path: str, records) -> str:
     with open(path, "w") as fh:
         for name, seq in records:
@@ -1066,10 +1134,11 @@ def _vulgar(out: str) -> list:
 def _server_phase(dev, genome_fa: str, query_fa: str, tmp: str, cli,
                   card: str) -> dict:
     """Phase 5e: exonerate-server on the card.  Builds the .esd / .esi of
-    ``genome_fa`` with the port's db (unmasked), holds DeviceIndex over [dev] and
-    [dev, dev] to Index.lookup_word on SRV_WORDS word-table words and two
-    misses (timed by CUDA events, host prep and the copy back included,
-    beside the host loop's clock), then serves the index from two
+    ``genome_fa`` with the port's fasta2esd (unmasked) and esd2esi,
+    holds DeviceIndex over [dev] and [dev, dev] to Index.lookup_word on
+    SRV_WORDS word-table words and two misses (timed by CUDA events,
+    host prep and the copy back included, beside the host loop's clock),
+    then serves the index from two
     in-process servers, the host index's and the device index's (every
     card PyTorch sees), and runs the port's CLI as their client on
     ``query_fa``, est2genome and the default model: the two servers'
@@ -1078,19 +1147,23 @@ def _server_phase(dev, genome_fa: str, query_fa: str, tmp: str, cli,
     ``genome_fa``.  ``cli(argv)`` runs the port's CLI and
     returns (output, host seconds)."""
     import socket
+    from exonerate_tpu_torch.cli import fastautils
     from exonerate_tpu_torch.cli.server import ExonerateServer
-    from exonerate_tpu_torch.db.dataset import dataset_build
     from exonerate_tpu_torch.db.device_index import DeviceIndex
-    from exonerate_tpu_torch.db.index import Index, index_build
+    from exonerate_tpu_torch.db.index import Index
     t0 = time.perf_counter()
     esd = os.path.join(tmp, "genome.esd.npz")
     esi = os.path.join(tmp, "genome.esi.npz")
     # the whole genome indexed (its lowercase background unmasked), so
     # that every word of it has its postings, as the local run seeds
-    dataset_build([genome_fa], esd, softmask=False)
-    index_build(esd, esi)
+    said = io.StringIO()
+    for argv in (["fasta2esd", genome_fa, esd, "--softmask", "FALSE"],
+                 ["esd2esi", esd, esi]):
+        if fastautils.main(argv, out=said) != 0:
+            raise RuntimeError(f"server: {argv[0]} failed")
     index = Index(esi)
     build_s = time.perf_counter() - t0
+    print(said.getvalue().replace(tmp, "<tmp>"), end="")
     rng = np.random.default_rng(11)
     words = np.concatenate([
         rng.choice(index.word_table, SRV_WORDS, replace=False),
@@ -1116,7 +1189,8 @@ def _server_phase(dev, genome_fa: str, query_fa: str, tmp: str, cli,
         lookup_ms[len(devs)] = ms
     print(f"server index of the {os.path.basename(genome_fa)} genome: "
           f"{len(index.post_seq)} postings, {len(index.word_table)} words, "
-          f"built in {build_s:.2f} s (host clock); {len(words)} words "
+          f"built by fasta2esd and esd2esi in {build_s:.2f} s (host "
+          f"clock); {len(words)} words "
           f"({len(want_s)} postings) [{card}]: DeviceIndex over 1 / 2 "
           f"shards on {dev} {lookup_ms[1]:.3f} / {lookup_ms[2]:.3f} ms "
           f"(CUDA events, host prep and the copy back included) == "
@@ -2099,6 +2173,10 @@ def main() -> int:
     print(f"dryrun_multichip([cuda:0, cuda:0]) [{card}]: every route "
           f"equal to one device in {dry_secs:.2f} s host clock; launches "
           f"{dry_launches}; {dry}")
+
+    # -- 5i. the host tools: ipcress against the C reference's ----------
+    _mark(t_start, "5i, the host tools")
+    _ipcress_phase(genome, tf, tmp_dir, card)
 
     # -- 6. the SubOpt mask (kernel K3) ----------------------------------
     _mark(t_start, "6, the SubOpt mask")
