@@ -1,0 +1,1 @@
+"""The benchmark of exonerate_tpu_torch (see harness.py)."""
