@@ -412,15 +412,17 @@ def main(argv=None, out=None):
     observe.set_verbosity(v["verbose"])
     observe.reset()
     out = out or sys.stdout
-    out.write("Command line: [exonerate " + " ".join(argv) + "]\n")
-    out.write("Hostname: [%s]\n" % socket.gethostname())
-    if v["multihost"] not in ("none", "false", "no"):
-        from ..parallel.multihost import run_multihost
-        run_multihost(v, v["multihost"], out)
-    else:
-        analysis = make_analysis(v, out=out)
-        analysis.process()
-    out.write("-- completed exonerate analysis\n")
+    with observe.span("run"):
+        out.write("Command line: [exonerate " + " ".join(argv) + "]\n")
+        out.write("Hostname: [%s]\n" % socket.gethostname())
+        if v["multihost"] not in ("none", "false", "no"):
+            from ..parallel.multihost import run_multihost
+            run_multihost(v, v["multihost"], out)
+        else:
+            with observe.span("setup"):
+                analysis = make_analysis(v, out=out)
+            analysis.process()
+        out.write("-- completed exonerate analysis\n")
     observe.report()
     return 0
 

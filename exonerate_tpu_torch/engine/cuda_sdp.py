@@ -60,6 +60,7 @@ from .sdp import model_uses_boundary
 from .sdp_native import _lane_for
 from ..model.ir import Model
 
+from .. import observe
 from . import plan_cuda
 from . import sdp_device as sd
 from .. import device as default_device
@@ -519,15 +520,17 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         ring[states] = np.arange(len(states))
         rings.append((ring, len(states)))
     dims = np.concatenate([column("_qlen"), column("_wlen")], axis=1)
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-
     maxat = _max_target_advance(model) if ctx is not None else 0
-    tctx = None
+    host = dict(
+        rev_plan=rev_plan, fwd_plan=fwd_plan, spans=span_tab,
+        rev_ring=rings[0][0], fwd_ring=rings[1][0], dims=dims,
+        qvecs=stacked(qnames, Qp + 1), tvecs=stacked(tnames_l, Wp + 1),
+        scalars=(np.concatenate([column(n) for n in snames], axis=1)
+                 if snames else np.zeros((B, 1), np.int32)))
     if ctx is not None:
-        tctx = put(np.stack([np.stack([c.get(n, np.zeros(maxat, np.int32))
-                                       for n in tnames_l]) for c in ctx]))
+        host["tctx"] = np.stack([np.stack([c.get(n, np.zeros(maxat,
+                                                             np.int32))
+                                           for n in tnames_l]) for c in ctx])
 
     # the spans' windows (--maxintron) stay run-time data: the compiled
     # plan holds only whether a span has a target (and a query) window
@@ -541,15 +544,13 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         end_id=model.end_state.state.id, row_abs_t=trow["_abs_t"],
         row_edge=trow["_edge"], row_seg=trow["_seg"],
         track_sid=not use_boundary)
+    with observe.span("band.copy"):
+        on_device = {k: torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                     .to(device) for k, a in host.items()}
     return BandInputs(
-        rev_plan=put(rev_plan), fwd_plan=put(fwd_plan), spans=put(span_tab),
-        rev_ring=put(rings[0][0]), fwd_ring=put(rings[1][0]),
-        dims=put(dims), qvecs=put(stacked(qnames, Qp + 1)),
-        tvecs=put(stacked(tnames_l, Wp + 1)),
-        scalars=put(np.concatenate([column(n) for n in snames], axis=1)
-                    if snames else np.zeros((B, 1), np.int32)),
-        n_adv_rev=n_adv_rev, n_adv_fwd=n_adv_fwd, n_spans=len(spans),
-        Qp=Qp, Wp=Wp, S=S, n_sh=model.total_shadow_designations,
+        **on_device, n_adv_rev=n_adv_rev, n_adv_fwd=n_adv_fwd,
+        n_spans=len(spans), Qp=Qp, Wp=Wp, S=S,
+        n_sh=model.total_shadow_designations,
         K=_max_advance(model), NR_rev=rings[0][1], NR_fwd=rings[1][1],
         start_id=model.start_state.state.id,
         end_id=model.end_state.state.id, dropoff=int(dropoff),
@@ -560,9 +561,9 @@ def to_band_inputs(model: Model, flats: list, kinds: tuple, metas: list,
         row_seedi=trow.get("_seedi0", -1), row_seedh=trow.get("_seedh0", -1),
         n_seed=max([1] + [m.get("n_seed", 0) for m in metas]),
         split=bool((fwd_plan[:, BP_CALC] == K_SPLIT).any()),
-        tctx=tctx, maxat=maxat,
-        span_joint=tuple(sp["max_query"] > 0 for sp in spans),
-        qmax=int(dims[:, 0].max()), header=header)
+        maxat=maxat, span_joint=tuple(sp["max_query"] > 0 for sp in spans),
+        qmax=int(dims[:, 0].max()), header=header,
+        n_diag=int(dims.sum(axis=1).max()) + 1)
 
 
 def pair_bytes(model: Model, Qp: int, Wp: int, n_tvec: int) -> int:
@@ -698,6 +699,9 @@ def _launch(bi: BandInputs, forward: bool, carry: torch.Tensor,
         raise RuntimeError(f"{kernel} kernel ({which}) launch failed: CUDA "
                            f"error {rc}")
     count(BAND_SMEM if fit[2] else BAND_GLOBAL)
+    # the batch's clusters run side by side: the launch lasts the loop of
+    # its longest comparison
+    observe.add("band.diagonals", bi.n_diag or bi.Qp + bi.Wp + 1)
     last_fit[forward] = tuple(fit)
     if halo is None:
         return (colbest, live != 0, xband != 0) if forward else live != 0
@@ -850,6 +854,7 @@ def _pads(pair, plan) -> tuple:
     return _bucket(pair.region.query_length), _pow2(max(plan.W, 1023))
 
 
+@observe.traced("band.build")
 def band_inputs(model: Model, jobs: list, dropoff: int,
                 device: torch.device) -> BandInputs:
     """One K6/K7 batch of (pair, plan) jobs on ``device``, padded to the
@@ -914,11 +919,12 @@ def run_kernel(model: Model, jobs: list, dropoff: int,
             del carry
             pending.append((shard, colbest, live_r | live_f, xband, start))
     for shard, colbest, live, xband, start in pending:
-        colbest = colbest.cpu().numpy()
-        live = live.cpu().numpy()
-        xband = xband.cpu().numpy()
-        if start is not None:
-            start = start.cpu().numpy().astype(np.int64)
+        with observe.span("band.fetch"):
+            colbest = colbest.cpu().numpy()
+            live = live.cpu().numpy()
+            xband = xband.cpu().numpy()
+            if start is not None:
+                start = start.cpu().numpy().astype(np.int64)
         for b, ix in enumerate(shard):
             out[ix] = {"band_end": locus_best(colbest[b], jobs[ix][1]),
                        "live": bool(live[b]), "xband": bool(xband[b])}

@@ -341,6 +341,7 @@ def _padded_shape(per_pair: list, kinds: tuple) -> tuple[int, int]:
     return Qp, Tp
 
 
+@observe.traced("wave.prep")
 def to_kernel_inputs(model: Model, inputs, kinds: tuple,
                      device: torch.device,
                      mode: str = "region") -> KernelInputs:
@@ -525,7 +526,8 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
         end_scope=_SCOPES[model.end_state.scope], mode=mode,
         split=bool((rows[:, P_CALC] == C_SPLIT).any()
                    or (rows[:, P_ST_SRC0::2] >= ST_TVEC).any()),
-        qmax=int(dims[:, 2].max()), header=header)
+        qmax=int(dims[:, 2].max()), header=header,
+        n_diag=int(dims[:, 2:].sum(axis=1).max()) + 1)
 
 
 def max_batch(model: Model, Qp: int, Tp: int, mode: str,
@@ -765,6 +767,9 @@ def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
     dev = ki.dims.device
     B, W, D, R = ki.batch, ki.Qp + 1, ki.Qp + ki.Tp + 1, ki.K + 1
     d0, d1 = span if span is not None else (0, D)
+    # the diagonals the launch sweeps: its pairs run side by side, so it
+    # lasts the loop of its longest pair
+    swept = max(min(d1, ki.n_diag or D) - d0, 0)
     out = torch.empty((5, B), dtype=torch.int32, device=dev)
     # a launch given rings loads its carry from them and leaves its last
     # diagonals in them (the shared ring's bits 1, 2 of ring_io)
@@ -797,6 +802,7 @@ def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
         if rc != 0:
             raise RuntimeError(f"wavefront kernel ({ki.mode}) launch "
                                f"failed: CUDA error {rc}")
+        observe.add("plan.diagonals", swept)
         return out, tb, 1
     head = [mode, ki.plan.data_ptr(), ki.ring_row.data_ptr(),
             ki.lane_row.data_ptr(), ki.dims.data_ptr(),
@@ -823,6 +829,7 @@ def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
     if rc != 0:
         raise RuntimeError(f"cluster kernel ({ki.mode}) launch failed: "
                            f"CUDA error {rc}")
+    observe.add("ring.diagonals", swept)
     return out, tb, used.value
 
 

@@ -128,9 +128,10 @@ def find_path(model: Model, region: Region, data, subopt=None,
         # the discovered alignment's bounding box.  The SubOpt mask rides
         # along as a plane (K3): without it the scan would keep finding
         # the masked best alignment's box and miss the next best
-        scan = cuda_wavefront.find_batched(model, [(region, data)],
-                                           "region", device=device,
-                                           subopt=subopt)[0]
+        with observe.span("exh.scan"):
+            scan = cuda_wavefront.find_batched(model, [(region, data)],
+                                               "region", device=device,
+                                               subopt=subopt)[0]
         if threshold is not None and scan.score < threshold:
             return None
         sub = Region(region.query_start + scan.query_start,
@@ -143,8 +144,9 @@ def find_path(model: Model, region: Region, data, subopt=None,
                              threshold=threshold, device=device)
         # traceback DP on K4 with the walk-back on the card; None when
         # the cube is over budget or the path over the walk cap
-        res = cuda_wavefront.find_path_batched(
-            model, [(region, data)], subopt=subopt, device=device)[0]
+        with observe.span("exh.path"):
+            res = cuda_wavefront.find_path_batched(
+                model, [(region, data)], subopt=subopt, device=device)[0]
         if res is not None:
             return _thresholded(model, region, res, threshold)
     if tb_bytes <= _native_tb_budget():
@@ -168,8 +170,10 @@ def find_path(model: Model, region: Region, data, subopt=None,
         else:
             res = gw.find_path(model, region, data, subopt, device=dev)
         return _thresholded(model, region, res, threshold)
-    res = find_path_checkpointed(model, region, data, subopt,
-                                 budget_bytes=DP_MEMORY_LIMIT, device=device)
+    with observe.span("exh.path"):
+        res = find_path_checkpointed(model, region, data, subopt,
+                                     budget_bytes=DP_MEMORY_LIMIT,
+                                     device=device)
     return _thresholded(model, region, res, threshold)
 
 

@@ -344,6 +344,8 @@ class BandInputs:
     #                          host (0: Qp)
     header: str = ""         # both passes' tables compiled into the
     #                          kernels (plan_cuda.band_header)
+    n_diag: int = 0          # the diagonals of the batch's longest
+    #                          comparison, qlen + wlen + 1 (0: Qp + Wp + 1)
 
     @property
     def batch(self) -> int:

@@ -190,12 +190,13 @@ class HybridSDPPair:
         seeds = pair.seeds[lc.seed_lo:lc.seed_hi]
         region = Region(0, lc.t0, pair.region.query_length,
                         lc.t1 - lc.t0)
-        bp = SDPPair(self.model, self.comparison, self.data,
-                     self.subopt, self.args, region=region,
-                     seeds_override=[(s.q_cobs, s.t_cobs, s.hsp_score,
-                                      s.hsp) for s in seeds])
-        bp._find_starts()
-        bp._find_ends()
+        with observe.span("hybrid.resolve"):
+            bp = SDPPair(self.model, self.comparison, self.data,
+                         self.subopt, self.args, region=region,
+                         seeds_override=[(s.q_cobs, s.t_cobs, s.hsp_score,
+                                          s.hsp) for s in seeds])
+            bp._find_starts()
+            bp._find_ends()
         best = max((s.max_end.score for s in bp.seeds), default=NEG)
         if best != int(self._locus_scores[lx]):
             observe.count_fallback(
@@ -245,7 +246,8 @@ class HybridSDPPair:
                 # (ref: sdp.c:796-800)
                 return None
             self._emitted.add(gix)
-            alignment = bp._find_path(seed)
+            with observe.span("hybrid.path"):
+                alignment = bp._find_path(seed)
             alignment = _shift_alignment(alignment, bp.region)
             if self.gpair._overlaps(alignment):
                 continue
@@ -388,6 +390,7 @@ def run_device_batch(model: Model, jobs: list, device: torch.device,
     out: list = [None] * len(jobs)
     rows = [ix for ix, (pair, plan) in enumerate(jobs)
             if _rows_preferred(model, pair, plan)]
+    observe.add("hybrid.device_comparisons", len(rows))
     if rows:
         for ix, r in zip(rows, run_rows_batch(
                 model, [jobs[ix] for ix in rows], device)):
@@ -407,6 +410,7 @@ def run_device_batch(model: Model, jobs: list, device: torch.device,
             devs = (devices if devices is not None
                     else _devices(device))[:n_chips]
             observe.count_engine(cuda_sdp.engine_name(devs[0]) + "-xchip")
+            observe.add("hybrid.device_comparisons")
             out[ix] = cuda_sdp.run_kernel_cross_chip(
                 model, pair, plan, pair.args.dropoff, n_chips, devices=devs)
         elif device.type == "cpu" and \
@@ -417,6 +421,7 @@ def run_device_batch(model: Model, jobs: list, device: torch.device,
             by_drop.setdefault(pair.args.dropoff, []).append(ix)
     for dropoff, ixs in by_drop.items():
         observe.count_engine(cuda_sdp.engine_name(device), len(ixs))
+        observe.add("hybrid.device_comparisons", len(ixs))
         res = cuda_sdp.run_kernel(model, [jobs[ix] for ix in ixs], dropoff,
                                   device)
         for ix, r in zip(ixs, res):

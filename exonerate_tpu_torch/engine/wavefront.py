@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import observe
 from .region import Region
 from ..model.ir import IMPOSSIBLY_HIGH_SCORE, IMPOSSIBLY_LOW_SCORE, Model
 
@@ -49,6 +50,7 @@ def _grid_key(model: Model, t) -> str:
     return f"g{model.calcs.index(t.calc)}_{t.advance_query}_{t.advance_target}"
 
 
+@observe.traced("wave.prep")
 def prepare_inputs(model: Model, region: Region, data,
                    subopt=None, pad_to=None,
                    for_pallas: bool = False) -> tuple[dict[str, Any], tuple]:
@@ -308,6 +310,8 @@ class KernelInputs:
     #                          host (0: read it from dims)
     header: str = ""         # the plan compiled into K1/K4
     #                          (plan_cuda.wave_header)
+    n_diag: int = 0          # the diagonals of the batch's longest pair,
+    #                          qlen + tlen + 1 (0: Qp + Tp + 1)
 
     @property
     def batch(self) -> int:

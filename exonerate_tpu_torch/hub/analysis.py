@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from .. import device as default_device
+from .. import observe
 from ..alphabet import Alphabet, AlphabetType
 from ..seqio import FastaDB, Sequence, read_annotation_file
 from ..model.data import (AffineArgs, AlignData, FrameshiftArgs, IntronArgs,
@@ -435,20 +436,25 @@ class Analysis:
         # FastaPipe query-batch protocol, fastapipe.h:31-72 — batches
         # load until the Seeder reports the FSM memory limit reached)
         limit = max(1, self.seeder_args.fsm_memory_limit) << 20
+
+        def scan(seeder):
+            for sv in stream_views():
+                with observe.span("seed.target"):
+                    seeder.add_target(sv)
+
         seeder = None
         for view in batch_views():
             if seeder is not None and seeder.memory_estimate() > limit:
-                for sv in stream_views():
-                    seeder.add_target(sv)
+                scan(seeder)
                 seeder = None
             if seeder is None:
                 seeder = Seeder(params, report, self.seeder_args,
                                 self._wordhoods(params),
                                 self.aas.saturate_threshold)
-            seeder.add_query(view)
+            with observe.span("seed.query"):
+                seeder.add_query(view)
         if seeder is not None and seeder.queries:
-            for sv in stream_views():
-                seeder.add_target(sv)
+            scan(seeder)
 
     def _report_comparison(self, comparison):
         if getattr(self, "_scan_query", False):
@@ -485,11 +491,13 @@ class Analysis:
             return
         fn = (self.gam.result_heuristic if gapped
               else self.gam.result_ungapped)
-        if self._pool is not None:
-            self._pending.append(self._pool.submit(fn, comparison))
-            self._drain(block=len(self._pending) >= self.aas.cores * 4)
-        else:
-            self.gam.submit(fn(comparison))
+        with observe.span("seed.report"):
+            if self._pool is not None:
+                self._pending.append(self._pool.submit(observe.carry(fn),
+                                                       comparison))
+                self._drain(block=len(self._pending) >= self.aas.cores * 4)
+            else:
+                self.gam.submit(fn(comparison))
 
     def _flush_locus_pool(self):
         if not self._locus_pending:

@@ -287,9 +287,16 @@ class GAM:
         except sdp_hybrid.HybridFallback:
             # device result unusable: redo the whole comparison on the
             # host global path (nothing was submitted yet)
-            sdp_pair = SDPPair(self.model, comparison, data, SubOpt(),
-                               self._sdp_args())
-            return self._run_sdp_loop(sdp_pair, query, data)
+            return self._fallback(comparison, data)
+
+    def _fallback(self, comparison, data):
+        """The whole comparison on the host global path, after a
+        HybridFallback."""
+        observe.add("hybrid.fallbacks")
+        with observe.span("hybrid.fallback"):
+            pair = SDPPair(self.model, comparison, data, SubOpt(),
+                           self._sdp_args())
+            return self._run_sdp_loop(pair, comparison.query, data)
 
     def sdp_device_active(self) -> bool:
         """True when the heuristic's SDP passes run on the device tier
@@ -318,6 +325,32 @@ class GAM:
                 return False
         return sdp_hybrid.eligible(self.model, self._sdp_args(), None)
 
+    def _pool_meta(self, comp, args):
+        """One comparison of ``run_sdp_pool``: None when it has no HSPs,
+        else (comparison, data, global pair, route): its band plan for the
+        device batch, ``"host"`` for the host scheduler directly, or None
+        when it has no seeds."""
+        from ..engine import sdp_hybrid
+        if not comp.has_hsps:
+            return None
+        if self.geneseed_threshold:
+            if self.gas.threshold < self.geneseed_threshold:
+                self.gas.threshold = self.geneseed_threshold
+            self._geneseed_filter(comp)
+            if not comp.has_hsps:
+                return None
+        data = self.make_data(comp.query, comp.target)
+        gpair = SDPPair(self.model, comp, data, SubOpt(), args)
+        plan = (sdp_hybrid.make_plan(self.model, gpair)
+                if gpair.seeds else None)
+        if plan is not None and not sdp_hybrid.device_worthwhile(
+                plan, gpair.region.query_length,
+                rows_ok=sdp_hybrid.rows_usable(self.model, gpair, plan)):
+            # small comparison: host scheduler directly
+            return comp, data, gpair, "host"
+        return comp, data, gpair, plan
+
+    @observe.traced("pool")
     def run_sdp_pool(self, comparisons: list):
         """Pooled device SDP over many deferred comparisons: every pass
         batches into a few K6/K7 launches, then each comparison's result
@@ -328,37 +361,23 @@ class GAM:
         metas = []
         jobs = []
         for comp in comparisons:
-            if not comp.has_hsps:
-                metas.append(None)
-                continue
-            if self.geneseed_threshold:
-                if self.gas.threshold < self.geneseed_threshold:
-                    self.gas.threshold = self.geneseed_threshold
-                self._geneseed_filter(comp)
-                if not comp.has_hsps:
-                    metas.append(None)
-                    continue
-            data = self.make_data(comp.query, comp.target)
-            gpair = SDPPair(self.model, comp, data, SubOpt(), args)
-            plan = (sdp_hybrid.make_plan(self.model, gpair)
-                    if gpair.seeds else None)
-            if plan is not None and not sdp_hybrid.device_worthwhile(
-                    plan, gpair.region.query_length,
-                    rows_ok=sdp_hybrid.rows_usable(self.model, gpair,
-                                                   plan)):
-                # small comparison: host scheduler directly
-                metas.append((comp, data, gpair, "host"))
-                continue
-            metas.append((comp, data, gpair, plan))
-            if plan is not None:
-                jobs.append((gpair, plan))
+            with observe.span("pool.plan"):
+                meta = self._pool_meta(comp, args)
+            metas.append(meta)
+            if meta is not None and meta[3] not in ("host", None):
+                jobs.append(meta[2:4])
+
+        def device_batch():
+            with observe.span("pool.device"):
+                return sdp_hybrid.run_device_batch(self.model, jobs,
+                                                   self.device)
+
         # the device batch runs on a worker so that the host-route
         # comparisons overlap it; submission order is unchanged
         dev_fut = None
         if jobs:
             pool = ThreadPoolExecutor(max_workers=1)
-            dev_fut = pool.submit(sdp_hybrid.run_device_batch, self.model,
-                                  jobs, self.device)
+            dev_fut = pool.submit(observe.carry(device_batch))
             pool.shutdown(wait=False)
         job_of_meta = {}
         for mx, meta in enumerate(metas):
@@ -371,17 +390,19 @@ class GAM:
                 return []
             comp, data, gpair, plan = meta[:4]
             if plan == "host":
-                return self._run_sdp_loop(gpair, comp.query, data)
-            out = (dev_fut.result()[job_of_meta[mx]]
-                   if mx in job_of_meta else None)
+                with observe.span("pool.host_route"):
+                    return self._run_sdp_loop(gpair, comp.query, data)
+            out = None
+            if mx in job_of_meta:
+                with observe.span("pool.wait"):
+                    out = dev_fut.result()[job_of_meta[mx]]
             hp = sdp_hybrid.HybridSDPPair(
                 self.model, comp, data, gpair.subopt, args,
                 device_out=out, plan=plan, gpair=gpair, device=self.device)
             try:
                 return self._run_sdp_loop(hp, comp.query, data)
             except sdp_hybrid.HybridFallback:
-                pair = SDPPair(self.model, comp, data, SubOpt(), args)
-                return self._run_sdp_loop(pair, comp.query, data)
+                return self._fallback(comp, data)
 
         # host-route metas first: they overlap the device batch;
         # submission order is restored below
@@ -398,7 +419,7 @@ class GAM:
             str(min(4, os.cpu_count() or 1))))
         if n_workers > 1 and sum(m is not None for _, m in metas) > 1:
             with ThreadPoolExecutor(max_workers=n_workers) as ex:
-                ordered = list(ex.map(result_loop,
+                ordered = list(ex.map(observe.carry(result_loop),
                                       [metas[mx] for mx in order]))
             all_results = [None] * len(metas)
             for mx, res in zip(order, ordered):
@@ -807,6 +828,7 @@ class GAM:
             o.sort(key=lambda ad: -ad[0].score)
         return outs
 
+    @observe.traced("exh.pair")
     def result_exhaustive(self, query: Sequence, target: Sequence
                           ) -> list[tuple[Alignment, AlignData]]:
         """Exhaustive suboptimal enumeration (ref: OPair +
@@ -841,6 +863,7 @@ class GAM:
 
     # -- submission (ref: GAM_Result_submit, gam.c:1252-1275) -------------
 
+    @observe.traced("report")
     def submit(self, results: list[tuple[Alignment, AlignData]]):
         if not results:
             return
@@ -875,6 +898,7 @@ class GAM:
         store[:] = [s for s in store
                     if sum(1 for sc in scores if sc > s.score) < n]
 
+    @observe.traced("report")
     def report(self):
         """Final bestn replay (ref: GAM_report, gam.c:550-556): per query
         in id-sorted order, descending score, ranks 1..N."""

@@ -25,10 +25,12 @@ PORT = os.path.join(ROOT, "exonerate_tpu_torch")
 JAX_PKG = os.path.join(ROOT, "exonerate_tpu")
 
 # the port's own counterparts of modules that reach JAX in the JAX
-# package (engines, the merged GAM, Analysis and CLI, parallel/) and its
-# own package docstring
-COUNTERPARTS = {"__init__.py", "engine/wavefront.py", "engine/sdp_device.py",
-                "engine/sdp_hybrid.py", "engine/optimal.py",
+# package (engines, the merged GAM, Analysis and CLI, parallel/), its
+# own package docstring, and observe.py, which adds the port's spans and
+# counters under torch.profiler
+COUNTERPARTS = {"__init__.py", "observe.py", "engine/wavefront.py",
+                "engine/sdp_device.py", "engine/sdp_hybrid.py",
+                "engine/optimal.py",
                 "engine/sdp_rows.py", "hub/gam.py", "hub/analysis.py",
                 "cli/exonerate.py", "cli/server.py", "db/device_index.py",
                 "parallel/multihost.py", "parallel/sharded_pair.py",
@@ -79,7 +81,7 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 def test_copy_list_covers_the_host_layer():
     for rel in ("alphabet.py", "seqio.py", "submat.py", "translate.py",
-                "splice.py", "observe.py", "native.py", "_nativebuild.py",
+                "splice.py", "native.py", "_nativebuild.py",
                 "sdplib.cpp", "seedlib.cpp", "align/gff.py", "align/ryo.py",
                 "model/phase.py", "model/registry.py", "seeds/seeder.py",
                 "engine/sdp.py", "engine/sdp_native.py", "engine/reference.py",
