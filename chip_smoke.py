@@ -10,9 +10,9 @@ script then exits non-zero and prints no result line); each prints the
 second of the script at which it starts:
 
 1. Device: a CUDA card must be visible; prints its name and power limit.
-2. Build: compiles csrc/*.cu with nvcc into build/cuda/: K2's
-   ring_kernel, the walk-back and T1, and one library per compiled plan
-   of K1/K4 and of the band scan that the phases launch (one nvcc per
+2. Build: compiles csrc/*.cu with nvcc into build/cuda/: the walk-back
+   and T1, and one library per compiled plan of the wavefront (K1/K4 and
+   K2's ring_kernel) and of the band scan that the phases launch (one nvcc per
    library, on the host's cores at once), and prints each build's
    seconds and each kernel's registers, stack frame and spill bytes.
 3. K6/K7 vs plain: the band kernels against the plain PyTorch band scan,
@@ -1036,6 +1036,22 @@ WAVE_CLOCKS = {
         else "K1") + (" masked" if ki.masked else "")}
 
 
+def _empty_plan(ki):
+    """``ki`` on an empty plan of the same storage (its own compiled
+    header): the cluster kernel's cells then run no plan row, so a launch
+    times the cluster barrier, the halo copy and the ring writes alone,
+    the per-diagonal floor of the shared-ring body."""
+    import dataclasses
+    from exonerate_tpu_torch.engine import plan_cuda
+    empty = ki.plan[:0].contiguous()
+    header = plan_cuda.wave_header(
+        "an empty plan", ki.mode, empty.cpu().numpy(),
+        ki.ring_row.cpu().numpy(), ki.lane_row.cpu().numpy(), S=ki.S,
+        L=ki.L, NR=ki.NR, NL=ki.NL, K=ki.K, n_shadow=ki.n_shadow,
+        start_id=ki.start_id, end_id=ki.end_id)
+    return dataclasses.replace(ki, plan=empty, header=header)
+
+
 @contextlib.contextmanager
 def _global_ring(cw):
     """While active, the cluster kernel keeps every ring in global memory
@@ -1298,9 +1314,10 @@ def _zoo_jobs() -> list:
 def _plan_headers() -> list:
     """The compiled plans the phases launch, from small CPU inputs of each
     model and mode: K1/K4 on est2genome (calm), the zoo of phase 7 and
-    protein2genome (its split pair) in score, region and path modes, and
-    the band scan on phase 3's synthetic cases.  [(stem, label, header)],
-    each plan once; a plan first met later builds at its first launch."""
+    protein2genome (its split pair) in score, region and path modes, the
+    empty plan of est2genome region (phase 9e's floor), and the band scan
+    on phase 3's synthetic cases.  [(stem, label, header)], each plan
+    once; a plan first met later builds at its first launch."""
     import torch_split_cases as sc
     from exonerate_tpu_torch.engine import cuda_sdp as cs
     from exonerate_tpu_torch.engine import cuda_wavefront as cw
@@ -1329,10 +1346,15 @@ def _plan_headers() -> list:
         inputs, kinds = wf.prepare_inputs(m, region, data, pad_to=pads,
                                           for_pallas=True)
         for mode in ("score", "region", "path"):
-            h = cw.to_kernel_inputs(m, inputs, kinds, cpu, mode).header
-            if h not in seen:
-                seen.add(h)
-                out.append(("wavefront", f"K1/K4 {m.name} {mode}", h))
+            ki = cw.to_kernel_inputs(m, inputs, kinds, cpu, mode)
+            if ki.header not in seen:
+                seen.add(ki.header)
+                out.append(("wavefront", f"K1/K2/K4 {m.name} {mode}",
+                            ki.header))
+            if (m.name, mode) == ("est2genome", "region") \
+                    and not any("empty" in lab for _, lab, _ in out):
+                out.append(("wavefront", "K2 est2genome region, an empty "
+                            "plan", _empty_plan(ki).header))
     for m, band_jobs in _synthetic_sdp_jobs():
         h = cs.band_inputs(m, band_jobs, band_jobs[0][0].args.dropoff,
                            cpu).header
@@ -1409,14 +1431,13 @@ def main() -> int:
             raise RuntimeError(f"the port imported {mod}")
 
     # -- 2. build (one nvcc per library, on the host's cores at once) ----
-    # the sources without a plan (K2's ring_kernel, the walk-back, T1) and
-    # one library per compiled plan of K1/K4 and the band scan, each
-    # phase's plans built before its kernels start (a library loaded
+    # the sources without a plan (the walk-back, T1) and one library per
+    # compiled plan of the wavefront (K1/K4 and K2) and the band scan,
+    # each phase's plans built before its kernels start (a library loaded
     # later waits for a running kernel)
     _mark(t_start, "2, build")
     from concurrent.futures import ThreadPoolExecutor
-    libs = [(stem, stem, None) for stem in ("wavefront", "walkback",
-                                            "vpu16")]
+    libs = [(stem, stem, None) for stem in ("walkback", "vpu16")]
     libs += _plan_headers()
     t_build = time.perf_counter()
     with ThreadPoolExecutor(os.cpu_count() or 8) as ex:
@@ -2740,21 +2761,27 @@ def main() -> int:
                            f"{[n for n, _ms, _r in k2_checks]}")
     # the instantiations of steps b-e (masked, on a cluster: score mode
     # forward and path mode for the walk back and the copies' path DPs,
-    # region mode with its ring in global memory for e's comparison),
+    # region mode with its ring in global memory for e's comparison, and
+    # e's empty plan, a library of its own) and d's segment walk-back,
     # launched once on the masked pair so that CUDA loads them now: a
     # kernel loads at its first launch, and that load waits for the
-    # kernels running then, K1's side check below among them
+    # kernels running then, K1's side check below among them (which d and
+    # e overlap); d and e time no load
     (warm_key, warm_items), = cw._buckets(model, [(small, cdata)],
                                           small_sub).items()
     warm = cw.to_kernel_inputs(model, [warm_items[0][1]], warm_key[2], dev,
                                "path")
-    for ki in (dataclasses.replace(warm, mode="score"), warm):
-        cw.wavefront_segment(ki, cw.ring_buffers(ki),
-                             (0, ki.Qp + ki.Tp + 1))
+    for ki in (cw.with_mode(warm, "score"), warm):
+        w_out, w_tb = cw.wavefront_segment(ki, cw.ring_buffers(ki),
+                                           (0, ki.Qp + ki.Tp + 1))
+    cw.walk_segment(w_tb, 0, torch.stack(
+        [w_out[1], w_out[2], torch.full_like(w_out[1], warm.end_id)]),
+        warm.walk, w_tb.shape[1] + cw.WALK_SLACK)
     warm_region = cw.to_kernel_inputs(model, [warm_items[0][1]], warm_key[2],
                                       dev, "region")
     with _global_ring(cw):
         real_launch(warm_region, 0)
+    real_launch(_empty_plan(warm_region), 0)
     _sync()
 
     _mark(t_start, "9b, the chromosome-scale CLI run")
@@ -3074,9 +3101,9 @@ def main() -> int:
                      f"{sp_c}, the ring in shared memory "
                      f"{cw.ring_in_smem(ki_m)}")
     # the same span from the same rings with the ring in global memory
-    # (ring_kernel's SMEM_RING flag false), and with an empty plan:
-    # the cluster barrier, the cells' state and ring writes and the halo
-    # copy alone, the per-diagonal floor of the shared-ring body
+    # (ring_kernel's SMEM_RING flag false), and with an empty plan (its
+    # own compiled header): the cluster barrier, the ring writes and the
+    # halo copy alone, the per-diagonal floor of the shared-ring body
     with _global_ring(cw):
         (g_out, _, _), g_ms = _cuda_call(lambda: real_launch(
             ki_m, 0, span, tuple(t.clone() for t in before)))
@@ -3084,12 +3111,12 @@ def main() -> int:
         raise RuntimeError(f"K2 over the span: the global ring's "
                            f"{g_out.tolist()} != the shared ring's "
                            f"{sp_out.tolist()}")
-    empty = dataclasses.replace(ki_m, plan=ki_m.plan[:0].contiguous())
+    empty = _empty_plan(ki_m)
     barrier_ms = _cuda_ms(lambda: real_launch(
         empty, 0, span, tuple(t.clone() for t in before)), 3)
     print(f"K2 region, masked, over {k2_span_shape} [{card}]: {sp_ms:.3f} ms"
           f"; with the ring in global memory {g_ms:.3f} ms, equal; an empty "
-          f"plan (the floor: barrier, cell state, halo) {barrier_ms:.3f} ms, "
+          f"plan (the floor: barrier, ring writes, halo) {barrier_ms:.3f} ms, "
           f"{barrier_ms / CH_SPAN_DIAGS * 1e3:.3f} us per diagonal (CUDA "
           f"events); plain check started")
     for s_ in whole:

@@ -1,13 +1,12 @@
 // Exhaustive anti-diagonal Viterbi for a batch of pairs: K1 (score and
-// region modes), K4 (path mode) and K2 (the streamed wavefront, score and
-// region modes), hand-written for Hopper (sm_90a).
+// region modes), K4 (path mode) and K2 (the cluster wavefront, every
+// mode), hand-written for Hopper (sm_90a).
 //
-// Two builds of this file.  Built with COMPILED_PLAN (one library per
-// model plan, _cudabuild.load(stem, header)), it is K1/K4 on the plan
-// compiled in: plan.h, generated by engine/plan_cuda.py, holds the plan
-// table below as constexpr data, and plan_kernel unrolls it (see there).
-// Built without, it is K2, ring_kernel, which still interprets the plan
-// table at run time.
+// Built once per model plan (_cudabuild.load(stem, header), with
+// COMPILED_PLAN): plan.h, generated by engine/plan_cuda.py, holds the plan
+// table below as constexpr data, and both kernels, plan_kernel (K1/K4)
+// and ring_kernel (K2, K3 on a cluster, K4 on a cluster), run one cell
+// body (run_cell) that unrolls it.
 //
 // Replaces exonerate_tpu/engine/pallas_wavefront.py: the Pallas kernel
 // built by build_pallas_wavefront (:427; body `kernel` :593 and
@@ -78,25 +77,22 @@
 // memory: one CTA walks ~1.2 M diagonals of ~9 cells per thread.  K2 runs
 // each pair on a cluster of C CTAs, one row per thread at Qp 2304, with a
 // cluster barrier per diagonal: ring_kernel.  Its rows stay with their
-// threads for the whole launch.  Where the pair's carry ring fits shared
-// memory beside the cell state (cuda_wavefront.ring_in_smem: est2genome
-// in every mode, protein2genome in score and path modes) each CTA keeps
-// its own rows' ring in shared memory, and the K rows below a CTA's
-// first come from its neighbour through distributed shared memory, once
-// per diagonal; elsewhere (its SMEM_RING flag false) the ring is in
-// global memory, as in K1.  ring_kernel repeats wavefront_kernel's cell
-// body, and both are held to the same plain version.
+// threads for the whole launch.  Where the pair's carry ring fits a
+// CTA's shared memory (cuda_wavefront.ring_in_smem: est2genome in every
+// mode, protein2genome and coding2genome in score and path modes) each
+// CTA keeps its own rows' ring in shared memory, and the K rows below a
+// CTA's first come from its neighbour through distributed shared memory,
+// once per diagonal; elsewhere (its SMEM_RING flag false) the ring is in
+// global memory, as in K1.
 //
-// What bounds ring_kernel with the shared ring: no longer the ring's L2 round trips but one
-// cell's chain of dependent work per thread per diagonal, with 8 warps on
-// each of the C SMs to hide it: the plan's interpretation (shared-memory
-// loads and branches per plan row; est2genome has 24 rows), the calcs'
-// loads of the query and target vectors from global memory, and a floor
-// of the cluster barrier, the cell state's initialisation and the ring
-// writes.  The design reads a plan row's fields in four 16-byte loads,
-// keeps each row's ring source row in the plan copy, and wraps ring slots
-// without a division; compiling the plan into the kernel, or spreading a
-// cell's plan rows over several threads, is the next lever (PERF.md).
+// What bounds ring_kernel with the shared ring: one cell's chain of
+// dependent work per thread per diagonal, with 8 warps on each of the C
+// SMs to hide it (the calcs' loads of the query and target vectors from
+// global memory, the ring's loads from shared memory), over a floor of
+// the cluster barrier, the halo copy and the ring writes.  The plan is
+// compiled in as for K1/K4: the cell's state is registers, and shared
+// memory holds only the ring with its halo, the mask bytes and the
+// block reduce.
 //
 // The checkpointed traceback (find_path_checkpointed,
 // exonerate_tpu/engine/wavefront.py:700: an XLA route over diagonal
@@ -110,11 +106,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
-#ifdef COMPILED_PLAN
 #include <utility>
 
 #include "plan.h"   // struct WavePlan: the model's plan (plan_cuda.py)
-#endif
 
 namespace cg = cooperative_groups;
 
@@ -124,7 +118,7 @@ constexpr int32_t NEG = -987654321;       // IMPOSSIBLY_LOW_SCORE
 constexpr int32_t HIGH = 987654321;       // IMPOSSIBLY_HIGH_SCORE
 constexpr int THREADS = 256;              // a power of two (final reduce)
 constexpr int MAX_L = 6;                  // lanes per state (cuda_wavefront)
-constexpr int LEAN_L = 4;                 // ... in the lean instantiation
+constexpr int LEAN_L = 4;                 // ... of a plan that is not FULL
 constexpr int MAX_CLUSTER = 16;           // K2: CTAs per pair, non-portable
 constexpr int PORTABLE_CLUSTER = 8;       // ... without that attribute
 constexpr size_t MAX_SMEM = 232448;       // dynamic shared memory of a CTA
@@ -153,14 +147,7 @@ constexpr int P_C6 = 16;
 constexpr int P_NSTART = 17;
 constexpr int P_ST_DES0 = 18;     // start lane k: P_ST_DES0 + 2k ...
 constexpr int P_ST_SRC0 = 19;     // ... and its source, P_ST_SRC0 + 2k
-constexpr int PLAN_COLS = 28;    // a row is 7 x 16 bytes (aligned loads)
-constexpr int RING_COL = 26;     // a padding column (ring_kernel's copy)
-static_assert(P_AQ == 0 && P_AT == 1 && P_IN == 2 && P_OUT == 3
-              && P_FLAGS == 4 && P_CALC == 5 && P_C0 == 6 && P_C1 == 7
-              && P_C2 == 8 && P_C3 == 9 && P_C4 == 10 && P_SH_LANE_Q == 11
-              && P_SH_LANE_T == 12 && P_SH_MIN == 13 && P_SH_MAX == 14
-              && P_ST_SRC0 + 2 * 3 < RING_COL,
-              "ring_kernel reads columns 0-15 as four int4");
+constexpr int PLAN_COLS = 28;
 
 // P_ST_SRC codes: the source cell's target or query position, or
 // ST_TVEC + r: tvecs row r at the source column (a shadow start vector)
@@ -196,10 +183,9 @@ constexpr int MODE_SCORE = 0;
 constexpr int MODE_REGION = 1;
 constexpr int MODE_PATH = 2;
 
+// The per-pair arguments of a launch (the plan, its storage map and the
+// model numbers are WavePlan's)
 struct Params {
-    const int32_t* plan;        // (n_plan, PLAN_COLS)
-    const int32_t* ring_row;    // (S,)
-    const int32_t* lane_row;    // (S, max(L, 1))
     const int32_t* dims;        // (B, 4): qstart, tstart, qlen, tlen
     const int32_t* qvecs;       // (B, nq, Qp+1)
     const int32_t* tvecs;       // (B, nt, Tp+1)
@@ -207,16 +193,15 @@ struct Params {
     const int32_t* scalars;     // (B, nsc)
     int32_t* ring;              // (B, R, NR, Qp+1)
     int32_t* lring;             // (B, R, NL, Qp+1)
-    uint8_t* tb;                // (B, Qp+Tp+1, S, Qp+1), path mode
+    uint8_t* tb;                // path mode: (B, D, S, Qp+1), D below
     const uint8_t* blocked;     // (B, Qp+1, ceil((Tp+1)/8)), MASKED
     int32_t* out;               // (5, B)
     int nq, nt, ntab, nsc;
-    int n_plan, B, Qp, Tp, S, L, NR, NL, R, n_shadow;
-    int start_id, end_id, start_scope, end_scope;
+    int B, Qp, Tp, start_scope, end_scope;
     // ring_kernel only: the diagonals [d_begin, d_end) of this launch, which
     // continues the carry ring a launch over [0, d_begin) left (a segment
-    // of the checkpointed traceback); tb then holds d_end - d_begin
-    // diagonals, diagonal d at d - d_begin
+    // of the checkpointed traceback); tb then holds D = d_end - d_begin
+    // diagonals, diagonal d at d - d_begin (plan_kernel: D = Qp + Tp + 1)
     int d_begin, d_end;
     // ring_kernel only: rows per thread (a CTA owns k * THREADS rows), and
     // with SMEM_RING whether the launch loads its first diagonal's carry
@@ -262,59 +247,19 @@ __device__ __forceinline__ bool better(int32_t s, int32_t j, int32_t i,
     return s > bs || (s == bs && (j < bj || (j == bj && i < bi)));
 }
 
-// floor division and modulo by 6, as jnp's // and % on int32
+// floor division by 6, as jnp's // on int32
 __device__ __forceinline__ int floordiv6(int32_t x) {
     const int q = x / 6;
     return (x % 6 != 0 && x < 0) ? q - 1 : q;
 }
 
-// Kernel K9, the split-codon score (model/phase.py:305-327,
-// _make_split_pallas_fn), evaluated as one calc kind of the plan.  The
-// amino acid of a codon split by an intron is decoded from packed 5-bit
-// fields: phase 1 selects one of three target rows E1p0..2 (C1..C1+2) at
-// the source column by the "split c1" lane (C4) // 6, phase 2 one of the
-// lanes "split p2k0..2" (C4..C6) by the N4 row (C1) at the source column
-// // 6; the field is the selector % 6.  The aa then indexes the 25 query
-// rows R0..R24 (C0..C0+24, already shifted by aq on the host) directly:
-// one load, no 25-way select.  aa 25..31 scores 0; a cell whose "target
-// intron" lane (C3, the intron's absolute start) is below the phase
-// scores NEG.
-template <typename Lane>
-__device__ __forceinline__ int32_t split_codon(
-    const int32_t* row, const Lane& src_lane, const int32_t* qv,
-    const int32_t* tv, int W, int WT, int i, int sj) {
-    const int phase = row[P_C2];
-    if (!(src_lane(row[P_C3]) >= phase)) return NEG;
-    int32_t sel, sub = 0;
-    if (phase == 1) {
-        sel = src_lane(row[P_C4]);
-        const int k = floordiv6(sel);
-        if (k >= 0 && k < 3) sub = tv[(row[P_C1] + k) * WT + sj];
-    } else {
-        sel = tv[row[P_C1] * WT + sj];
-        const int k = floordiv6(sel);
-        if (k >= 0 && k < 3)
-            sub = src_lane(row[k == 0 ? P_C4 : k == 1 ? P_C5 : P_C6]);
-    }
-    int field = sel % 6;
-    if (field < 0) field += 6;
-    const int aa = (sub >> (5 * field)) & 31;
-    return aa < 25 ? qv[(row[P_C0] + aa) * W + i] : 0;
-}
-
-#ifdef COMPILED_PLAN
-// Kernels K1 (score and region modes) and K4 (path mode) on the model's
-// plan compiled in (WavePlan, engine/plan_cuda.py): one CTA per pair, the
-// carry ring in global memory, a block barrier per diagonal.  Every loop
-// over plan rows, states and lanes is unrolled in plan order at compile
-// time, so each row's source state, output state, calc kind, ring row and
-// lane rows are constants: the cell's S scores, S*L lanes and S plan ids
-// are registers, the calc kind's switch and the ring and lane maps fold
-// away, and a ring source slot is (d - adv) % R with adv and R constants.
-// The row semantics are those of ring_kernel below (and of the plain
-// version): source, mask, scope, calc, intron window, clamps, strict >
-// replacement, start lanes.  MASKED: the batch carries a SubOpt mask
-// plane (K3).
+// The model's plan, compiled in (WavePlan, engine/plan_cuda.py).  Every
+// loop over plan rows, states and lanes is unrolled in plan order at
+// compile time, so each row's source state, output state, calc kind, ring
+// row and lane rows are constants: the cell's S scores, S*L lanes and S
+// plan ids are registers, the calc kind's switch and the ring and lane
+// maps fold away, and a ring source slot is (d - adv) % R with adv and R
+// constants.
 using IP = WavePlan;
 
 // a compile-time int: a loop index of `each`, usable as an array index
@@ -337,11 +282,27 @@ __device__ __forceinline__ void each(F&& f) {
     each_from<B>(f, std::make_integer_sequence<int, (E > B ? E - B : 0)>{});
 }
 
-// Threads per CTA: as many as the register file (65,536 a SM) holds at
-// this plan's per-thread cell state, S scores, S*L lanes and in path mode
-// S plan ids, beside ~40 registers of addressing and loop state.  A pair
-// is one CTA, so more threads are fewer cells in series per thread on a
-// diagonal (ceil(rows / threads)).
+// FULL: the plan holds kernel K9's pieces (a C_SPLIT row, or a start lane
+// read from a tvec) or more than LEAN_L lanes per state; plan_cuda
+// derives it from the same table
+constexpr bool plan_is_full() {
+    if (IP::L > LEAN_L) return true;
+    for (int r = 0; r < IP::N_PLAN; ++r) {
+        if (IP::plan(r, P_CALC) == C_SPLIT) return true;
+        for (int k = 0; k < IP::plan(r, P_NSTART); ++k)
+            if (IP::plan(r, P_ST_SRC0 + 2 * k) >= ST_TVEC) return true;
+    }
+    return false;
+}
+static_assert(IP::FULL == plan_is_full(), "the header's FULL is its plan's");
+static_assert(IP::L <= MAX_L, "lanes per state");
+
+// Threads per CTA of plan_kernel: as many as the register file (65,536 a
+// SM) holds at this plan's per-thread cell state, S scores, S*L lanes and
+// in path mode S plan ids, beside ~40 registers of addressing and loop
+// state.  A pair is one CTA, so more threads are fewer cells in series
+// per thread on a diagonal (ceil(rows / threads)).  ring_kernel takes
+// THREADS, at most 255 registers a thread.
 constexpr int plan_threads() {
     return IP::S * (1 + IP::L) + (IP::MODE == MODE_PATH ? IP::S : 0) + 40
                    <= 64 ? 1024
@@ -351,232 +312,313 @@ constexpr int plan_threads() {
 }
 static constexpr int PT = plan_threads();
 
-template <bool MASKED>
-__global__ void __launch_bounds__(PT) plan_kernel(const Params p) {
+// One pair's inputs, as a cell reads them
+struct Pair {
+    const int32_t* qv;
+    const int32_t* tv;
+    const int32_t* tab;
+    const int32_t* scl;
+    int W, WT;
+    int32_t qstart, tstart, qlen, tlen;
+    int start_scope, end_scope;
+};
+
+__device__ __forceinline__ Pair pair_of(const Params& p, int b) {
+    Pair c;
+    c.W = p.Qp + 1;
+    c.WT = p.Tp + 1;
+    c.qstart = p.dims[b * 4 + 0];
+    c.tstart = p.dims[b * 4 + 1];
+    c.qlen = p.dims[b * 4 + 2];
+    c.tlen = p.dims[b * 4 + 3];
+    c.qv = p.qvecs + (size_t)b * p.nq * c.W;
+    c.tv = p.tvecs + (size_t)b * p.nt * c.WT;
+    c.tab = p.tables + (size_t)b * p.ntab;
+    c.scl = p.scalars + (size_t)b * p.nsc;
+    c.start_scope = p.start_scope;
+    c.end_scope = p.end_scope;
+    return c;
+}
+
+// A thread's best end cell so far, by the lexicographic key, and its
+// region start
+struct Best {
+    int32_t s = NEG, j = INT32_MAX, i = INT32_MAX, qs = 0, ts = 0;
+};
+
+// The carry ring in global memory: one pair's (R, NR, W) score rows and
+// (R, NL, W) lane rows.  plan_kernel reads its own CTA's writes (L2 false);
+// ring_kernel without SMEM_RING reads past L1 (L2 true), as the other
+// CTAs of the cluster write it.
+template <bool L2>
+struct GlobalRing {
+    int32_t* ring;
+    int32_t* lring;
+    int W;
+    __device__ __forceinline__ int32_t score(int sl, int rr, int i) const {
+        const int32_t* a = ring + ((size_t)sl * IP::NR + rr) * W + i;
+        if constexpr (L2) return __ldcg(a);
+        else return *a;
+    }
+    __device__ __forceinline__ int32_t lane(int sl, int lr, int i) const {
+        const int32_t* a = lring + ((size_t)sl * IP::NL + lr) * W + i;
+        if constexpr (L2) return __ldcg(a);
+        else return *a;
+    }
+    __device__ __forceinline__ void put_score(int sl, int rr, int i,
+                                              int32_t x) const {
+        ring[((size_t)sl * IP::NR + rr) * W + i] = x;
+    }
+    __device__ __forceinline__ void put_lane(int sl, int lr, int i,
+                                             int32_t x) const {
+        lring[((size_t)sl * IP::NL + lr) * W + i] = x;
+    }
+};
+
+// ring_kernel's SMEM_RING: the CTA's R slots of its rows' NR + NL ring
+// rows in shared memory, laid out [slot][ring row][H + local row] (WB =
+// the CTA's rows + H wide) so that neighbouring threads hit neighbouring
+// banks, the H = R - 1 halo rows below its first row included; row i at
+// H + i - row0 (at0 = H - row0), lane row lr at ring row NR + lr.
+struct SharedRing {
+    int32_t* s;
+    int at0, WB;
+    __device__ __forceinline__ int32_t& at(int sl, int k, int i) const {
+        return s[(sl * (IP::NR + IP::NL) + k) * WB + at0 + i];
+    }
+    __device__ __forceinline__ int32_t score(int sl, int rr, int i) const {
+        return at(sl, rr, i);
+    }
+    __device__ __forceinline__ int32_t lane(int sl, int lr, int i) const {
+        return at(sl, IP::NR + lr, i);
+    }
+    __device__ __forceinline__ void put_score(int sl, int rr, int i,
+                                              int32_t x) const {
+        at(sl, rr, i) = x;
+    }
+    __device__ __forceinline__ void put_lane(int sl, int lr, int i,
+                                             int32_t x) const {
+        at(sl, IP::NR + lr, i) = x;
+    }
+};
+
+// The cell (i, j = d - i) of both kernels: the plan's rows in plan order
+// over the cell's state in registers, then its column of the new
+// diagonal (its ring rows at `slot`, in path mode its plan ids into tb_d,
+// the diagonal's (S, W) planes) and its end-cell candidate.  `rg` reads
+// the source rows of the ring and takes the new ones; `blk`: the cell is
+// masked (MASKED, K3).  The row semantics are those of the plain version:
+// source, mask, scope, calc, intron window, clamps, strict > replacement,
+// start lanes.
+template <bool MASKED, typename Ring>
+__device__ __forceinline__ void run_cell(const Pair& c, const Ring& rg,
+                                         int i, int j, int slot, bool blk,
+                                         uint8_t* tb_d, Best& best) {
     constexpr int MODE = IP::MODE, S = IP::S, L = IP::L;
     constexpr int LL = L > 0 ? L : 1;
-    constexpr int NR = IP::NR, NL = IP::NL, R = IP::R;
+    constexpr int R = IP::R;
     constexpr int RS_Q = IP::N_SHADOW, RS_T = IP::N_SHADOW + 1;
-    __shared__ int32_t red[5 * PT];
-    const int tid = threadIdx.x;
-    const int b = blockIdx.x;
-    const int32_t qstart = p.dims[b * 4 + 0], tstart = p.dims[b * 4 + 1];
-    const int32_t qlen = p.dims[b * 4 + 2], tlen = p.dims[b * 4 + 3];
-    const int W = p.Qp + 1, WT = p.Tp + 1;
-    const int32_t* qv = p.qvecs + (size_t)b * p.nq * W;
-    const int32_t* tv = p.tvecs + (size_t)b * p.nt * WT;
-    const int32_t* tab = p.tables + (size_t)b * p.ntab;
-    const int32_t* scl = p.scalars + (size_t)b * p.nsc;
-    int32_t* ring = p.ring + (size_t)b * R * NR * W;
-    int32_t* lring = p.lring + (size_t)b * R * NL * W;
-    const int TB = (p.Tp + 8) >> 3;   // bytes per mask row
-    const uint8_t* blk_rows = MASKED ? p.blocked + (size_t)b * W * TB
-                                     : nullptr;
-
-    int32_t best_s = NEG, best_j = INT32_MAX, best_i = INT32_MAX;
-    int32_t best_qs = 0, best_ts = 0;
-
-    const int n_diag = qlen + tlen + 1;
-    for (int d = 0; d < n_diag; ++d) {
-        const int lo = d - tlen > 0 ? d - tlen : 0;
-        const int hi = d < qlen ? d : qlen;
-        const int slot = d % R;
-        for (int i = lo + tid; i <= hi; i += PT) {
-            const int j = d - i;
-            const bool blk = MASKED
-                && ((blk_rows[(size_t)i * TB + (j >> 3)] >> (7 - (j & 7)))
-                    & 1);
-            int32_t sc[S];
-            int32_t ln[S][LL];
-            int32_t tb[S];
-            each<0, S>([&](auto s) {
-                sc[s] = NEG;
-                tb[s] = 0;
-                each<0, LL>([&](auto l) { ln[s][l] = 0; });
-            });
-            each<0, IP::N_PLAN>([&](auto rc) {
-                constexpr int r = decltype(rc)::value;
-                constexpr int aq = IP::plan(r, P_AQ), at = IP::plan(r, P_AT);
-                constexpr int in = IP::plan(r, P_IN);
-                constexpr int out = IP::plan(r, P_OUT);
-                constexpr int flags = IP::plan(r, P_FLAGS);
-                constexpr int kind = IP::plan(r, P_CALC);
-                constexpr int adv = aq + at;
-                constexpr bool from_start = (flags & F_FROM_START) != 0;
-                const int si = i - aq, sj = j - at;
-                if (si < 0 || sj < 0) return;
-                if constexpr (MASKED && (flags & F_MATCH) != 0) {
-                    if (blk) return;
-                }
-                // source: START (0), this diagonal (silent), or the ring
-                // at slot (d - adv) % R, adv <= K < R
-                const int src_slot = slot >= adv ? slot - adv
-                                                 : slot - adv + R;
-                int32_t base;
-                if constexpr (from_start) {
-                    if (!start_ok(p.start_scope, si, sj)) return;
-                    base = 0;
+    const int W = c.W, WT = c.WT;
+    const int32_t* qv = c.qv;
+    const int32_t* tv = c.tv;
+    const int32_t* scl = c.scl;
+    int32_t sc[S];
+    int32_t ln[S][LL];
+    int32_t tb[S];
+    each<0, S>([&](auto s) {
+        sc[s] = NEG;
+        tb[s] = 0;
+        each<0, LL>([&](auto l) { ln[s][l] = 0; });
+    });
+    each<0, IP::N_PLAN>([&](auto rc) {
+        constexpr int r = decltype(rc)::value;
+        constexpr int aq = IP::plan(r, P_AQ), at = IP::plan(r, P_AT);
+        constexpr int in = IP::plan(r, P_IN);
+        constexpr int out = IP::plan(r, P_OUT);
+        constexpr int flags = IP::plan(r, P_FLAGS);
+        constexpr int kind = IP::plan(r, P_CALC);
+        constexpr int adv = aq + at;
+        constexpr bool from_start = (flags & F_FROM_START) != 0;
+        const int si = i - aq, sj = j - at;
+        if (si < 0 || sj < 0) return;
+        if constexpr (MASKED && (flags & F_MATCH) != 0) {
+            if (blk) return;
+        }
+        // source: START (0), this diagonal (silent), or the ring at slot
+        // (d - adv) % R, adv <= K < R
+        const int src_slot = slot >= adv ? slot - adv : slot - adv + R;
+        int32_t base;
+        if constexpr (from_start) {
+            if (!start_ok(c.start_scope, si, sj)) return;
+            base = 0;
+        } else {
+            if constexpr (adv == 0) {
+                base = sc[in];
+            } else {
+                constexpr int rr = IP::ring_row(in);
+                static_assert(rr >= 0, "a ring source has a row");
+                base = rg.score(src_slot, rr, si);
+            }
+            if (base <= NEG) return;
+        }
+        if constexpr ((flags & F_TO_END) != 0) {
+            if (!end_ok(c.end_scope, i, j, c.qlen, c.tlen)) return;
+        }
+        // lane l of the source cell
+        auto src_lane = [&](auto lc) -> int32_t {
+            constexpr int l = decltype(lc)::value;
+            if constexpr (from_start) {
+                return 0;
+            } else if constexpr (adv == 0) {
+                return ln[in][l];
+            } else {
+                constexpr int lr = IP::lane_row(in, l);
+                if constexpr (lr < 0)
+                    return 0;
+                else
+                    return rg.lane(src_slot, lr, si);
+            }
+        };
+        constexpr int c0 = IP::plan(r, P_C0), c1 = IP::plan(r, P_C1);
+        constexpr int c2 = IP::plan(r, P_C2), c3 = IP::plan(r, P_C3);
+        constexpr int c4 = IP::plan(r, P_C4);
+        int32_t calc = 0;
+        if constexpr (kind == C_SCALAR) {
+            calc = scl[c0];
+        } else if constexpr (kind == C_QVEC) {
+            calc = qv[c0 * W + i];
+        } else if constexpr (kind == C_TVEC) {
+            calc = tv[c0 * WT + sj];
+        } else if constexpr (kind == C_FACTORED) {
+            const int32_t ov = qv[c4 * W + i];
+            calc = ov != 0 ? ov
+                : c.tab[c2 + qv[c0 * W + i] * c3 + tv[c1 * WT + sj]];
+        } else if constexpr (kind == C_SPLIT) {
+            // Kernel K9, the split-codon score (model/phase.py:305-327,
+            // _make_split_pallas_fn).  The amino acid of a codon split by
+            // an intron is decoded from packed 5-bit fields: phase 1
+            // (C2) selects one of three target rows E1p0..2 (C1..C1+2) at
+            // the source column by the "split c1" lane (C4) // 6, phase 2
+            // one of the lanes "split p2k0..2" (C4..C6) by the N4 row
+            // (C1) at the source column // 6; the field is the selector %
+            // 6.  The aa then indexes the 25 query rows R0..R24 (C0..C0 +
+            // 24, already shifted by aq on the host) directly.  aa 25..31
+            // scores 0; a cell whose "target intron" lane (C3, the
+            // intron's absolute start) is below the phase scores NEG.
+            if (!(src_lane(IC<c3>{}) >= c2)) {
+                calc = NEG;
+            } else {
+                int32_t sel, sub = 0;
+                if constexpr (c2 == 1) {
+                    sel = src_lane(IC<c4>{});
+                    const int k = floordiv6(sel);
+                    if (k >= 0 && k < 3) sub = tv[(c1 + k) * WT + sj];
                 } else {
-                    if constexpr (adv == 0) {
-                        base = sc[in];
-                    } else {
-                        constexpr int rr = IP::ring_row(in);
-                        static_assert(rr >= 0, "a ring source has a row");
-                        base = ring[((size_t)src_slot * NR + rr) * W + si];
-                    }
-                    if (base <= NEG) return;
+                    sel = tv[c1 * WT + sj];
+                    const int k = floordiv6(sel);
+                    if (k == 0)
+                        sub = src_lane(IC<c4>{});
+                    else if (k == 1)
+                        sub = src_lane(IC<IP::plan(r, P_C5)>{});
+                    else if (k == 2)
+                        sub = src_lane(IC<IP::plan(r, P_C6)>{});
                 }
-                if constexpr ((flags & F_TO_END) != 0) {
-                    if (!end_ok(p.end_scope, i, j, qlen, tlen)) return;
-                }
-                // lane l of the source cell
-                auto src_lane = [&](auto lc) -> int32_t {
-                    constexpr int l = decltype(lc)::value;
-                    if constexpr (from_start) {
-                        return 0;
-                    } else if constexpr (adv == 0) {
-                        return ln[in][l];
-                    } else {
-                        constexpr int lr = IP::lane_row(in, l);
-                        if constexpr (lr < 0)
-                            return 0;
-                        else
-                            return lring[((size_t)src_slot * NL + lr) * W
-                                         + si];
-                    }
-                };
-                constexpr int c0 = IP::plan(r, P_C0), c1 = IP::plan(r, P_C1);
-                constexpr int c2 = IP::plan(r, P_C2), c3 = IP::plan(r, P_C3);
-                constexpr int c4 = IP::plan(r, P_C4);
-                int32_t calc = 0;
-                if constexpr (kind == C_SCALAR) {
-                    calc = scl[c0];
-                } else if constexpr (kind == C_QVEC) {
-                    calc = qv[c0 * W + i];
-                } else if constexpr (kind == C_TVEC) {
-                    calc = tv[c0 * WT + sj];
-                } else if constexpr (kind == C_FACTORED) {
-                    const int32_t ov = qv[c4 * W + i];
-                    calc = ov != 0 ? ov
-                        : tab[c2 + qv[c0 * W + i] * c3 + tv[c1 * WT + sj]];
-                } else if constexpr (kind == C_SPLIT) {
-                    // kernel K9 (split_codon above, its fields constants):
-                    // C2 the phase, C3 the "target intron" lane, C4..C6
-                    // the "split" lanes, C1 the E1p0 or N4 row, C0 R0
-                    if (!(src_lane(IC<c3>{}) >= c2)) {
-                        calc = NEG;
-                    } else {
-                        int32_t sel, sub = 0;
-                        if constexpr (c2 == 1) {
-                            sel = src_lane(IC<c4>{});
-                            const int k = floordiv6(sel);
-                            if (k >= 0 && k < 3) sub = tv[(c1 + k) * WT + sj];
-                        } else {
-                            sel = tv[c1 * WT + sj];
-                            const int k = floordiv6(sel);
-                            if (k == 0)
-                                sub = src_lane(IC<c4>{});
-                            else if (k == 1)
-                                sub = src_lane(IC<IP::plan(r, P_C5)>{});
-                            else if (k == 2)
-                                sub = src_lane(IC<IP::plan(r, P_C6)>{});
-                        }
-                        int field = sel % 6;
-                        if (field < 0) field += 6;
-                        const int aa = (sub >> (5 * field)) & 31;
-                        calc = aa < 25 ? qv[(c0 + aa) * W + i] : 0;
-                    }
-                }
-                if constexpr ((flags & (F_SH_Q | F_SH_T)) != 0) {
-                    const int32_t mn = scl[IP::plan(r, P_SH_MIN)];
-                    const int32_t mx = scl[IP::plan(r, P_SH_MAX)];
-                    bool bad = false;
-                    if constexpr ((flags & F_SH_Q) != 0) {
-                        const int32_t len = wadd(wsub(si + qstart,
-                            src_lane(IC<IP::plan(r, P_SH_LANE_Q)>{})), 2);
-                        bad = bad || len < mn || len > mx;
-                    }
-                    if constexpr ((flags & F_SH_T) != 0) {
-                        const int32_t len = wadd(wsub(sj + tstart,
-                            src_lane(IC<IP::plan(r, P_SH_LANE_T)>{})), 2);
-                        bad = bad || len < mn || len > mx;
-                    }
-                    if (bad) calc = NEG;
-                }
-                int32_t val = wadd(base, calc);
-                if constexpr ((flags & F_P_UNDER) != 0) {
-                    if (val < NEG) val = NEG;
-                }
-                if constexpr ((flags & F_P_OVER) != 0) {
-                    if (val > HIGH) val = HIGH;
-                }
-                if (val < NEG) val = NEG;
-                if (!(val > sc[out])) return;    // first max wins
-                sc[out] = val;
-                if constexpr (MODE == MODE_PATH) tb[out] = r + 1;
-                if constexpr (L > 0) {
-                    int32_t nl[LL];
-                    each<0, L>([&](auto l) { nl[l] = src_lane(l); });
-                    each<0, IP::plan(r, P_NSTART)>([&](auto kc) {
-                        constexpr int k = decltype(kc)::value;
-                        constexpr int des = IP::plan(r, P_ST_DES0 + 2 * k);
-                        constexpr int src = IP::plan(r, P_ST_SRC0 + 2 * k);
-                        if constexpr (src == ST_TARGET)
-                            nl[des] = sj + tstart;
-                        else if constexpr (src == ST_QUERY)
-                            nl[des] = si + qstart;
-                        else
-                            nl[des] = tv[(src - ST_TVEC) * WT + sj];
-                    });
-                    if constexpr (MODE == MODE_REGION && from_start) {
-                        nl[RS_Q] = si;
-                        nl[RS_T] = sj;
-                    }
-                    each<0, L>([&](auto l) { ln[out][l] = nl[l]; });
-                }
-            });
-            // this cell's column of the new diagonal
-            each<0, S>([&](auto sc_) {
-                constexpr int s = decltype(sc_)::value;
-                constexpr int rr = IP::ring_row(s);
-                if constexpr (rr >= 0)
-                    ring[((size_t)slot * NR + rr) * W + i] = sc[s];
-                each<0, L>([&](auto lc) {
-                    constexpr int lr = IP::lane_row(s, decltype(lc)::value);
-                    if constexpr (lr >= 0)
-                        lring[((size_t)slot * NL + lr) * W + i] = ln[s][lc];
-                });
-                if constexpr (MODE == MODE_PATH)
-                    p.tb[(((size_t)b * (p.Qp + p.Tp + 1) + d) * S + s) * W
-                         + i] = (uint8_t)tb[s];
-            });
-            const int32_t es = sc[IP::END_ID];
-            if (es > NEG && better(es, j, i, best_s, best_j, best_i)) {
-                best_s = es;
-                best_j = j;
-                best_i = i;
-                if constexpr (MODE == MODE_REGION) {
-                    best_qs = ln[IP::END_ID][RS_Q];
-                    best_ts = ln[IP::END_ID][RS_T];
-                }
+                int field = sel % 6;
+                if (field < 0) field += 6;
+                const int aa = (sub >> (5 * field)) & 31;
+                calc = aa < 25 ? qv[(c0 + aa) * W + i] : 0;
             }
         }
-        __syncthreads();
+        if constexpr ((flags & (F_SH_Q | F_SH_T)) != 0) {
+            const int32_t mn = scl[IP::plan(r, P_SH_MIN)];
+            const int32_t mx = scl[IP::plan(r, P_SH_MAX)];
+            bool bad = false;
+            if constexpr ((flags & F_SH_Q) != 0) {
+                const int32_t len = wadd(wsub(si + c.qstart,
+                    src_lane(IC<IP::plan(r, P_SH_LANE_Q)>{})), 2);
+                bad = bad || len < mn || len > mx;
+            }
+            if constexpr ((flags & F_SH_T) != 0) {
+                const int32_t len = wadd(wsub(sj + c.tstart,
+                    src_lane(IC<IP::plan(r, P_SH_LANE_T)>{})), 2);
+                bad = bad || len < mn || len > mx;
+            }
+            if (bad) calc = NEG;
+        }
+        int32_t val = wadd(base, calc);
+        if constexpr ((flags & F_P_UNDER) != 0) {
+            if (val < NEG) val = NEG;
+        }
+        if constexpr ((flags & F_P_OVER) != 0) {
+            if (val > HIGH) val = HIGH;
+        }
+        if (val < NEG) val = NEG;
+        if (!(val > sc[out])) return;    // first max wins
+        sc[out] = val;
+        if constexpr (MODE == MODE_PATH) tb[out] = r + 1;
+        if constexpr (L > 0) {
+            int32_t nl[LL];
+            each<0, L>([&](auto l) { nl[l] = src_lane(l); });
+            each<0, IP::plan(r, P_NSTART)>([&](auto kc) {
+                constexpr int k = decltype(kc)::value;
+                constexpr int des = IP::plan(r, P_ST_DES0 + 2 * k);
+                constexpr int src = IP::plan(r, P_ST_SRC0 + 2 * k);
+                if constexpr (src == ST_TARGET)
+                    nl[des] = sj + c.tstart;
+                else if constexpr (src == ST_QUERY)
+                    nl[des] = si + c.qstart;
+                else
+                    nl[des] = tv[(src - ST_TVEC) * WT + sj];
+            });
+            if constexpr (MODE == MODE_REGION && from_start) {
+                nl[RS_Q] = si;
+                nl[RS_T] = sj;
+            }
+            each<0, L>([&](auto l) { ln[out][l] = nl[l]; });
+        }
+    });
+    // this cell's column of the new diagonal
+    each<0, S>([&](auto sc_) {
+        constexpr int s = decltype(sc_)::value;
+        constexpr int rr = IP::ring_row(s);
+        if constexpr (rr >= 0) rg.put_score(slot, rr, i, sc[s]);
+        each<0, L>([&](auto lc) {
+            constexpr int lr = IP::lane_row(s, decltype(lc)::value);
+            if constexpr (lr >= 0) rg.put_lane(slot, lr, i, ln[s][lc]);
+        });
+        if constexpr (MODE == MODE_PATH)
+            tb_d[(size_t)s * W + i] = (uint8_t)tb[s];
+    });
+    const int32_t es = sc[IP::END_ID];
+    if (es > NEG && better(es, j, i, best.s, best.j, best.i)) {
+        best.s = es;
+        best.j = j;
+        best.i = i;
+        if constexpr (MODE == MODE_REGION) {
+            best.qs = ln[IP::END_ID][RS_Q];
+            best.ts = ln[IP::END_ID][RS_T];
+        }
     }
+}
 
-    // one lexicographic reduce over the block
+// One lexicographic reduce of the NT threads' best end cells over `red`
+// (5 * NT int32: score, j, i, query start, target start rows), the
+// winner left in each row's first entry
+template <int NT>
+__device__ __forceinline__ void block_reduce(int32_t* red, const Best& best) {
+    const int tid = threadIdx.x;
     int32_t* r_s = red;
-    int32_t* r_j = r_s + PT;
-    int32_t* r_i = r_j + PT;
-    int32_t* r_qs = r_i + PT;
-    int32_t* r_ts = r_qs + PT;
-    r_s[tid] = best_s;
-    r_j[tid] = best_j;
-    r_i[tid] = best_i;
-    r_qs[tid] = best_qs;
-    r_ts[tid] = best_ts;
+    int32_t* r_j = r_s + NT;
+    int32_t* r_i = r_j + NT;
+    int32_t* r_qs = r_i + NT;
+    int32_t* r_ts = r_qs + NT;
+    r_s[tid] = best.s;
+    r_j[tid] = best.j;
+    r_i[tid] = best.i;
+    r_qs[tid] = best.qs;
+    r_ts[tid] = best.ts;
     __syncthreads();
-    for (int off = PT / 2; off > 0; off >>= 1) {
+    for (int off = NT / 2; off > 0; off >>= 1) {
         if (tid < off) {
             const int o = tid + off;
             if (better(r_s[o], r_j[o], r_i[o], r_s[tid], r_j[tid], r_i[tid])) {
@@ -589,49 +631,78 @@ __global__ void __launch_bounds__(PT) plan_kernel(const Params p) {
         }
         __syncthreads();
     }
-    if (tid == 0) {
-        const bool found = r_s[0] > NEG;
-        p.out[0 * p.B + b] = found ? r_s[0] : NEG;
-        p.out[1 * p.B + b] = found ? r_i[0] : 0;
-        p.out[2 * p.B + b] = found ? r_j[0] : 0;
-        p.out[3 * p.B + b] = found ? r_qs[0] : 0;
-        p.out[4 * p.B + b] = found ? r_ts[0] : 0;
-    }
 }
-#else
-// ring_kernel's template flags.  FULL: the plan may hold kernel K9's
-// pieces (a C_SPLIT row or a start lane read from a tvec) and up to MAX_L
-// lanes per state.  The lean instantiation (!FULL) serves the other
-// plans, up to LEAN_L lanes, with the split-codon body and the vector
-// start decode compiled out.  MASKED: the batch carries a SubOpt mask
-// plane (K3).  ring_kernel runs the cells and plan semantics of K1/K4 on
-// a cluster of CTAs; both are held to the same plain version.
+
+// pair b's (score, i, j, query start, target start) from a reduce's rows
+template <int NT>
+__device__ __forceinline__ void write_out(const Params& p, int b,
+                                          const int32_t* red) {
+    const bool found = red[0] > NEG;
+    p.out[0 * p.B + b] = found ? red[0] : NEG;
+    p.out[1 * p.B + b] = found ? red[2 * NT] : 0;
+    p.out[2 * p.B + b] = found ? red[NT] : 0;
+    p.out[3 * p.B + b] = found ? red[3 * NT] : 0;
+    p.out[4 * p.B + b] = found ? red[4 * NT] : 0;
+}
+
+// Kernels K1 (score and region modes) and K4 (path mode): one CTA per
+// pair, the carry ring in global memory, a block barrier per diagonal.
+// MASKED: the batch carries a SubOpt mask plane (K3).
+template <bool MASKED>
+__global__ void __launch_bounds__(PT) plan_kernel(const Params p) {
+    constexpr int R = IP::R;
+    __shared__ int32_t red[5 * PT];
+    const int tid = threadIdx.x;
+    const int b = blockIdx.x;
+    const Pair c = pair_of(p, b);
+    const GlobalRing<false> rg{p.ring + (size_t)b * R * IP::NR * c.W,
+                               p.lring + (size_t)b * R * IP::NL * c.W, c.W};
+    const int TB = (p.Tp + 8) >> 3;   // bytes per mask row
+    const uint8_t* blk_rows = MASKED ? p.blocked + (size_t)b * c.W * TB
+                                     : nullptr;
+    Best best;
+    const int n_diag = c.qlen + c.tlen + 1;
+    for (int d = 0; d < n_diag; ++d) {
+        const int lo = d - c.tlen > 0 ? d - c.tlen : 0;
+        const int hi = d < c.qlen ? d : c.qlen;
+        const int slot = d % R;
+        uint8_t* tb_d = IP::MODE == MODE_PATH
+            ? p.tb + ((size_t)b * (p.Qp + p.Tp + 1) + d) * IP::S * c.W
+            : nullptr;
+        for (int i = lo + tid; i <= hi; i += PT) {
+            const int j = d - i;
+            const bool blk = MASKED
+                && ((blk_rows[(size_t)i * TB + (j >> 3)] >> (7 - (j & 7)))
+                    & 1);
+            run_cell<MASKED>(c, rg, i, j, slot, blk, tb_d, best);
+        }
+        __syncthreads();
+    }
+    block_reduce<PT>(red, best);
+    if (tid == 0) write_out<PT>(p, b, red);
+}
 
 // Kernel K2, the cluster wavefront (score and region modes; path mode
 // is K4 on a cluster: the checkpointed traceback's segments, over the
 // span [p.d_begin, p.d_end) of the diagonals, and masked path DPs over
-// all of them): the cells and plan semantics of K1/K4, each
-// pair run by a thread-block cluster of C CTAs so that one long pair
-// (B=1 against a chromosome-scale target) spans C SMs.  Grid B x C,
-// cluster (C, 1, 1).  Rows are stationary: rank r owns the query rows
-// [r*RB, (r+1)*RB), RB = k*THREADS, and thread tid the rows
-// r*RB + tid + m*THREADS, m < k, for the whole launch (a row is idle on a
-// diagonal outside [lo, hi]).
+// all of them): plan_kernel's cells (run_cell), each pair run by a
+// thread-block cluster of C CTAs so that one long pair (B=1 against a
+// chromosome-scale target) spans C SMs.  Grid B x C, cluster (C, 1, 1).
+// Rows are stationary: rank r owns the query rows [r*RB, (r+1)*RB), RB =
+// k*THREADS, and thread tid the rows r*RB + tid + m*THREADS, m < k, for
+// the whole launch (a row is idle on a diagonal outside [lo, hi]).
 //
-// SMEM_RING (cuda_wavefront.ring_in_smem: where the ring fits beside the
-// cell state): the CTA keeps R = K+1 slots (slot d % R) of its rows' NR
-// score and NL lane ring rows in shared memory, laid out
-// [slot][ring row][H + local row] so that neighbouring threads hit
-// neighbouring banks, with H = K halo rows below its first row.  A source
+// SMEM_RING (cuda_wavefront.ring_in_smem: where the ring fits a CTA's
+// shared memory): the CTA keeps its rows' ring (SharedRing).  A source
 // row i - aq (aq <= K) is this CTA's, or one of the H rows below it,
 // which belong to rank r-1: at the start of each diagonal warp 0 copies
 // rank r-1's top H rows of the diagonal before (of the K before, at a
 // launch's first diagonal) into the halo through distributed shared
 // memory (cluster.map_shared_rank), so every read in a cell is a load
-// from the CTA's own shared memory.  Without SMEM_RING (protein2genome
-// and coding2genome in region mode, whose rings are over a CTA's shared
-// memory) the ring is the global (ring, lring) pair, read past L1 as the
-// other CTAs of the cluster write it.
+// from the CTA's own shared memory.  Without SMEM_RING (protein2genome,
+// coding2genome and cdna2genome in region mode at Qp 2304, whose rings
+// are over a CTA's shared memory) the ring is the global (ring, lring)
+// pair, read past L1 as the other CTAs of the cluster write it.
 //
 // Why one cluster barrier per diagonal suffices: at diagonal d every CTA
 // writes only slot d % R of its own rows and reads slots (d - adv) % R
@@ -652,95 +723,50 @@ __global__ void __launch_bounds__(PT) plan_kernel(const Params p) {
 // launch.  The end cell: each CTA reduces its threads as K1 does, then
 // rank 0 reads the C block results through distributed shared memory and
 // reduces them in rank order with the same lexicographic key, and a last
-// cluster barrier keeps the CTAs resident until it has.
-template <int MODE, bool FULL, bool MASKED, bool SMEM_RING>
+// cluster barrier keeps the CTAs resident until it has.  Shared memory
+// (smem_bytes + ring_smem_bytes): the block reduce, the mask bytes, the
+// ring.
+template <bool MASKED, bool SMEM_RING>
 __global__ void __launch_bounds__(THREADS)
 ring_kernel(const Params p) {
+    constexpr int R = IP::R, H = R - 1;
+    constexpr int NR = IP::NR, NL = IP::NL, NRL = NR + NL;
     extern __shared__ __align__(16) int32_t smem[];
     cg::cluster_group cluster = cg::this_cluster();
     const int tid = threadIdx.x;
     const int C = (int)cluster.num_blocks();
     const int rank = (int)cluster.block_rank();
     const int b = blockIdx.x / C;
-    const int S = p.S, L = p.L;
-    int32_t* s_plan = smem;
-    int32_t* s_ring_row = s_plan + p.n_plan * PLAN_COLS;
-    int32_t* s_lane_row = s_ring_row + S;
-    int32_t* s_cell = s_lane_row + S * (L > 0 ? L : 1);
-    for (int k = tid; k < p.n_plan * PLAN_COLS; k += THREADS)
-        s_plan[k] = p.plan[k];
-    for (int k = tid; k < S; k += THREADS) s_ring_row[k] = p.ring_row[k];
-    for (int k = tid; k < S * (L > 0 ? L : 1); k += THREADS)
-        s_lane_row[k] = p.lane_row[k];
-    __syncthreads();
-
-    // per-thread cell state, variable v of this thread at s_cell[v*T+tid]
-    const int V_LN = S, V_TB = S + S * L;
-#define CV(v) s_cell[(v) * THREADS + tid]
-
-    const int32_t qstart = p.dims[b * 4 + 0], tstart = p.dims[b * 4 + 1];
-    const int32_t qlen = p.dims[b * 4 + 2], tlen = p.dims[b * 4 + 3];
-    const int W = p.Qp + 1, WT = p.Tp + 1, R = p.R;
-    const int NR = p.NR, NL = p.NL;
-    const int32_t* qv = p.qvecs + (size_t)b * p.nq * W;
-    const int32_t* tv = p.tvecs + (size_t)b * p.nt * WT;
-    const int32_t* tab = p.tables + (size_t)b * p.ntab;
-    const int32_t* sc = p.scalars + (size_t)b * p.nsc;
+    const Pair c = pair_of(p, b);
+    const int W = c.W;
     int32_t* ring = p.ring + (size_t)b * R * NR * W;
     int32_t* lring = p.lring + (size_t)b * R * NL * W;
-    const int rs_q = p.n_shadow, rs_t = p.n_shadow + 1;
     const int TB = (p.Tp + 8) >> 3;   // bytes per mask row
     const uint8_t* blk_rows = MASKED ? p.blocked + (size_t)b * W * TB
                                      : nullptr;
+    Best best;
 
-    int32_t best_s = NEG, best_j = INT32_MAX, best_i = INT32_MAX;
-    int32_t best_qs = 0, best_ts = 0;
-
-    const int n_diag = qlen + tlen + 1;
+    const int n_diag = c.qlen + c.tlen + 1;
     const int d_first = p.d_begin;
     const int d_stop = p.d_end < n_diag ? p.d_end : n_diag;
 
-    // this CTA's rows [row0, row0 + RB), its ring (after the cell state:
-    // smem_bytes + ring_smem_bytes) and the mask bytes of its rows;
-    // SR(slot, ring row, i) is row i's entry, lane row lr at NR + lr
-    const int H = R - 1, NRL = NR + NL;
+    // this CTA's rows [row0, row0 + RB); after the block reduce, the mask
+    // bytes of its rows and its ring
     const int RB = p.k * THREADS;
     const int WB = RB + H;
     const int row0 = rank * RB;
     const int row_end = row0 + RB - 1;
-    int cell_vars = S + S * L + (MODE == MODE_PATH ? S : 0);
-    if (cell_vars < 5) cell_vars = 5;
-    int32_t* s_ring = s_cell + cell_vars * THREADS;
-    int32_t* s_mask = s_ring + (SMEM_RING ? R * NRL * WB : 0);
-    // the cell variable each ring row stores (-1: a padding row)
-    int32_t* s_wvar = s_mask + (MASKED ? RB : 0);
-    for (int k = tid; k < NRL; k += THREADS) s_wvar[k] = -1;
-    __syncthreads();
-    // the ring row of each plan row's input state, in a padding column
-    for (int r = tid; r < p.n_plan; r += THREADS)
-        s_plan[r * PLAN_COLS + RING_COL] =
-            s_ring_row[s_plan[r * PLAN_COLS + P_IN]];
-    for (int st = tid; st < S; st += THREADS) {
-        if (s_ring_row[st] >= 0) s_wvar[s_ring_row[st]] = st;
-        for (int l = 0; l < L; ++l) {
-            const int lr = s_lane_row[st * L + l];
-            if (lr >= 0) s_wvar[NR + lr] = V_LN + st * L + l;
-        }
-    }
-    __syncthreads();
+    int32_t* red = smem;
+    int32_t* s_mask = red + 5 * THREADS;
+    int32_t* s_ring = s_mask + (MASKED ? RB : 0);
+    const SharedRing sr{s_ring, H - row0, WB};
+    using Ring = std::conditional_t<SMEM_RING, SharedRing, GlobalRing<true>>;
+    Ring rg;
+    if constexpr (SMEM_RING) rg = sr;
+    else rg = GlobalRing<true>{ring, lring, W};
     // rank - 1's ring (DSMEM)
     const int32_t* nb_ring = SMEM_RING && rank > 0
         ? cluster.map_shared_rank(s_ring, rank - 1) : nullptr;
-#define SR(sl, rr, ii) s_ring[((sl) * NRL + (rr)) * WB + H + (ii) - row0]
-    // a source entry of the ring: score row rr, or lane row lr
-    auto ld_score = [&](int sl, int rr, int ii) -> int32_t {
-        if constexpr (SMEM_RING) return SR(sl, rr, ii);
-        else return __ldcg(ring + ((size_t)sl * NR + rr) * W + ii);
-    };
-    auto ld_lane = [&](int sl, int lr, int ii) -> int32_t {
-        if constexpr (SMEM_RING) return SR(sl, NR + lr, ii);
-        else return __ldcg(lring + ((size_t)sl * NL + lr) * W + ii);
-    };
     // this thread's first row at or after lo
     auto first_own = [&](int lo) -> int {
         const int r = row0 + tid;
@@ -750,19 +776,19 @@ ring_kernel(const Params p) {
     // the global (ring, lring) pair, slot dd % R, its valid cells only
     auto ring_copy = [&](int dd, bool store) {
         const int sl = dd % R;
-        const int lo = dd - tlen > 0 ? dd - tlen : 0;
-        const int hi = dd < qlen ? dd : qlen;
+        const int lo = dd - c.tlen > 0 ? dd - c.tlen : 0;
+        const int hi = dd < c.qlen ? dd : c.qlen;
         for (int i = first_own(lo); i <= hi && i <= row_end; i += THREADS) {
-            for (int rr = 0; rr < NR; ++rr) {
+            each<0, NR>([&](auto rr) {
                 int32_t* g = ring + ((size_t)sl * NR + rr) * W + i;
-                if (store) *g = SR(sl, rr, i);
-                else SR(sl, rr, i) = *g;
-            }
-            for (int lr = 0; lr < NL; ++lr) {
+                if (store) *g = sr.at(sl, rr, i);
+                else sr.at(sl, rr, i) = *g;
+            });
+            each<0, NL>([&](auto lr) {
                 int32_t* g = lring + ((size_t)sl * NL + lr) * W + i;
-                if (store) *g = SR(sl, NR + lr, i);
-                else SR(sl, NR + lr, i) = *g;
-            }
+                if (store) *g = sr.at(sl, NR + lr, i);
+                else sr.at(sl, NR + lr, i) = *g;
+            });
         }
     };
     // this lane's (ring row, halo row) pairs of a slot in the halo copy,
@@ -781,8 +807,8 @@ ring_kernel(const Params p) {
     cluster.sync();
 
     for (int d = d_first; d < d_stop; ++d) {
-        const int lo = d - tlen > 0 ? d - tlen : 0;
-        const int hi = d < qlen ? d : qlen;
+        const int lo = d - c.tlen > 0 ? d - c.tlen : 0;
+        const int hi = d < c.qlen ? d : c.qlen;
         const int slot = d % R;
         // the halo: rank - 1's top H rows of the diagonal before (of the H
         // before, at the launch's first), copied by warp 0, whose threads
@@ -805,6 +831,10 @@ ring_kernel(const Params p) {
             }
         }
         __syncwarp();
+        uint8_t* tb_d = IP::MODE == MODE_PATH
+            ? p.tb + ((size_t)b * (p.d_end - p.d_begin) + (d - d_first))
+                  * IP::S * W
+            : nullptr;
         const int i_last = hi < row_end ? hi : row_end;
         for (int i = first_own(lo); i <= i_last; i += THREADS) {
             const int j = d - i;
@@ -816,134 +846,7 @@ ring_kernel(const Params p) {
                     byte = blk_rows[(size_t)i * TB + (j >> 3)];
                 blk = (byte >> (7 - (j & 7))) & 1;
             }
-            // the cell's state: S scores NEG, then S*L lanes (and in path
-            // mode S plan ids) 0
-#pragma unroll 4
-            for (int v = 0; v < S; ++v) CV(v) = NEG;
-#pragma unroll 4
-            for (int v = V_LN; v < V_TB + (MODE == MODE_PATH ? S : 0); ++v)
-                CV(v) = 0;
-            for (int r = 0; r < p.n_plan; ++r) {
-                const int32_t* row = s_plan + r * PLAN_COLS;
-                // columns 0-15 of the row in registers: four 16-byte
-                // loads issued together, not a load per field on the
-                // cell's dependent chain
-                const int4* r4 = reinterpret_cast<const int4*>(row);
-                const int4 f0 = r4[0], f1 = r4[1], f2 = r4[2], f3 = r4[3];
-                const int src_rr = row[RING_COL];
-                const int aq = f0.x, at = f0.y;
-                const int si = i - aq, sj = j - at;
-                if (si < 0 || sj < 0) continue;
-                const int flags = f1.x;
-                if (MASKED && blk && (flags & F_MATCH)) continue;
-                const int in = f0.z, out = f0.w;
-                const int adv = aq + at;
-                // source: START (0), this diagonal (silent), or the ring
-                // (slot - adv wrapped once, adv <= K < R: no division by
-                // the run-time R)
-                const int src_slot = !adv ? 0
-                    : slot >= adv ? slot - adv : slot - adv + R;
-                int32_t base;
-                if (flags & F_FROM_START) {
-                    if (!start_ok(p.start_scope, si, sj)) continue;
-                    base = 0;
-                } else {
-                    base = adv == 0 ? CV(in) : ld_score(src_slot, src_rr, si);
-                    if (base <= NEG) continue;
-                }
-                if ((flags & F_TO_END)
-                    && !end_ok(p.end_scope, i, j, qlen, tlen))
-                    continue;
-                auto src_lane = [&](int l) -> int32_t {
-                    if (flags & F_FROM_START) return 0;
-                    if (adv == 0) return CV(V_LN + in * L + l);
-                    const int lr = s_lane_row[in * L + l];
-                    return lr < 0 ? 0 : ld_lane(src_slot, lr, si);
-                };
-                int32_t calc = 0;
-                switch (f1.y) {                          // P_CALC
-                    case C_SCALAR: calc = sc[f1.z]; break;
-                    case C_QVEC: calc = qv[f1.z * W + i]; break;
-                    case C_TVEC: calc = tv[f1.z * WT + sj]; break;
-                    case C_FACTORED: {                   // C0..C4
-                        const int32_t ov = qv[f2.z * W + i];
-                        calc = ov != 0 ? ov
-                            : tab[f2.x + qv[f1.z * W + i] * f2.y
-                                  + tv[f1.w * WT + sj]];
-                        break;
-                    }
-                    case C_SPLIT:
-                        if (FULL)
-                            calc = split_codon(row, src_lane, qv, tv, W, WT,
-                                               i, sj);
-                        break;
-                    case C_NONE: default: break;
-                }
-                if (flags & (F_SH_Q | F_SH_T)) {
-                    const int32_t mn = sc[f3.y];         // P_SH_MIN
-                    const int32_t mx = sc[f3.z];         // P_SH_MAX
-                    bool bad = false;
-                    if (flags & F_SH_Q) {                // P_SH_LANE_Q
-                        const int32_t len = wadd(
-                            wsub(si + qstart, src_lane(f2.w)), 2);
-                        bad = bad || len < mn || len > mx;
-                    }
-                    if (flags & F_SH_T) {                // P_SH_LANE_T
-                        const int32_t len = wadd(
-                            wsub(sj + tstart, src_lane(f3.x)), 2);
-                        bad = bad || len < mn || len > mx;
-                    }
-                    if (bad) calc = NEG;
-                }
-                int32_t val = wadd(base, calc);
-                if ((flags & F_P_UNDER) && val < NEG) val = NEG;
-                if ((flags & F_P_OVER) && val > HIGH) val = HIGH;
-                if (val < NEG) val = NEG;
-                if (!(val > CV(out))) continue;    // first max wins
-                CV(out) = val;
-                if (MODE == MODE_PATH) CV(V_TB + out) = r + 1;
-                if (L > 0) {
-                    int32_t nl[FULL ? MAX_L : LEAN_L];
-                    for (int l = 0; l < L; ++l) nl[l] = src_lane(l);
-                    for (int k = 0; k < row[P_NSTART]; ++k) {
-                        const int src = row[P_ST_SRC0 + 2 * k];
-                        nl[row[P_ST_DES0 + 2 * k]] =
-                            src == ST_TARGET ? sj + tstart
-                            : !FULL || src == ST_QUERY ? si + qstart
-                            : tv[(src - ST_TVEC) * WT + sj];
-                    }
-                    if (MODE == MODE_REGION && (flags & F_FROM_START)) {
-                        nl[rs_q] = si;
-                        nl[rs_t] = sj;
-                    }
-                    for (int l = 0; l < L; ++l) CV(V_LN + out * L + l) = nl[l];
-                }
-            }
-            // this cell's column of the new diagonal: each ring row's
-            // variable, then in path mode the plan ids
-#pragma unroll 4
-            for (int k = 0; k < NRL; ++k) {
-                const int v = s_wvar[k];
-                if (v < 0) continue;
-                const int32_t x = s_cell[v * THREADS + tid];
-                if constexpr (SMEM_RING) SR(slot, k, i) = x;
-                else if (k < NR) ring[((size_t)slot * NR + k) * W + i] = x;
-                else lring[((size_t)slot * NL + k - NR) * W + i] = x;
-            }
-            if constexpr (MODE == MODE_PATH)
-                for (int s = 0; s < S; ++s)
-                    p.tb[(((size_t)b * (p.d_end - p.d_begin) + (d - d_first))
-                          * S + s) * W + i] = (uint8_t)CV(V_TB + s);
-            const int32_t es = CV(p.end_id);
-            if (es > NEG && better(es, j, i, best_s, best_j, best_i)) {
-                best_s = es;
-                best_j = j;
-                best_i = i;
-                if (MODE == MODE_REGION) {
-                    best_qs = CV(V_LN + p.end_id * L + rs_q);
-                    best_ts = CV(V_LN + p.end_id * L + rs_t);
-                }
-            }
+            run_cell<MASKED>(c, rg, i, j, slot, blk, tb_d, best);
         }
         cluster.sync();
     }
@@ -953,84 +856,45 @@ ring_kernel(const Params p) {
         for (int dd = d_stop - R > d_first ? d_stop - R : d_first;
              dd < d_stop; ++dd)
             ring_copy(dd, true);
-#undef SR
-#undef CV
 
-    // one lexicographic reduce over the block (the cell state is free now)
-    int32_t* r_s = s_cell;
-    int32_t* r_j = r_s + THREADS;
-    int32_t* r_i = r_j + THREADS;
-    int32_t* r_qs = r_i + THREADS;
-    int32_t* r_ts = r_qs + THREADS;
-    r_s[tid] = best_s;
-    r_j[tid] = best_j;
-    r_i[tid] = best_i;
-    r_qs[tid] = best_qs;
-    r_ts[tid] = best_ts;
-    __syncthreads();
-    for (int off = THREADS / 2; off > 0; off >>= 1) {
-        if (tid < off) {
-            const int o = tid + off;
-            if (better(r_s[o], r_j[o], r_i[o], r_s[tid], r_j[tid], r_i[tid])) {
-                r_s[tid] = r_s[o];
-                r_j[tid] = r_j[o];
-                r_i[tid] = r_i[o];
-                r_qs[tid] = r_qs[o];
-                r_ts[tid] = r_ts[o];
-            }
-        }
-        __syncthreads();
-    }
+    block_reduce<THREADS>(red, best);
     cluster.sync();     // every CTA's block result is in its smem
     if (rank == 0 && tid == 0) {
         for (int r = 1; r < C; ++r) {
-            const int32_t* o = cluster.map_shared_rank(r_s, r);
+            const int32_t* o = cluster.map_shared_rank(red, r);
             const int32_t* o_j = o + THREADS;
             const int32_t* o_i = o_j + THREADS;
-            if (better(o[0], o_j[0], o_i[0], r_s[0], r_j[0], r_i[0])) {
-                r_s[0] = o[0];
-                r_j[0] = o_j[0];
-                r_i[0] = o_i[0];
-                r_qs[0] = o_i[THREADS];
-                r_ts[0] = o_i[2 * THREADS];
+            if (better(o[0], o_j[0], o_i[0], red[0], red[THREADS],
+                       red[2 * THREADS])) {
+                red[0] = o[0];
+                red[THREADS] = o_j[0];
+                red[2 * THREADS] = o_i[0];
+                red[3 * THREADS] = o_i[THREADS];
+                red[4 * THREADS] = o_i[2 * THREADS];
             }
         }
-    }
-    if (rank == 0 && tid == 0) {
-        const bool found = r_s[0] > NEG;
-        p.out[0 * p.B + b] = found ? r_s[0] : NEG;
-        p.out[1 * p.B + b] = found ? r_i[0] : 0;
-        p.out[2 * p.B + b] = found ? r_j[0] : 0;
-        p.out[3 * p.B + b] = found ? r_qs[0] : 0;
-        p.out[4 * p.B + b] = found ? r_ts[0] : 0;
+        write_out<THREADS>(p, b, red);
     }
     // rank 0 has read every CTA's shared memory before any CTA exits
     cluster.sync();
 }
 
-
-// dynamic shared memory of a CTA (cuda_wavefront.smem_bytes)
-template <int MODE>
-size_t smem_bytes(const Params& p) {
-    const int lanes = p.L > 0 ? p.L : 1;
-    int cell_vars = p.S + p.S * p.L + (MODE == MODE_PATH ? p.S : 0);
-    if (cell_vars < 5) cell_vars = 5;   // the final reduce reuses it
-    return sizeof(int32_t)
-        * ((size_t)p.n_plan * PLAN_COLS + p.S + (size_t)p.S * lanes
-           + (size_t)cell_vars * THREADS);
+// ring_kernel's dynamic shared memory beside its ring and mask bytes
+// (cuda_wavefront.smem_bytes): the block reduce
+size_t smem_bytes() {
+    return sizeof(int32_t) * 5 * THREADS;
 }
 
 // ring_kernel's shared memory beyond smem_bytes
-// (cuda_wavefront.ring_smem_bytes): with smem_ring, R slots of the NR + NL
-// ring rows over the CTA's rows_per_thread * THREADS rows and the R - 1
-// halo rows below them; each row's mask byte (an int32) when masked; and
-// the cell variable of each ring row
-size_t ring_smem_bytes(const Params& p, int rows_per_thread, bool masked,
-                       bool smem_ring) {
+// (cuda_wavefront.ring_smem_bytes): each row's mask byte (an int32) when
+// masked, and with smem_ring R slots of the NR + NL ring rows over the
+// CTA's rows_per_thread * THREADS rows and the R - 1 halo rows below them
+size_t ring_smem_bytes(int R, int NR, int NL, int rows_per_thread,
+                       bool masked, bool smem_ring) {
     const size_t rb = (size_t)rows_per_thread * THREADS;
     return sizeof(int32_t)
-        * ((smem_ring ? (size_t)p.R * (p.NR + p.NL) * (rb + p.R - 1) : 0)
-           + (masked ? rb : 0) + p.NR + p.NL);
+        * ((masked ? rb : 0)
+           + (smem_ring ? (size_t)R * (NR + NL) * (rb + R - 1) : 0));
 }
 
 // K2's launch configuration, C CTAs per pair.  cluster > 0 asks for that
@@ -1042,11 +906,11 @@ size_t ring_smem_bytes(const Params& p, int rows_per_thread, bool masked,
 // shared memory with it.  Fills cfg (grid, cluster, shared memory) and
 // *resident, the clusters of C CTAs that fit on the card at once.  A
 // size that cannot launch is an error: there is no fallback.
-template <int MODE, bool FULL, bool MASKED, bool SMEM_RING>
+template <bool MASKED, bool SMEM_RING>
 cudaError_t stream_plan(Params& p, int cluster, int rows,
                         cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
                         int* resident) {
-    auto kern = ring_kernel<MODE, FULL, MASKED, SMEM_RING>;
+    auto kern = ring_kernel<MASKED, SMEM_RING>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
@@ -1063,8 +927,8 @@ cudaError_t stream_plan(Params& p, int cluster, int rows,
     // leaving cfg and p.k set for c
     auto admitted = [&](int c) -> int {
         p.k = (rows + c * THREADS - 1) / (c * THREADS);
-        const size_t smem = smem_bytes<MODE>(p)
-            + ring_smem_bytes(p, p.k, MASKED, SMEM_RING);
+        const size_t smem = smem_bytes()
+            + ring_smem_bytes(IP::R, IP::NR, IP::NL, p.k, MASKED, SMEM_RING);
         if (smem > MAX_SMEM
             || cudaFuncSetAttribute(
                    kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1095,68 +959,28 @@ cudaError_t stream_plan(Params& p, int cluster, int rows,
     return *resident < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
-template <int MODE, bool FULL, bool MASKED, bool SMEM_RING>
-cudaError_t launch_stream(Params p, int cluster, int rows, int* used,
-                          cudaStream_t stream) {
-    cudaLaunchAttribute attr[1];
-    cudaLaunchConfig_t cfg;
-    int resident = 0;
-    cudaError_t err = stream_plan<MODE, FULL, MASKED, SMEM_RING>(
-        p, cluster, rows, cfg, attr, &resident);
-    if (err != cudaSuccess) return err;
-    cfg.stream = stream;
-    *used = (int)attr[0].val.clusterDim.x;
-    err = cudaLaunchKernelEx(
-        &cfg, ring_kernel<MODE, FULL, MASKED, SMEM_RING>, p);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
-}
-
-// f(mode, full, masked, smem_ring) with each as a compile-time constant:
-// ring_kernel's 24 instantiations
+// f(masked, smem_ring) with both as compile-time constants: ring_kernel's
+// four instantiations
 template <typename F>
-cudaError_t with_cluster_body(int mode, bool full, bool masked,
-                              bool smem_ring, F&& f) {
-    auto ring = [&](auto m, auto fu, auto ma) {
-        return smem_ring ? f(m, fu, ma, std::true_type{})
-                         : f(m, fu, ma, std::false_type{});
+cudaError_t with_ring_kernel(bool masked, bool smem_ring, F&& f) {
+    auto ring = [&](auto ma) {
+        return smem_ring ? f(ma, std::true_type{})
+                         : f(ma, std::false_type{});
     };
-    auto mask = [&](auto m, auto fu) {
-        return masked ? ring(m, fu, std::true_type{})
-                      : ring(m, fu, std::false_type{});
-    };
-    auto split = [&](auto m) {
-        return full ? mask(m, std::true_type{}) : mask(m, std::false_type{});
-    };
-    switch (mode) {
-        case MODE_SCORE:
-            return split(std::integral_constant<int, MODE_SCORE>{});
-        case MODE_REGION:
-            return split(std::integral_constant<int, MODE_REGION>{});
-        case MODE_PATH:
-            return split(std::integral_constant<int, MODE_PATH>{});
-        default: return cudaErrorInvalidValue;
-    }
+    return masked ? ring(std::true_type{}) : ring(std::false_type{});
 }
 
-#endif  // COMPILED_PLAN
-
-}  // namespace
-
-#ifdef COMPILED_PLAN
-// K1/K4 on the compiled plan: the per-pair arguments only (the plan,
-// storage map and model numbers are WavePlan's).  mode must be the
-// plan's.  Returns the CUDA error of the launch.
-extern "C" int wavefront_plan_launch(
-    int mode, const int32_t* dims, const int32_t* qvecs, int nq,
-    const int32_t* tvecs, int nt, const int32_t* tables, int ntab,
-    const int32_t* scalars, int nsc, int32_t* ring, int32_t* lring,
-    uint8_t* tb, int32_t* out, int B, int Qp, int Tp, int start_scope,
-    int end_scope, const uint8_t* blocked, void* stream) {
-    if (B <= 0) return 0;
+// The per-pair arguments that both launchers take; mode must be the
+// plan's and tb given exactly in path mode (an error code otherwise)
+int pair_params(Params& p, int mode, const int32_t* dims,
+                const int32_t* qvecs, int nq, const int32_t* tvecs, int nt,
+                const int32_t* tables, int ntab, const int32_t* scalars,
+                int nsc, int32_t* ring, int32_t* lring, uint8_t* tb,
+                int32_t* out, int B, int Qp, int Tp, int start_scope,
+                int end_scope, const uint8_t* blocked) {
     if (mode != IP::MODE || (mode == MODE_PATH) != (tb != nullptr))
         return (int)cudaErrorInvalidValue;
-    Params p{};
+    p = Params{};
     p.dims = dims;
     p.qvecs = qvecs;
     p.tvecs = tvecs;
@@ -1176,6 +1000,25 @@ extern "C" int wavefront_plan_launch(
     p.Tp = Tp;
     p.start_scope = start_scope;
     p.end_scope = end_scope;
+    return 0;
+}
+
+}  // namespace
+
+// K1/K4: the per-pair arguments only (the plan, storage map and model
+// numbers are WavePlan's).  Returns the CUDA error of the launch.
+extern "C" int wavefront_plan_launch(
+    int mode, const int32_t* dims, const int32_t* qvecs, int nq,
+    const int32_t* tvecs, int nt, const int32_t* tables, int ntab,
+    const int32_t* scalars, int nsc, int32_t* ring, int32_t* lring,
+    uint8_t* tb, int32_t* out, int B, int Qp, int Tp, int start_scope,
+    int end_scope, const uint8_t* blocked, void* stream) {
+    if (B <= 0) return 0;
+    Params p;
+    const int bad = pair_params(p, mode, dims, qvecs, nq, tvecs, nt, tables,
+                                ntab, scalars, nsc, ring, lring, tb, out, B,
+                                Qp, Tp, start_scope, end_scope, blocked);
+    if (bad) return bad;
     cudaStream_t s = (cudaStream_t)stream;
     if (blocked != nullptr)
         plan_kernel<true><<<B, PT, 0, s>>>(p);
@@ -1186,75 +1029,71 @@ extern "C" int wavefront_plan_launch(
 
 // The threads per CTA of this plan's K1/K4 (plan_threads).
 extern "C" int wavefront_plan_threads() { return PT; }
-#else
-// K2: the plan, its storage map and the per-pair arguments (as the
-// plain version reads KernelInputs), then the cluster size asked for
-// (0: the rule of stream_plan), the batch's widest diagonal, the
-// diagonals [d_begin, d_end) to run (a later segment continues the ring
-// that the launch before it left), whether the carry ring lives in
-// shared memory (cuda_wavefront.ring_in_smem) and, if so, its RING_LOAD /
-// RING_STORE bits, and where to write the cluster size launched.  Score
-// and region modes are K2; path mode (tb holding d_end - d_begin
-// diagonals: a segment of the checkpointed traceback, or a masked path
-// DP over all of them) is K4 on the cluster.
+
+// K2: K1's per-pair arguments, then the cluster size asked for (0: the
+// rule of stream_plan), the batch's widest diagonal, the diagonals
+// [d_begin, d_end) to run (a later segment continues the ring that the
+// launch before it left), whether the carry ring lives in shared memory
+// (cuda_wavefront.ring_in_smem) and, if so, its RING_LOAD / RING_STORE
+// bits, and where to write the cluster size launched.  Score and region
+// modes are K2; path mode (tb holding d_end - d_begin diagonals: a
+// segment of the checkpointed traceback, or a masked path DP over all of
+// them) is K4 on the cluster.
 extern "C" int wavefront_stream_launch(
-    int mode, const int32_t* plan, const int32_t* ring_row,
-    const int32_t* lane_row, const int32_t* dims, const int32_t* qvecs,
-    int nq, const int32_t* tvecs, int nt, const int32_t* tables, int ntab,
+    int mode, const int32_t* dims, const int32_t* qvecs, int nq,
+    const int32_t* tvecs, int nt, const int32_t* tables, int ntab,
     const int32_t* scalars, int nsc, int32_t* ring, int32_t* lring,
-    uint8_t* tb, int32_t* out, int n_plan, int B, int Qp, int Tp, int S,
-    int L, int NR, int NL, int R, int n_shadow, int start_id, int end_id,
-    int start_scope, int end_scope, int split, const uint8_t* blocked,
-    int cluster, int rows, int d_begin, int d_end, int smem_ring,
-    int ring_io, int* cluster_used, void* stream) {
+    uint8_t* tb, int32_t* out, int B, int Qp, int Tp, int start_scope,
+    int end_scope, const uint8_t* blocked, int cluster, int rows,
+    int d_begin, int d_end, int smem_ring, int ring_io, int* cluster_used,
+    void* stream) {
     if (B <= 0) return 0;
-    if (L > MAX_L || d_begin < 0 || d_end < d_begin
-        || (mode == MODE_PATH) != (tb != nullptr))
-        return (int)cudaErrorInvalidValue;
-    Params p{plan, ring_row, lane_row, dims, qvecs, tvecs, tables, scalars,
-             ring, lring, tb, blocked, out, nq, nt, ntab, nsc, n_plan, B, Qp,
-             Tp, S, L, NR, NL, R, n_shadow, start_id, end_id, start_scope,
-             end_scope, d_begin, d_end, 0, ring_io};
+    if (d_begin < 0 || d_end < d_begin) return (int)cudaErrorInvalidValue;
+    Params p;
+    const int bad = pair_params(p, mode, dims, qvecs, nq, tvecs, nt, tables,
+                                ntab, scalars, nsc, ring, lring, tb, out, B,
+                                Qp, Tp, start_scope, end_scope, blocked);
+    if (bad) return bad;
+    p.d_begin = d_begin;
+    p.d_end = d_end;
+    p.ring_io = ring_io;
     cudaStream_t s = (cudaStream_t)stream;
-    return (int)with_cluster_body(
-        mode, split || L > LEAN_L, blocked != nullptr, smem_ring != 0,
-        [&](auto m, auto fu, auto ma, auto sr) {
-            return launch_stream<decltype(m)::value, decltype(fu)::value,
-                                 decltype(ma)::value, decltype(sr)::value>(
-                p, cluster, rows, cluster_used, s);
+    return (int)with_ring_kernel(
+        blocked != nullptr, smem_ring != 0, [&](auto ma, auto sr) {
+            constexpr bool M = decltype(ma)::value, SR = decltype(sr)::value;
+            cudaLaunchAttribute attr[1];
+            cudaLaunchConfig_t cfg;
+            int resident = 0;
+            cudaError_t err = stream_plan<M, SR>(p, cluster, rows, cfg, attr,
+                                                 &resident);
+            if (err != cudaSuccess) return err;
+            cfg.stream = s;
+            *cluster_used = (int)attr[0].val.clusterDim.x;
+            err = cudaLaunchKernelEx(&cfg, ring_kernel<M, SR>, p);
+            if (err != cudaSuccess) return err;
+            return cudaGetLastError();
         });
 }
 
-// The cluster size K2 would launch for a batch of this model and width
+// The cluster size K2 would launch for a batch of this plan and width
 // (its rule, or the size asked for), written to *cluster_used, and how
 // many such clusters are resident on the card at once, to *resident:
 // cuda_wavefront routes a masked batch to the cluster kernel when all of
 // its pairs' clusters are.
-extern "C" int wavefront_stream_capacity(
-    int mode, int split, int masked, int smem_ring, int n_plan, int S,
-    int L, int NR, int NL, int R, int rows, int cluster, int* cluster_used,
-    int* resident) {
-    if (L > MAX_L) return (int)cudaErrorInvalidValue;
+extern "C" int wavefront_stream_capacity(int masked, int smem_ring,
+                                         int rows, int cluster,
+                                         int* cluster_used, int* resident) {
     Params p{};
-    p.n_plan = n_plan;
     p.B = 1;
-    p.S = S;
-    p.L = L;
-    p.NR = NR;
-    p.NL = NL;
-    p.R = R;
-    return (int)with_cluster_body(
-        mode, split || L > LEAN_L, masked != 0, smem_ring != 0,
-        [&](auto m, auto fu, auto ma, auto sr) {
+    return (int)with_ring_kernel(
+        masked != 0, smem_ring != 0, [&](auto ma, auto sr) {
             cudaLaunchAttribute attr[1];
             cudaLaunchConfig_t cfg;
             const cudaError_t err =
-                stream_plan<decltype(m)::value, decltype(fu)::value,
-                            decltype(ma)::value, decltype(sr)::value>(
+                stream_plan<decltype(ma)::value, decltype(sr)::value>(
                     p, cluster, rows, cfg, attr, resident);
             if (err == cudaSuccess)
                 *cluster_used = (int)attr[0].val.clusterDim.x;
             return err;
         });
 }
-#endif  // COMPILED_PLAN

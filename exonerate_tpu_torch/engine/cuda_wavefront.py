@@ -60,11 +60,11 @@ launches by where their carry ring lives.
 
 ``to_kernel_inputs`` flattens ``_build_plan(model)`` into an int32 plan
 table and the per-pair arrays of ``prepare_inputs`` into four packed
-tensors.  K1/K4 run the table compiled in: ``plan_cuda.wave_header``
-writes it into a C++ header (``KernelInputs.header``) and
-``csrc/wavefront.cu`` is built once per header (``_cudabuild.load``),
-its cell body unrolled over the plan's rows.  The cluster kernel (K2,
-and K4 on a cluster) interprets the table at run time.  A wrapper given
+tensors.  Every kernel of ``csrc/wavefront.cu`` runs the table compiled
+in: ``plan_cuda.wave_header`` writes it into a C++ header
+(``KernelInputs.header``) and the source is built once per header
+(``_cudabuild.load``); K1/K4 and the cluster kernel (K2, and K4 on a
+cluster) share one cell body, unrolled over the plan's rows.  A wrapper given
 CPU tensors runs the plain PyTorch version (``wavefront.plain_wavefront``
 / ``plain_walkback``); given CUDA tensors it launches the kernel or
 raises: a failed build or launch raises, and no plan falls back to an
@@ -73,6 +73,7 @@ interpreter.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 from typing import Optional
 
@@ -98,13 +99,14 @@ from .wavefront import (C_FACTORED, C_QVEC, C_SCALAR, C_SPLIT, C_TVEC,
                         P_SH_MAX, P_SH_MIN, P_ST_DES0, P_ST_SRC0, PLAN_COLS,
                         ST_QUERY, ST_TARGET, ST_TVEC, KernelInputs)
 
-# maxima of csrc/wavefront.cu: lanes per state (MAX_L, compile-time), and
-# the states and plan rows whose per-thread cell state and plan table fit
-# the shared memory of a block (S * (2 + L) + plan, checked per launch)
+# maxima of csrc/wavefront.cu: lanes per state (MAX_L, checked against
+# the header at compile time), and the states and plan rows of a plan
+# whose unrolled cell keeps its state (S * (1 + L) scores and lanes, S plan
+# ids) in the registers of a thread
 MAX_S = 24
 MAX_L = 6
 MAX_PLAN = 64
-THREADS = 256
+THREADS = 256                 # the cluster kernel's threads per CTA
 SMEM_BYTES = 232_448          # shared memory a block may use on Hopper
 # K2's thread-block clusters: CTAs per pair at most (a non-portable size),
 # and the largest size every Hopper part admits
@@ -142,7 +144,9 @@ K2 = _LaunchCount()
 
 # the cluster kernel's launches (every mode) by the home of their carry
 # ring: shared memory (``ring_in_smem``), or global memory where the ring
-# is over the shared memory of a CTA
+# is over the shared memory of a CTA (the trace counters
+# ``ring.smem_launches`` and ``ring.global_launches`` count the same
+# routes, every launch of ``_launch``)
 RING_SMEM = _LaunchCount()
 RING_GLOBAL = _LaunchCount()
 
@@ -292,31 +296,26 @@ def unsupported_reason(model: Model, kinds: tuple = ()) -> Optional[str]:
                 f"region lanes > {MAX_L}")
     if len(plan_ts) > MAX_PLAN:
         return f"{len(plan_ts)} transitions > {MAX_PLAN}"
-    if smem_bytes(len(model.states), model.total_shadow_designations + 2,
-                  len(plan_ts), "path") > SMEM_BYTES:
-        return "per-thread cell state over the shared memory of a block"
     return None
 
 
-def smem_bytes(S: int, L: int, n_plan: int, mode: str) -> int:
-    """Shared memory of one K1/K4 block (``smem_bytes`` in
-    csrc/wavefront.cu): the plan table, the storage map and S scores, S*L
-    lanes (and S plan ids in path mode) per thread."""
-    cell_vars = max(S + S * L + (S if mode == "path" else 0), 5)
-    return 4 * (n_plan * PLAN_COLS + S + S * max(L, 1) + cell_vars * THREADS)
+def smem_bytes() -> int:
+    """Shared memory of one cluster-kernel CTA beside its ring and mask
+    bytes (``smem_bytes`` in csrc/wavefront.cu): the block reduce, five
+    int32 a thread.  The cell's state is registers."""
+    return 4 * 5 * THREADS
 
 
 def ring_smem_bytes(R: int, NR: int, NL: int, rows_per_thread: int,
                     masked: bool, smem_ring: bool) -> int:
     """The cluster kernel's shared memory beyond ``smem_bytes``
-    (``ring_smem_bytes`` in csrc/wavefront.cu): with ``smem_ring``, R
-    slots of the NR + NL ring rows over a CTA's ``rows_per_thread *
-    THREADS`` rows and the R - 1 halo rows below them; each row's mask
-    byte (an int32) when ``masked``; and the cell variable of each ring
-    row."""
+    (``ring_smem_bytes`` in csrc/wavefront.cu): each row's mask byte (an
+    int32) when ``masked``, and with ``smem_ring`` R slots of the NR + NL
+    ring rows over a CTA's ``rows_per_thread * THREADS`` rows and the R -
+    1 halo rows below them."""
     rb = rows_per_thread * THREADS
-    return 4 * ((R * (NR + NL) * (rb + R - 1) if smem_ring else 0)
-                + (rb if masked else 0) + NR + NL)
+    return 4 * ((rb if masked else 0)
+                + (R * (NR + NL) * (rb + R - 1) if smem_ring else 0))
 
 
 # ---------------------------------------------------------------------------
@@ -530,6 +529,18 @@ def to_kernel_inputs(model: Model, inputs, kinds: tuple,
         n_diag=int(dims[:, 2:].sum(axis=1).max()) + 1)
 
 
+def with_mode(ki: KernelInputs, mode: str) -> KernelInputs:
+    """The batch of ``ki`` in ``mode``, score or path: the two modes keep
+    the same lanes and carry rings (region mode adds two lanes), so the
+    checkpointed traceback's forward pass runs its path batch in score
+    mode on the same tensors, with that mode's compiled plan."""
+    if ki.mode not in ("score", "path") or mode not in ("score", "path"):
+        raise ValueError(f"with_mode: score and path modes share a plan's "
+                         f"storage, not {ki.mode} and {mode}")
+    return dataclasses.replace(ki, mode=mode, header=plan_cuda.wave_header_in(
+        ki.header, mode))
+
+
 def max_batch(model: Model, Qp: int, Tp: int, mode: str,
               masked: bool = False) -> int:
     """Largest batch whose carry rings (and, in path mode, traceback
@@ -653,14 +664,10 @@ def _check_inputs(ki: KernelInputs) -> None:
                          f"{(B, W, (WT + 7) // 8)} on {dev}, got "
                          f"{ki.blocked.dtype} {tuple(ki.blocked.shape)} on "
                          f"{ki.blocked.device}")
-    if ki.S > MAX_S or ki.L > MAX_L or ki.plan.shape[0] > MAX_PLAN \
-            or smem_bytes(ki.S, ki.L, ki.plan.shape[0],
-                          ki.mode) > SMEM_BYTES:
+    if ki.S > MAX_S or ki.L > MAX_L or ki.plan.shape[0] > MAX_PLAN:
         raise ValueError(f"model over the kernel maxima: S={ki.S} "
                          f"(max {MAX_S}), L={ki.L} (max {MAX_L}), plan "
-                         f"{ki.plan.shape[0]} (max {MAX_PLAN}), shared "
-                         f"memory {smem_bytes(ki.S, ki.L, ki.plan.shape[0], ki.mode)}"
-                         f" B (max {SMEM_BYTES})")
+                         f"{ki.plan.shape[0]} (max {MAX_PLAN})")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no wavefront engine for device {dev}")
 
@@ -688,25 +695,24 @@ _capacity_lock = threading.Lock()
 
 def _stream_capacity(ki: KernelInputs, smem_ring: bool,
                      cluster: int) -> tuple:
-    """(C, resident) from the cluster kernel's launcher: the cluster size
-    it takes for the batch of ``ki`` (``cluster``, or its rule for 0) and
-    how many clusters of that size are resident on the card at once
-    (``cudaOccupancyMaxActiveClusters`` at the launch's shared memory);
-    cached per instantiation and shape."""
+    """(C, resident) from the cluster kernel's launcher in the library of
+    ``ki.header``: the cluster size it takes for the batch of ``ki``
+    (``cluster``, or its rule for 0) and how many clusters of that size
+    are resident on the card at once (``cudaOccupancyMaxActiveClusters``
+    at the launch's shared memory); cached per plan, instantiation and
+    shape."""
     dev = ki.dims.device
-    key = (dev.index, {"score": 0, "region": 1, "path": 2}[ki.mode],
-           int(ki.split), int(ki.masked), int(smem_ring), ki.plan.shape[0],
-           ki.S, ki.L, max(ki.NR, 1), max(ki.NL, 1), ki.K + 1, _rows(ki),
+    key = (dev.index, ki.header, int(ki.masked), int(smem_ring), _rows(ki),
            cluster)
     with _capacity_lock:
         hit = _capacity.get(key)
     if hit is not None:
         return hit
     fn = _lib("wavefront", "wavefront_stream_capacity",
-              [_I] * 12 + [ctypes.POINTER(_I)] * 2)
+              [_I] * 4 + [ctypes.POINTER(_I)] * 2, ki.header)
     used, resident = _I(0), _I(0)
     with torch.cuda.device(dev):
-        rc = fn(*key[1:], ctypes.byref(used), ctypes.byref(resident))
+        rc = fn(*key[2:], ctypes.byref(used), ctypes.byref(resident))
     if rc != 0:
         raise RuntimeError(f"cluster kernel ({ki.mode}): no cluster size "
                            f"launches: CUDA error {rc}")
@@ -732,12 +738,13 @@ def ring_in_smem(ki: KernelInputs, cluster: int = 0) -> bool:
     ``ki`` at ``cluster`` CTAs per pair (0: ``cluster_size``): in shared
     memory (True; each CTA its rows' ring, the neighbour's rows read
     through distributed shared memory) when, at ceil(rows / (C *
-    THREADS)) rows per thread, a CTA's cell state and ring, its mask
-    bytes included, fit its shared memory; else in global memory.  A
+    THREADS)) rows per thread, a CTA's ring, its mask bytes and block
+    reduce included, fits its shared memory; else in global memory.  A
     capacity route, chosen per launch: est2genome fits in every mode at
-    Qp 2304; protein2genome and coding2genome in region mode do not."""
+    Qp 2304, protein2genome and coding2genome in score and path modes;
+    their region modes, and cdna2genome's every mode, do not."""
     k = max(-(-_rows(ki) // ((cluster or cluster_size(ki)) * THREADS)), 1)
-    return (smem_bytes(ki.S, ki.L, ki.plan.shape[0], ki.mode)
+    return (smem_bytes()
             + ring_smem_bytes(ki.K + 1, max(ki.NR, 1), max(ki.NL, 1), k,
                               True, True)) <= SMEM_BYTES
 
@@ -755,15 +762,14 @@ def cluster_capacity(ki: KernelInputs) -> tuple:
 
 def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
             ring=None):
-    """Launch csrc/wavefront.cu on the current stream of the tensors'
-    card: K1/K4 on the plan compiled in (``wavefront_plan_launch``, the
-    library of ``ki.header``), or the cluster kernel
-    (``wavefront_stream_launch``) when ``cluster`` is given, with that
-    many CTAs per pair (0: ``cluster_size``), over the diagonals ``span``
-    = (d0, d1) continuing the carry rings ``ring`` when given (and leaving
-    its last diagonals in them), the ring in shared memory where it fits
-    at that size (``ring_in_smem``).  Returns (out (5, B) int32, tb or
-    None, CTAs per pair)."""
+    """Launch csrc/wavefront.cu, the library of ``ki.header``, on the
+    current stream of the tensors' card: K1/K4 (``wavefront_plan_launch``),
+    or the cluster kernel (``wavefront_stream_launch``) when ``cluster``
+    is given, with that many CTAs per pair (0: ``cluster_size``), over the
+    diagonals ``span`` = (d0, d1) continuing the carry rings ``ring`` when
+    given (and leaving its last diagonals in them), the ring in shared
+    memory where it fits at that size (``ring_in_smem``).  Returns (out
+    (5, B) int32, tb or None, CTAs per pair)."""
     dev = ki.dims.device
     B, W, D, R = ki.batch, ki.Qp + 1, ki.Qp + ki.Tp + 1, ki.K + 1
     d0, d1 = span if span is not None else (0, D)
@@ -781,55 +787,40 @@ def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
                             device=dev))
     tb = (torch.empty((B, d1 - d0, ki.S, W), dtype=torch.uint8, device=dev)
           if ki.mode == "path" else None)
-    mode = {"score": 0, "region": 1, "path": 2}[ki.mode]
-    if cluster is None:
-        # K1/K4 on the plan compiled in: the per-pair arguments only
-        fn = _lib("wavefront", "wavefront_plan_launch",
-                  [_I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P]
-                  + [_I] * 5 + [_P, _P], ki.header)
-        with torch.cuda.device(dev):
-            rc = fn(mode, ki.dims.data_ptr(), ki.qvecs.data_ptr(),
-                    ki.qvecs.shape[1], ki.tvecs.data_ptr(),
-                    ki.tvecs.shape[1], ki.tables.data_ptr(),
-                    ki.tables.shape[1], ki.scalars.data_ptr(),
-                    ki.scalars.shape[1], ring[0].data_ptr(),
-                    ring[1].data_ptr(),
-                    tb.data_ptr() if tb is not None else None,
-                    out.data_ptr(), B, ki.Qp, ki.Tp, ki.start_scope,
-                    ki.end_scope,
-                    ki.blocked.data_ptr() if ki.masked else None,
-                    torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"wavefront kernel ({ki.mode}) launch "
-                               f"failed: CUDA error {rc}")
-        observe.add("plan.diagonals", swept)
-        return out, tb, 1
-    head = [mode, ki.plan.data_ptr(), ki.ring_row.data_ptr(),
-            ki.lane_row.data_ptr(), ki.dims.data_ptr(),
-            ki.qvecs.data_ptr(), ki.qvecs.shape[1],
-            ki.tvecs.data_ptr(), ki.tvecs.shape[1],
-            ki.tables.data_ptr(), ki.tables.shape[1],
-            ki.scalars.data_ptr(), ki.scalars.shape[1],
-            ring[0].data_ptr(), ring[1].data_ptr(),
-            tb.data_ptr() if tb is not None else None, out.data_ptr()]
-    tail = [ki.plan.shape[0], B, ki.Qp, ki.Tp, ki.S, ki.L,
-            max(ki.NR, 1), max(ki.NL, 1), R, ki.n_shadow, ki.start_id,
-            ki.end_id, ki.start_scope, ki.end_scope, int(ki.split),
+    # the per-pair arguments of both entry points (the plan is compiled in)
+    pair = [{"score": 0, "region": 1, "path": 2}[ki.mode], ki.dims.data_ptr(),
+            ki.qvecs.data_ptr(), ki.qvecs.shape[1], ki.tvecs.data_ptr(),
+            ki.tvecs.shape[1], ki.tables.data_ptr(), ki.tables.shape[1],
+            ki.scalars.data_ptr(), ki.scalars.shape[1], ring[0].data_ptr(),
+            ring[1].data_ptr(), tb.data_ptr() if tb is not None else None,
+            out.data_ptr(), B, ki.Qp, ki.Tp, ki.start_scope, ki.end_scope,
             ki.blocked.data_ptr() if ki.masked else None]
-    args = [_I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P,
-            _P, _P] + [_I] * 15 + [_P]
-    used = _I(1)
+    types = [_I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P] \
+        + [_I] * 5 + [_P]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        C = cluster or cluster_size(ki)
-        fn = _lib("wavefront", "wavefront_stream_launch",
-                  args + [_I] * 6 + [ctypes.POINTER(_I), _P])
-        rc = fn(*head, *tail, C, _rows(ki), d0, d1, int(ring_in_smem(ki, C)),
-                ring_io, ctypes.byref(used), stream)
+        if cluster is None:
+            fn = _lib("wavefront", "wavefront_plan_launch", types + [_P],
+                      ki.header)
+            rc = fn(*pair, stream)
+        else:
+            C = cluster or cluster_size(ki)
+            smem_ring = ring_in_smem(ki, C)
+            used = _I(1)
+            fn = _lib("wavefront", "wavefront_stream_launch",
+                      types + [_I] * 6 + [ctypes.POINTER(_I), _P],
+                      ki.header)
+            rc = fn(*pair, C, _rows(ki), d0, d1, int(smem_ring), ring_io,
+                    ctypes.byref(used), stream)
     if rc != 0:
-        raise RuntimeError(f"cluster kernel ({ki.mode}) launch failed: "
-                           f"CUDA error {rc}")
+        kernel = "wavefront kernel" if cluster is None else "cluster kernel"
+        raise RuntimeError(f"{kernel} ({ki.mode}) launch failed: CUDA error "
+                           f"{rc}")
+    if cluster is None:
+        observe.add("plan.diagonals", swept)
+        return out, tb, 1
     observe.add("ring.diagonals", swept)
+    observe.add("ring.smem_launches" if smem_ring else "ring.global_launches")
     return out, tb, used.value
 
 

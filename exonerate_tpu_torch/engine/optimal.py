@@ -31,7 +31,6 @@ same device): ``find_path`` while the traceback cube is within
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 from typing import Optional
 
@@ -224,7 +223,7 @@ def find_path_checkpointed(model: Model, region: Region, data, subopt=None,
     observe.count_engine(cuda_wavefront.engine_name(dev))
 
     # forward: the carry rings before each segment, and each one's best
-    fwd = dataclasses.replace(ki, mode="score")
+    fwd = cuda_wavefront.with_mode(ki, "score")
     ring = cuda_wavefront.ring_buffers(ki)
     saved, bests = [], []
     for span in spans:

@@ -9,11 +9,12 @@ and ``to_band_inputs`` build are written into a small C++ header that
 holds nothing but data, and the kernels are templates whose cell body
 reads each row through a ``constexpr`` accessor, unrolled in plan order:
 
-- ``wave_header``: K1/K4 (``csrc/wavefront.cu`` built with
-  ``COMPILED_PLAN``):
-  the plan table (``cuda_wavefront._build_plan`` / ``_storage_plan``,
-  ``PLAN_COLS`` columns a row), the ring and lane maps, S, L, NR, NL,
-  R = K + 1, the shadow count, the start and end states, the mode;
+- ``wave_header``: K1/K4 and the cluster kernel K2 (``csrc/wavefront.cu``,
+  built with ``COMPILED_PLAN``): the plan table
+  (``cuda_wavefront._build_plan`` / ``_storage_plan``, ``PLAN_COLS``
+  columns a row), the ring and lane maps, S, L, NR, NL, R = K + 1, the
+  shadow count, the start and end states, the mode, and ``FULL``: the
+  plan holds kernel K9's pieces or more than ``LEAN_L`` lanes;
 - ``band_header``: K6/K7/K8 (``csrc/sdp_band.cu``): both passes'
   candidate tables (advancing rows first), the span table's shape
   (``span_shape``), the ring maps, S, the shadow lanes, K, the start and
@@ -31,9 +32,12 @@ only from the port's own model code.
 """
 from __future__ import annotations
 
+import re
+
 import numpy as np
 
 from .sdp_device import SP_MAX_Q, SP_MAX_T
+from .wavefront import C_SPLIT, P_CALC, P_ST_SRC0, ST_TVEC
 
 _HEAD = ("// A model's plan, compiled in (exonerate_tpu_torch/engine/"
          "plan_cuda.py).\n// Data only: the kernels read it through "
@@ -71,20 +75,49 @@ def _struct(name: str, comment: str, ints: dict, tables: dict) -> str:
     return f"{_HEAD}// {comment}\nstruct {name} {{\n{body}}};\n"
 
 
+# lanes per state of a plan that is not FULL (``LEAN_L`` in
+# csrc/wavefront.cu)
+LEAN_L = 4
+
+
+def plan_is_full(plan: np.ndarray, L: int) -> bool:
+    """Whether a wavefront plan table holds kernel K9's pieces (a
+    ``C_SPLIT`` row, or a start lane read from a target vector) or more
+    than ``LEAN_L`` lanes per state."""
+    plan = np.asarray(plan)
+    return bool(L > LEAN_L or (plan[:, P_CALC] == C_SPLIT).any()
+                or (plan[:, P_ST_SRC0::2] >= ST_TVEC).any())
+
+
 def wave_header(model_name: str, mode: str, plan: np.ndarray,
                 ring_row: np.ndarray, lane_row: np.ndarray, *, S: int,
                 L: int, NR: int, NL: int, K: int, n_shadow: int,
                 start_id: int, end_id: int) -> str:
-    """K1/K4's ``struct WavePlan`` for one model and mode: the numbers
-    ``to_kernel_inputs`` passes the launcher (NR, NL at least 1, as the
-    carry rings are allocated)."""
+    """The wavefront kernels' ``struct WavePlan`` for one model and
+    mode: the numbers ``to_kernel_inputs`` keeps beside the plan (NR, NL
+    at least 1, as the carry rings are allocated) and ``FULL``
+    (``plan_is_full``), which the kernel checks against the table."""
     modes = {"score": 0, "region": 1, "path": 2}
     return _struct(
         "WavePlan", f"{model_name}, {mode} mode",
         dict(MODE=modes[mode], S=S, L=L, NR=max(NR, 1), NL=max(NL, 1),
              R=K + 1, N_PLAN=len(plan), N_SHADOW=n_shadow,
-             START_ID=start_id, END_ID=end_id),
+             START_ID=start_id, END_ID=end_id,
+             FULL=int(plan_is_full(plan, L))),
         dict(plan=plan, ring_row=ring_row, lane_row=lane_row))
+
+
+def wave_header_in(header: str, mode: str) -> str:
+    """A ``wave_header`` for another mode of the same plan table and
+    storage: its ``MODE`` and the comment that names the mode.  Only score
+    and path modes share a plan's storage (region mode adds two lanes);
+    the caller checks that."""
+    modes = {"score": 0, "region": 1, "path": 2}
+    header = re.sub(r", (score|region|path) mode\n", f", {mode} mode\n",
+                    header, count=1)
+    return re.sub(r"static constexpr int MODE = \d+;",
+                  f"static constexpr int MODE = {modes[mode]};", header,
+                  count=1)
 
 
 def span_shape(spans: np.ndarray) -> np.ndarray:

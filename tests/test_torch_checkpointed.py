@@ -73,8 +73,8 @@ def test_segments_continue_the_carry_ring(name):
     saved, bests = [], []
     for span in spans:
         saved.append(tuple(t.clone() for t in ring))
-        out, tb = cw.wavefront_segment(dataclasses.replace(ki, mode="score"),
-                                       ring, span)
+        out, tb = cw.wavefront_segment(cw.with_mode(ki, "score"), ring,
+                                       span)
         assert tb is None
         bests.append(out[:3, 0].tolist())
     best = [twf.NEG, 0, 0]

@@ -1,10 +1,11 @@
 """The cluster wavefront's ring route and the masked route to it (CPU).
 
 The cluster kernel of ``csrc/wavefront.cu`` (kernel K2, and K4 on a
-cluster) keeps a batch's carry ring in shared memory where it fits
-beside the cell state (``cuda_wavefront.ring_in_smem``), else in global
-memory; a masked chunk (kernel K3) runs on the cluster when its B
-clusters are all resident on the card at once
+cluster) keeps a batch's carry ring in shared memory where it fits a
+CTA's shared memory beside its mask bytes and block reduce
+(``cuda_wavefront.ring_in_smem``), else in global memory; a masked
+chunk (kernel K3) runs on the cluster when its B clusters are all
+resident on the card at once
 (``cuda_wavefront.on_cluster`` / ``masked_on_cluster``).  These tests
 run on the CPU:
 
@@ -79,14 +80,15 @@ def _ki_at(name, mode, rows):
 def test_ring_fit_rule_at_calms_width(name, mode, fits):
     """est2genome keeps its ring in shared memory in every mode at calm's
     width; protein2genome and coding2genome region do not (their rings
-    are over a CTA's shared memory) and take the global ring.  The rule
-    is the byte count at the cluster size the launch runs (on the CPU
-    ceil(rows / THREADS) up to MAX_CLUSTER: one row per thread here),
-    asked through the function the launches call."""
+    alone are over a CTA's shared memory, the cell state being
+    registers) and take the global ring.  The rule is the byte count at
+    the cluster size the launch runs (on the CPU ceil(rows / THREADS) up
+    to MAX_CLUSTER: one row per thread here), asked through the function
+    the launches call."""
     ki = _ki_at(name, mode, CALM_ROWS)
     assert cw.cluster_size(ki) == 9
     assert cw.ring_in_smem(ki) is fits
-    total = (cw.smem_bytes(ki.S, ki.L, ki.plan.shape[0], mode)
+    total = (cw.smem_bytes()
              + cw.ring_smem_bytes(ki.K + 1, max(ki.NR, 1), max(ki.NL, 1), 1,
                                   True, True))
     assert (total <= cw.SMEM_BYTES) is fits
@@ -116,33 +118,27 @@ def _extract(src: str, head: str) -> str:
 
 
 def _compiled_formulas(tmp_path):
-    """csrc/wavefront.cu's constants, Params, smem_bytes and
-    ring_smem_bytes, compiled by the host's C++ compiler into a program
-    that reads ``mode S L n_plan R NR NL k masked smem_ring`` lines and
-    prints both byte counts."""
+    """csrc/wavefront.cu's constants, smem_bytes and ring_smem_bytes,
+    compiled by the host's C++ compiler into a program that reads ``mode
+    S L n_plan R NR NL k masked smem_ring`` lines and prints both byte
+    counts (the plan's S, L and rows, and the mode, are compiled into the
+    kernel and no longer size its shared memory)."""
     with open(SRC) as fh:
         src = fh.read()
     consts = "\n".join(re.findall(
         r"^constexpr (?:int|size_t|int32_t) \w+ = [^;]+;", src, re.M))
-    params = _extract(src, "struct Params {") + ";"
-    smem = _extract(src, "template <int MODE>\nsize_t smem_bytes(")
+    smem = _extract(src, "size_t smem_bytes(")
     ring = _extract(src, "size_t ring_smem_bytes(")
     prog = tmp_path / "smem.cpp"
     prog.write_text(
         "#include <cstdint>\n#include <cstddef>\n#include <cstdio>\n"
-        f"{consts}\n{params}\n{smem}\n{ring}\n"
+        f"{consts}\n{smem}\n{ring}\n"
         "int main() {\n"
         "  int mode, S, L, n, R, NR, NL, k, masked, smem_ring;\n"
         "  while (scanf(\"%d %d %d %d %d %d %d %d %d %d\", &mode, &S, &L,"
         " &n, &R, &NR, &NL, &k, &masked, &smem_ring) == 10) {\n"
-        "    Params p{};\n"
-        "    p.S = S; p.L = L; p.n_plan = n; p.R = R; p.NR = NR;"
-        " p.NL = NL;\n"
-        "    size_t a = mode == MODE_PATH ? smem_bytes<MODE_PATH>(p)\n"
-        "        : mode == MODE_REGION ? smem_bytes<MODE_REGION>(p)\n"
-        "        : smem_bytes<MODE_SCORE>(p);\n"
-        "    printf(\"%zu %zu\\n\", a,"
-        " ring_smem_bytes(p, k, masked, smem_ring));\n"
+        "    printf(\"%zu %zu\\n\", smem_bytes(),"
+        " ring_smem_bytes(R, NR, NL, k, masked, smem_ring));\n"
         "  }\n}\n")
     exe = tmp_path / "smem"
     subprocess.run(["c++", "-std=c++17", "-O1", "-o", str(exe), str(prog)],
@@ -185,7 +181,7 @@ def test_smem_mirror_equals_the_kernels_formulas(tmp_path):
     assert len(cases) == 99
     for case, line in zip(cases, got):
         mode, S, L, n, R, NR, NL, k, masked, smem_ring = case
-        want = (cw.smem_bytes(S, L, n, mode),
+        want = (cw.smem_bytes(),
                 cw.ring_smem_bytes(R, NR, NL, k, bool(masked),
                                    bool(smem_ring)))
         assert tuple(map(int, line.split())) == want, case

@@ -9,7 +9,6 @@ package's planners are imported inside the tests that compare with
 them, so that on a machine without JAX the card tests run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_cuda_wavefront.py``.
 """
-import dataclasses
 import os
 import re
 
@@ -530,6 +529,69 @@ def test_k2_equals_plain_and_k1_at_every_cluster_size(masked, monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mtname", [None, "PROTEIN2GENOME"])
+def test_compiled_ring_kernel_equals_plan_kernel_and_plain(mtname,
+                                                          monkeypatch):
+    """The cluster kernel on the plan compiled in, byte-equal to K1/K4
+    (``plan_kernel``) and to the plain version: out (5, B) and, in path
+    mode, the planes of every valid cell; score, region and path modes,
+    masked and mask-free; the ring in shared memory (where it fits) and
+    in global memory, at the launcher's cluster size and at two CTAs a
+    pair.  est2genome at 2176 rows (nine CTAs a pair, each halo crossing
+    a CTA's edge), protein2genome on its split pairs (a FULL plan, K9).
+    Then one segment of the checkpointed traceback: the forward pass on
+    the cluster up to the middle diagonal leaves the rings, and a span
+    from there in path mode (loading and storing the rings: ring_io)
+    equals plan_kernel's planes over the span and the plain segment."""
+    dev = _need_card()
+    fits = cw.ring_in_smem
+    for mode in ("score", "region", "path"):
+        if mtname is None:
+            kis = [_k2_inputs(mode, dev, masked) for masked in (False, True)]
+        else:
+            kis = list(_masked_inputs(mode, dev, mtname))
+        assert [ki.masked for ki in kis] == (
+            [False, True] if mtname is None else [True, False])
+        for ki in kis:
+            assert ki.split is (mtname is not None)
+            p_out, p_tb = twf.plain_wavefront(ki)
+            k_out, k_tb, _ = cw._launch(ki)
+            torch.cuda.synchronize()
+            assert torch.equal(k_out, p_out), (mode, ki.masked)
+            valid = _tb_valid(ki, k_tb) if mode == "path" else None
+            if mode == "path":
+                assert torch.equal(k_tb[valid], p_tb.to(dev)[valid])
+            for cluster in (0, 2):
+                # the shared ring where it fits at this cluster size (at
+                # two CTAs est2genome region's five rows a thread do not)
+                for smem in ((True, False) if fits(ki, cluster)
+                             else (False,)):
+                    monkeypatch.setattr(cw, "ring_in_smem",
+                                        lambda k, c=0, s=smem: s)
+                    out, tb, _ = cw._launch(ki, cluster)
+                    torch.cuda.synchronize()
+                    where = (mode, ki.masked, smem, cluster)
+                    assert torch.equal(out, k_out), where
+                    if mode == "path":
+                        assert torch.equal(tb[valid], k_tb[valid]), where
+                    monkeypatch.setattr(cw, "ring_in_smem", fits)
+            if mode != "path" or not ki.masked:
+                continue
+            D = ki.Qp + ki.Tp + 1
+            span = (D // 2, D // 2 + 300)
+            ring = cw.ring_buffers(ki)
+            cw.wavefront_segment(cw.with_mode(ki, "score"), ring,
+                                 (0, span[0]))
+            p_ring = tuple(t.clone() for t in ring)
+            _, tb = cw.wavefront_segment(ki, ring, span)
+            _, seg_tb = twf.plain_wavefront(ki, span, p_ring)
+            torch.cuda.synchronize()
+            v = valid[:, span[0]:span[1]]
+            assert torch.equal(tb[v], k_tb[:, span[0]:span[1]][v])
+            assert torch.equal(tb[v], seg_tb.to(dev)[v])
+
+
+@pytest.mark.gpu
 def test_masked_chunks_run_on_the_cluster(monkeypatch):
     """A masked B=1 est2genome chunk, whose cluster fits the card, runs
     on the cluster kernel with its ring in shared memory, in region mode
@@ -685,7 +747,7 @@ def test_cluster_segments_equal_plain(kind):
     D = ki.Qp + ki.Tp + 1
     cut = [0, 5, D // 2, D // 2 + 1, D]
     spans = list(zip(cut, cut[1:]))
-    fwd = dataclasses.replace(ki, mode="score")
+    fwd = cw.with_mode(ki, "score")
     ring, p_ring = cw.ring_buffers(ki), cw.ring_buffers(ki)
     saved = []
     n2, n4 = cw.K2.launches, cw.wavefront_path.launches

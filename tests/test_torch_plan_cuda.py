@@ -155,6 +155,54 @@ def test_wave_headers_hold_the_launchers_tables(tmp_path):
         assert line == want, name
 
 
+def test_wave_headers_carry_the_cluster_instantiation(tmp_path):
+    """What the cluster kernel (``ring_kernel``) takes from a plan's
+    header, not from its launcher: the mode, S, L, NR, NL, R and FULL,
+    true where the plan holds kernel K9's pieces (a split-codon row or a
+    start lane read from a target vector) or more than LEAN_L lanes:
+    protein2genome's split-codon plan in every mode, est2genome in
+    none."""
+    from exonerate_tpu_torch.engine import plan_cuda
+    kis = [(n, ki) for n, ki in _wave_inputs()
+           if n.split()[0] in ("EST2GENOME", "PROTEIN2GENOME")]
+    assert len(kis) == 6
+    fields = ("MODE", "S", "L", "NR", "NL", "R", "FULL")
+
+    def body(n):
+        fmt = " ".join("%d" for _ in fields)
+        args = ", ".join(f"P::{k}" for k in fields)
+        return ("template <class P> void dump() {\n"
+                f"  printf(\"{fmt}\\n\", {args});\n}}\nint main() {{\n"
+                + "".join(f"  dump<h{k}::WavePlan>();\n" for k in range(n))
+                + "}\n")
+
+    got = _dump(tmp_path, [ki.header for _, ki in kis], body)
+    for (name, ki), line in zip(kis, got):
+        full = name.startswith("PROTEIN2GENOME")
+        assert ki.split is full, name
+        assert full == (ki.split or ki.L > plan_cuda.LEAN_L), name
+        assert line == [MODES.index(ki.mode), ki.S, ki.L, max(ki.NR, 1),
+                        max(ki.NL, 1), ki.K + 1, int(full)], name
+
+
+def test_with_mode_gives_the_other_modes_header():
+    """The checkpointed traceback's forward pass runs its path batch in
+    score mode (``cuda_wavefront.with_mode``): the same tensors with the
+    header ``to_kernel_inputs`` builds for score mode, and back; region
+    mode, whose storage differs, is refused."""
+    kis = dict(_wave_inputs())
+    for name in ("EST2GENOME", "PROTEIN2GENOME"):
+        score, path = kis[f"{name} score"], kis[f"{name} path"]
+        fwd = cw.with_mode(path, "score")
+        assert fwd.mode == "score" and fwd.header == score.header
+        assert fwd.dims is path.dims and fwd.plan is path.plan
+        assert cw.with_mode(fwd, "path").header == path.header
+        with pytest.raises(ValueError, match="score and path"):
+            cw.with_mode(path, "region")
+        with pytest.raises(ValueError, match="score and path"):
+            cw.with_mode(kis[f"{name} region"], "score")
+
+
 _BAND_INTS = ("S", "N_SH", "K", "N_REV", "N_ADV_REV", "N_FWD", "N_ADV_FWD",
               "N_SPANS", "NR_REV", "NR_FWD", "START_ID", "END_ID",
               "ROW_ABS_T", "ROW_EDGE", "ROW_SEG", "TRACK_SID")

@@ -16,6 +16,10 @@ warms up with one invocation of ``cli.exonerate.main``, then reports:
   to its last synchronise; for each traced one the spans recorded, the
   counter adds made, the span count and self seconds by name, and the
   counters;
+- ``ring_launches``: the cluster kernel's launches of the traced
+  invocations by the home of their carry ring (the counters
+  ``ring.smem_launches`` and ``ring.global_launches``), also printed on
+  a line of their own;
 - ``clock``: one more invocation under a profiler of CPU and CUDA
   activity on every thread: each span's ``perf_counter`` start against
   its ``record_function`` range's start in the profiler's events mapped
@@ -192,9 +196,15 @@ def main(argv=None) -> int:
                            counters=got.counters)
             rows.append(row)
         clock = clock_check(observe, invoke)
+    ring = {route: sum(r.get("counters", {}).get(f"ring.{route}_launches",
+                                                  0) for r in rows)
+            for route in ("smem", "global")}
+    print(f"cluster kernel launches of the traced invocations: "
+          f"{ring['smem']} with the ring in shared memory, {ring['global']} "
+          f"in global memory", file=sys.stderr)
     result = {"workload": args.workload, "seed": args.seed,
               "card": torch.cuda.get_device_name(0), "span_us": costs,
-              "invocations": rows, "clock": clock}
+              "invocations": rows, "ring_launches": ring, "clock": clock}
     line = json.dumps(result)
     print(line)
     if args.out:

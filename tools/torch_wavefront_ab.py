@@ -7,8 +7,9 @@ one card, so that two versions are compared inside one run.
 Each argument is the root of a checkout holding ``exonerate_tpu_torch``
 (and, for a checkout whose port still took its host layer from it,
 ``exonerate_tpu``).  Each runs in a process of its own, in the order
-given: it builds ``csrc/wavefront.cu`` there with that checkout's build
-helper (a fresh build's ptxas lines go into its JSON line), then times
+given: it builds ``csrc/wavefront.cu`` on est2genome's region plan there
+with that checkout's build helper (a fresh build's ptxas lines go into
+its JSON line), then times
 with CUDA events, after one warm-up launch each, K1 in score and region
 mode at est2genome calm x calm (2175 x 2175, B=64) and K4 in path mode
 at B=1, ``--reps`` launches each, and checks every score against calm's
@@ -48,7 +49,6 @@ def _one(root: str, reps: int) -> dict:
     AlignData = imp(host + ".model.data").AlignData
     est2genome_create = imp(host + ".model.est2genome").est2genome_create
     iter_fasta = imp(host + ".seqio").iter_fasta
-    built = _cudabuild.build("wavefront")
     dev = torch.device("cuda", 0)
     calm = next(iter(iter_fasta(CALM)))
     calm.strand = "+"
@@ -57,6 +57,10 @@ def _one(root: str, reps: int) -> dict:
     inputs, kinds = wf.prepare_inputs(
         model, Region(0, 0, n, n), AlignData(calm, calm),
         pad_to=(wf._bucket(n), wf._bucket(n)), for_pallas=True)
+    # the region plan's library, built here so that its ptxas lines are
+    # this run's (the other modes' build at their first launch)
+    built = _cudabuild.build("wavefront", cw.to_kernel_inputs(
+        model, inputs, kinds, torch.device("cpu"), "region").header)
 
     def timed(fn):
         out = fn()
