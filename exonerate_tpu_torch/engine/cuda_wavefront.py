@@ -818,6 +818,8 @@ def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
                            f"{rc}")
     if cluster is None:
         observe.add("plan.diagonals", swept)
+        observe.add("plan.path_diagonals" if ki.mode == "path"
+                    else "plan.scan_diagonals", swept)
         return out, tb, 1
     observe.add("ring.diagonals", swept)
     observe.add("ring.smem_launches" if smem_ring else "ring.global_launches")
