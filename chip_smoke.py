@@ -139,10 +139,11 @@ second of the script at which it starts:
       mutated, GT..AG gaps of 1200 bp, so each copy spans 8,425 bp and
       its box holds cells of the other's path).  The whole pair (65 M
       cells) and each copy's box (over 16 M) take the kernel route; every
-      masked DP is B=1, whose cluster fits the card, so K3 runs inside the
-      cluster kernel with its ring in shared memory (region scans as K2,
-      path DPs as K4 on a cluster), the mask-free ones on K1 / K4, each
-      counted by its route; both copies spliced.
+      DP is B=1, whose cluster of two CTAs or more fits the card, so each
+      runs on the cluster kernel with its ring in shared memory (region
+      scans as K2, path DPs as K4 on a cluster), masked or not (K3 inside
+      the masked ones), a DP of one CTA a pair on K1 / K4, each counted by
+      its route; both copies spliced.
       The native dense DP route of the same CLI (cut-overs raised) runs
       in a worker process on a host core beside the card's phases, and
       its bytes are compared in phase 14.
@@ -153,7 +154,7 @@ second of the script at which it starts:
    b. The pooled locus heuristic (EXONERATE_TPU_HEURISTIC=locus) on
       phase 4's 16 cDNAs x 1 Mb genome with --bestn 10: at least one
       masked generation, K3 launched, K2 launched with its ring in shared
-      memory (the masked batches whose clusters fit the card), 16/16
+      memory (the batches whose clusters fit the card), 16/16
       queries spliced, its time beside phase 4's SDP route.  The first
       masked region batch, the first masked region batch of two or more
       pairs on the cluster kernel, and the first masked path batch are
@@ -164,7 +165,8 @@ second of the script at which it starts:
    c. K5, the sharded locus prescan: 6b's first-generation region batch
       through cuda_wavefront.find_batched_sharded over [cuda:0, cuda:0]
       (the distinct cards where there are two or more), equal to that
-      generation's results on K1 (find_batched with no K2 launch); the
+      generation's results on K1 (find_batched(stream=False), which must
+      equal the results of its route, K2 where its clusters fit); the
       widest shard of its chunk with the most cells launched again,
       timed, and held to the plain version in a 6b worker process.
 7. K1 vs plain: est2genome, calm (tests/golden/data/all4.fa record 1)
@@ -201,7 +203,7 @@ second of the script at which it starts:
       whole-target region scan (Qp 2304 x Tp 1,356,288, B=1, 26 MB by the
       JAX package's streaming test) must run on K2 with C > 1, masked
       after the first of its strand (K3 inside K2); the copies' boxes on
-      K1 and K4 when mask-free, on the cluster when masked; two spliced
+      the cluster too (K2, K4 on a cluster), none on K1; two spliced
       vulgar lines; no fallback.  Per scan: K2 ms
       (CUDA events), C, the footprint, the host seconds of input and mask
       prep, and a host-clock breakdown.  The first scan's inputs go to K1
@@ -2268,8 +2270,7 @@ def main() -> int:
         cw.to_kernel_inputs = real_tki
         optimal.find_path = real_fp
     we_launches = read_counts("est2genome -E yes Waterman-Eggert",
-                              ("K1", "K2", "K4", "walkback", "K3",
-                               "ring smem"))
+                              ("K2", "K4", "walkback", "K3", "ring smem"))
     we_eng = dict(observe.engine_counts)
     we_shapes = [(k.mode, k.batch, k.Qp, k.Tp, "masked" if k.masked
                   else "mask-free") for k in we_kis]
@@ -2286,24 +2287,27 @@ def main() -> int:
     if len(ops_we) != 2 or any(o.count("I") != 2 for o in ops_we):
         raise RuntimeError(f"est2genome -E yes: want both copies with two "
                            f"introns each, got {ops_we}")
-    # every masked DP of the run is B=1, whose cluster fits the card: K3
-    # runs inside the cluster kernel with its ring in shared memory, the
-    # region scans as K2 and the path DPs as K4 on a cluster; the
-    # mask-free ones stay on K1 / K4
+    # every DP of the run is B=1, whose cluster fits the card: those of
+    # two CTAs a pair or more run on the cluster kernel with its ring in
+    # shared memory, the region scans as K2 (K3 inside the masked ones)
+    # and the path DPs as K4 on a cluster; any of one CTA a pair on K1/K4
+    wide = [cw.cluster_capacity(k)[0] >= cw.MIN_ROUTED_CLUSTER
+            for k in we_kis]
     n_masked = sum(k.masked for k in we_kis)
     n_masked_region = sum(k.masked and k.mode == "region" for k in we_kis)
-    n_free_region = sum(not k.masked and k.mode == "region" for k in we_kis)
+    n_k2 = sum(w and k.mode == "region" for k, w in zip(we_kis, wide))
     if not n_masked_region \
             or not any(k.masked and k.mode == "path" for k in we_kis) \
             or we_launches["K3"] != n_masked \
-            or we_launches.get("K2", 0) != n_masked_region \
-            or we_launches.get("K1", 0) != n_free_region \
-            or we_launches.get("ring smem", 0) != n_masked \
+            or we_launches.get("K2", 0) != n_k2 \
+            or we_launches.get("K1", 0) != sum(
+                k.mode == "region" for k in we_kis) - n_k2 \
+            or we_launches.get("ring smem", 0) != sum(wide) \
             or we_launches.get("ring global", 0):
-        raise RuntimeError(f"est2genome -E yes: every masked DP must run "
-                           f"on the cluster kernel with its ring in shared "
-                           f"memory, the mask-free ones on K1/K4 "
-                           f"({we_shapes}; launches {we_launches})")
+        raise RuntimeError(f"est2genome -E yes: every DP of two CTAs a pair "
+                           f"or more must run on the cluster kernel with "
+                           f"its ring in shared memory, the others on "
+                           f"K1/K4 ({we_shapes}; launches {we_launches})")
     # the widest masked region scan (kernel K3's row, timed here on the
     # cluster, and once on K1, the route it took until now) and the first
     # masked path DP are held to their plain versions in worker processes
@@ -2392,7 +2396,7 @@ def main() -> int:
         cw._launch = lo_real_launch
     # the masked generations' batches whose clusters fit the card run on
     # the cluster kernel, their rings in shared memory
-    lo_launches = read_counts("locus pool", ("K1", "K4", "walkback", "K3",
+    lo_launches = read_counts("locus pool", ("K4", "walkback", "K3",
                                              "K2", "ring smem"))
     lo_eng = dict(observe.engine_counts)
     spliced_lo = {v[1] for v in (ln.split() for ln in out_lo.splitlines()
@@ -2467,14 +2471,23 @@ def main() -> int:
 
     # c. K5, the sharded locus prescan: 6b's first generation through
     # find_batched_sharded over [cuda:0, cuda:0] (or the distinct cards),
-    # equal to that generation's results on K1 on one device (mask-free,
-    # it ran no K2); the shards of its chunk with the most cells launched again,
-    # timed, and held to the plain version in worker processes
+    # equal to that generation's results on K1 on one device (forced:
+    # the route gives its chunks whose clusters fit the card to K2, and
+    # those results must equal K1's too); the shards of its chunk with
+    # the most cells launched again, timed, and held to the plain version
+    # in worker processes
     _mark(t_start, "6c, K5 on the locus pool's first generation")
-    lo_model, lo_jobs, want5, gen0_k2 = lo_gen0
-    if gen0_k2:
-        raise RuntimeError("the locus pool's first generation ran K2: it "
-                           "is no find_batched(stream=False) reference")
+    lo_model, lo_jobs, gen0_res, gen0_k2 = lo_gen0
+
+    def _dp(r):
+        return (r.score, r.query_start, r.target_start, r.query_end,
+                r.target_end)
+
+    want5 = cw.find_batched(lo_model, lo_jobs, "region", device=dev,
+                            stream=False)
+    if [_dp(r) for r in gen0_res] != [_dp(r) for r in want5]:
+        raise RuntimeError(f"the locus pool's first generation ({gen0_k2} "
+                           f"K2 launches) != find_batched(stream=False)")
     k5_devs = ([torch.device("cuda", k)
                 for k in range(torch.cuda.device_count())]
                if torch.cuda.device_count() >= 2 else [dev, dev])
@@ -2493,10 +2506,6 @@ def main() -> int:
         cw.to_kernel_inputs = real_tki
     k5_launches = read_counts("K5 on the locus pool's first generation",
                               ("K5", "K1"))
-
-    def _dp(r):
-        return (r.score, r.query_start, r.target_start, r.query_end,
-                r.target_end)
 
     if [_dp(r) for r in got5] != [_dp(r) for r in want5]:
         raise RuntimeError("K5 != find_batched(stream=False) on the locus "
@@ -2858,7 +2867,7 @@ def main() -> int:
         wf.blocked_plane = real_plane
         cw.to_kernel_inputs = real_tki
     ch_launches = read_counts("chromosome-scale -E yes",
-                              ("K2", "K1", "K4", "walkback", "K3"))
+                              ("K2", "K4", "walkback", "K3"))
     ch_eng = dict(observe.engine_counts)
     whole = [s for s in ch_scans if s["whole"]]
     print(f"chromosome-scale est2genome -E yes calm {len(calm_s)} x "
@@ -2886,16 +2895,16 @@ def main() -> int:
                                      for s in whole) \
             or sum(s["masked"] for s in whole) < 2 \
             or any(s["C"] < 2 for s in ch_scans) \
-            or any(not s["masked"] for s in ch_scans if not s["whole"]):
+            or ch_launches.get("K1", 0):
         raise RuntimeError(f"chromosome-scale -E yes: want every whole-"
                            f"target scan on K2, C > 1, masked after the "
-                           f"first of its strand, and only the copies' "
-                           f"masked boxes there besides: (whole, masked, C)"
-                           f" {scans}; K2 launches {ch_launches['K2']}")
+                           f"first of its strand, and the copies' boxes "
+                           f"there besides, none on K1: (whole, masked, C)"
+                           f" {scans}; launches {ch_launches}")
     if any(k[3] >= len(chrom) for k in ch_kis if k[0] == "path") \
             or not any(k[0] == "path" for k in ch_kis):
         raise RuntimeError(f"chromosome-scale -E yes: the copies' boxes must "
-                           f"run on K1 and K4 ({ch_kis})")
+                           f"run their path DPs on K4 ({ch_kis})")
 
     # c. the masked forced batch: a ~6 kb window around the first copy under
     # the mask of the run's first alignment (the points the second scan saw)
@@ -3152,7 +3161,7 @@ def main() -> int:
     print(f"CLI est2genome -E calm x calm: vulgar score {vulgar[0][9]} "
           f"({secs:.2f} s host clock)")
     launches = read_counts("exhaustive est2genome CLI",
-                           ("K1", "K4", "walkback"))
+                           ("K2", "K4", "walkback"))
     print(f"exhaustive main-path launches {launches}; engines {engines}")
     if cw.engine_name(dev) not in engines:
         raise RuntimeError(f"the CLI did not use {cw.engine_name(dev)}")

@@ -8,10 +8,10 @@ kernels, each behind a wrapper with a launch counter:
 - K2 ``wavefront_stream_scan`` (the same source, its cluster kernel)
   replaces the streamed build (``stream=True``, ``:438``): the same
   function, each pair run by a thread-block cluster of several CTAs, for
-  the batches the JAX package streams (``stream_bytes`` over
-  ``STREAM_VMEM_BYTES``, the rule of ``find_batched``, ``:1437-1445``)
-  and the masked batches whose clusters all fit the card at once
-  (``on_cluster``); its carry ring lives in shared memory where it fits
+  the batches whose clusters all fit the card at once and, of the larger
+  ones, those the JAX package streams (``stream_bytes`` over
+  ``STREAM_VMEM_BYTES``, the rule of ``find_batched``, ``:1437-1445``):
+  ``on_cluster``; its carry ring lives in shared memory where it fits
   (``ring_in_smem``), else in global memory;
 - K4 ``wavefront_path`` (the same source, mode path) replaces its path
   mode (``:1147``), which writes each state's winning plan id per cell;
@@ -51,12 +51,14 @@ K1/K2/K4, which bars the plan's match rows (``F_MATCH``) at blocked
 cells.
 ``find_batched`` and ``find_path_batched`` take ``subopt`` as one mask
 or a per-job list, like the JAX package's; masked and mask-free jobs
-fall into different buckets.  A masked chunk runs on the cluster kernel
-(score/region, and path mode over all its diagonals) when its B clusters
-are all resident on the card at once (``cluster_capacity``), else on
-K1/K4.  ``K3.launches`` counts the K1/K2/K4 launches that carry a mask
-plane; ``RING_SMEM`` and ``RING_GLOBAL`` count the cluster kernel's
-launches by where their carry ring lives.
+fall into different buckets.  A chunk, masked or not, runs on the
+cluster kernel (score/region, and path mode over all its diagonals) when
+its B clusters, of two CTAs or more, are all resident on the card at
+once (``cluster_capacity``, ``fits_on_cluster``), else on K1/K4
+(score/region: K2 where the JAX package streams it).  ``K3.launches``
+counts the K1/K2/K4 launches that carry a mask plane; ``RING_SMEM`` and
+``RING_GLOBAL`` count the cluster kernel's launches by where their carry
+ring lives.
 
 ``to_kernel_inputs`` flattens ``_build_plan(model)`` into an int32 plan
 table and the per-pair arrays of ``prepare_inputs`` into four packed
@@ -112,6 +114,11 @@ SMEM_BYTES = 232_448          # shared memory a block may use on Hopper
 # and the largest size every Hopper part admits
 MAX_CLUSTER = 16
 PORTABLE_CLUSTER = 8
+# the smallest cluster the route gives a chunk whose clusters fit the card:
+# at one CTA a pair (a query of at most 256 rows) K1/K4, up to 1024
+# threads a CTA, sweep a diagonal 3-42% faster than the cluster kernel's
+# 256 (B=1, est2genome and protein2genome, region and path, on an H100)
+MIN_ROUTED_CLUSTER = 2
 
 
 class _LaunchCount:
@@ -138,8 +145,8 @@ K9 = _LaunchCount()
 K3 = _LaunchCount()
 
 # kernel K2 (the streamed wavefront): launches of the cluster kernel in
-# score and region modes (whole scans, masked batches and the
-# checkpointed traceback's forward segments)
+# score and region modes (whole scans, batches whose clusters fit the card
+# and the checkpointed traceback's forward segments)
 K2 = _LaunchCount()
 
 # the cluster kernel's launches (every mode) by the home of their carry
@@ -586,22 +593,22 @@ def streams(kinds: tuple, B: int, Qp: int, Tp: int) -> bool:
     return stream_bytes(kinds, B, Qp, Tp) > STREAM_VMEM_BYTES
 
 
-def masked_on_cluster(B: int, resident: int) -> bool:
-    """A masked chunk of ``B`` pairs runs on the cluster kernel when its B
-    clusters are all resident on the card at once (``resident`` of them
-    fit, ``cluster_capacity``): each pair then has C SMs, where K1/K4
-    give it one."""
-    return 0 < B <= resident
+def fits_on_cluster(B: int, capacity: tuple) -> bool:
+    """A chunk of ``B`` pairs, masked or not, runs on the cluster kernel
+    when each pair's cluster spans ``MIN_ROUTED_CLUSTER`` CTAs or more and
+    its B clusters are all resident on the card at once (``capacity``, the
+    (C, resident) of ``cluster_capacity``): each pair then has C SMs,
+    where K1/K4 give it one."""
+    C, resident = capacity
+    return C >= MIN_ROUTED_CLUSTER and 0 < B <= resident
 
 
 def on_cluster(kinds: tuple, B: int, Qp: int, Tp: int,
-               resident: int) -> bool:
+               capacity: tuple) -> bool:
     """Whether ``find_batched`` runs a chunk on the cluster kernel (K2):
-    the JAX package's streaming test, or a masked chunk whose clusters
-    all fit the card (``masked_on_cluster``).  A mask-free chunk follows
-    ``streams`` alone."""
-    return streams(kinds, B, Qp, Tp) or (
-        _masked(kinds) and masked_on_cluster(B, resident))
+    its clusters all fit the card (``fits_on_cluster``), or, for any
+    other chunk, the JAX package's streaming test (``streams``)."""
+    return fits_on_cluster(B, capacity) or streams(kinds, B, Qp, Tp)
 
 
 # ---------------------------------------------------------------------------
@@ -822,6 +829,8 @@ def _launch(ki: KernelInputs, cluster: Optional[int] = None, span=None,
                     else "plan.scan_diagonals", swept)
         return out, tb, 1
     observe.add("ring.diagonals", swept)
+    observe.add("ring.path_diagonals" if ki.mode == "path"
+                else "ring.scan_diagonals", swept)
     observe.add("ring.smem_launches" if smem_ring else "ring.global_launches")
     return out, tb, used.value
 
@@ -904,10 +913,10 @@ def wavefront_segment(ki: KernelInputs, ring: tuple, span: tuple):
 
 def wavefront_path(ki: KernelInputs, cluster: bool = False):
     """K4: the wavefront in path mode, on the cluster kernel over all the
-    diagonals when ``cluster`` (a masked chunk whose clusters fit the
-    card).  Returns (out, tb): out as for wavefront_scan (starts 0), tb
-    the (B, Qp+Tp+1, S, Qp+1) uint8 cube of winning plan ids (row + 1; 0
-    = unset)."""
+    diagonals when ``cluster`` (a chunk whose clusters fit the card).
+    Returns (out, tb): out as for wavefront_scan (starts 0), tb the (B,
+    Qp+Tp+1, S, Qp+1) uint8 cube of winning plan ids (row + 1; 0 =
+    unset)."""
     if ki.mode != "path":
         raise ValueError(f"wavefront_path runs path mode, not {ki.mode}")
     _check_inputs(ki)
@@ -1075,8 +1084,8 @@ def find_batched(model: Model, jobs: list, mode: str = "region",
     """Score or region DP of (region, data) jobs, under ``subopt`` (one
     SubOpt mask or a per-job list) when given.  Each chunk of a bucket
     runs on K2 when ``stream`` is True, on K1 when it is False, and by
-    ``on_cluster`` when it is None (the JAX package's streaming test, or a
-    masked chunk whose clusters all fit the card); a bucket the kernels
+    ``on_cluster`` when it is None (on K2 when its clusters all fit the
+    card, else by the JAX package's streaming test); a bucket the kernels
     refuse runs the generic wavefront in region mode.
 
     With ``devices`` (kernel K5, ``find_batched_sharded``) a chunk holds up
@@ -1123,10 +1132,8 @@ def find_batched(model: Model, jobs: list, mode: str = "region",
                 else:
                     use_stream = stream
                     if use_stream is None:
-                        resident = (cluster_capacity(ki)[1]
-                                    if _masked(kinds) else 0)
                         use_stream = on_cluster(kinds, len(chunk), Qp, Tp,
-                                                resident)
+                                                cluster_capacity(ki))
                     scan = (wavefront_stream_scan if use_stream
                             else wavefront_scan)
                 shards.append(scan(ki))
@@ -1156,9 +1163,10 @@ def find_batched_sharded(model: Model, jobs: list, devices: list,
 def find_path_batched(model: Model, jobs: list, subopt=None,
                       device: Optional[torch.device] = None) -> list:
     """Full-path DP on K4 plus the walk-back, under ``subopt`` (one SubOpt
-    mask or a per-job list) when given, a masked chunk whose clusters all
-    fit the card on the cluster kernel (``masked_on_cluster``); a bucket
-    the kernels refuse runs the generic wavefront's path DP.  Returns DPResults with ``.path``;
+    mask or a per-job list) when given, a chunk whose clusters all fit
+    the card on the cluster kernel (``fits_on_cluster``); a bucket the
+    kernels refuse runs the generic wavefront's path DP.  Returns
+    DPResults with ``.path``;
     an entry is None when the job's traceback cube is over the budget or
     its path is longer than the walk cap (the caller then runs it on the
     host, or on the checkpointed traceback)."""
@@ -1190,8 +1198,8 @@ def find_path_batched(model: Model, jobs: list, subopt=None,
             chunk = items[lo:lo + cap_b]
             ki = to_kernel_inputs(model, [inp for _, inp in chunk], kinds,
                                   dev, "path")
-            stats, tb = wavefront_path(ki, cluster=_masked(kinds) and (
-                masked_on_cluster(ki.batch, cluster_capacity(ki)[1])))
+            stats, tb = wavefront_path(ki, cluster=fits_on_cluster(
+                ki.batch, cluster_capacity(ki)))
             ops, res = walkback(tb, stats, ki.walk, ki.end_id, wcap)
             del tb
             stats, ops, res = (stats.cpu().numpy(), ops.cpu().numpy(),

@@ -1,5 +1,5 @@
 """The benchmark cell ``p2g.exh_locus`` on the CPU, and the span
-attribution of its two wavefront metrics.
+attribution of the exhaustive cells' wavefront metrics.
 
 The harness (``portbench.harness.run(..., card=False)``) runs the cell
 at a small size (a 50-residue protein in 3 exons against a 2.4 kb window)
@@ -9,7 +9,10 @@ conftest loads it).  A synthetic trace
 holds ``scan_us_per_diag.exh`` and ``path_us_per_diag.exh`` to their
 definition: each ``plan_kernel`` operation belongs to the exhaustive
 route's span open at its midpoint on the host clock, one open in neither
-span counts in neither, and a program without the counters reads nothing.
+span counts in neither, and a program without the counters reads nothing;
+``ring_scan_us_per_diag.exh`` so reads ``ring_kernel`` inside ``exh.scan``
+only, and ``cluster_scan_pct.exh`` is the cluster's share of the scan
+diagonals.
 """
 import json
 import os
@@ -59,7 +62,9 @@ OPS = [("plan_kernel<false>", 0.1, 0.9),        # scan
        ("plan_kernel<false>", 1.4, 1.8),        # midpoint 1.6: path
        ("plan_kernel<false>", 2.2, 2.4),        # in neither span
        ("plan_kernel<true>", 3.2, 3.6),         # scan
-       ("ring_kernel<true, true>", 0.2, 0.3)]   # another kernel
+       ("ring_kernel<true, true>", 0.2, 0.3),   # another kernel: scan
+       ("ring_kernel<false, true>", 1.6, 1.9),  # path
+       ("ring_kernel<false, true>", 2.5, 2.6)]  # in neither span
 
 
 def _ctx(monkeypatch, counters):
@@ -90,3 +95,29 @@ def test_a_program_without_the_counters_reads_nothing(monkeypatch):
     ctx = _ctx(monkeypatch, {"plan.diagonals": 1500})
     assert harness.reader("scan_us_per_diag.exh").read(ctx) is None
     assert harness.reader("path_us_per_diag.exh").read(ctx) is None
+
+
+def test_ring_scan_us_per_diag_reads_ring_kernel_inside_exh_scan(
+        monkeypatch):
+    ctx = _ctx(monkeypatch, {"ring.scan_diagonals": 400,
+                             "ring.path_diagonals": 300,
+                             "plan.scan_diagonals": 1000})
+    got = harness.reader("ring_scan_us_per_diag.exh").read(ctx)
+    assert got == pytest.approx(1e6 * 0.1 / 400)
+    ctx = _ctx(monkeypatch, {"plan.scan_diagonals": 1000})
+    assert harness.reader("ring_scan_us_per_diag.exh").read(ctx) is None
+
+
+@pytest.mark.parametrize("counters, want", [
+    ({"ring.scan_diagonals": 3000}, 100.0),
+    ({"ring.scan_diagonals": 3000, "plan.scan_diagonals": 1000}, 75.0),
+    ({"ring.path_diagonals": 300, "plan.scan_diagonals": 1000}, None),
+    ({}, None)])
+def test_cluster_scan_pct_is_the_cluster_share_of_scan_diagonals(
+        monkeypatch, counters, want):
+    """100 with only the cluster's scan diagonals; nothing where the
+    program has no ``ring.scan_diagonals`` (the route gave no scan to the
+    cluster, or the program does not count it)."""
+    ctx = _ctx(monkeypatch, counters)
+    got = harness.reader("cluster_scan_pct.exh").read(ctx)
+    assert got == (None if want is None else pytest.approx(want))

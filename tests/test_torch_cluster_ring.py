@@ -1,25 +1,28 @@
-"""The cluster wavefront's ring route and the masked route to it (CPU).
+"""The cluster wavefront's ring route and the route to it (CPU).
 
 The cluster kernel of ``csrc/wavefront.cu`` (kernel K2, and K4 on a
 cluster) keeps a batch's carry ring in shared memory where it fits a
 CTA's shared memory beside its mask bytes and block reduce
-(``cuda_wavefront.ring_in_smem``), else in global memory; a masked
-chunk (kernel K3) runs on the cluster when its B clusters are all
-resident on the card at once
-(``cuda_wavefront.on_cluster`` / ``masked_on_cluster``).  These tests
+(``cuda_wavefront.ring_in_smem``), else in global memory; a chunk,
+masked (kernel K3) or not, runs on the cluster when its B clusters, of
+two CTAs or more, are all resident on the card at once
+(``cuda_wavefront.on_cluster`` / ``fits_on_cluster``).  These tests
 run on the CPU:
 
 - the fit rule on the models at calm's width (Qp 2304: 2176 rows);
 - the Python mirror of the kernel's shared-memory formulas against the
   formulas themselves, read from ``csrc/wavefront.cu`` and compiled by
   the host's C++ compiler;
-- the routing rule with the resident-cluster count passed in;
-- masked ``find_batched`` / ``find_path_batched`` runs taken through the
+- the routing rule with the card's capacity passed in;
+- ``find_batched`` / ``find_path_batched`` runs taken through the
   cluster route (its wrappers run the plain version on the CPU), equal
-  to the JAX package's XLA engine over three Waterman-Eggert iterations.
+  to the JAX package's XLA engine over three Waterman-Eggert iterations,
+  and mask-free chunks routed by the capacity patched in;
+- the diagonal counters of ``_launch`` by kernel and mode.
 
 Scores, cells and byte counts are integers: the tolerance is 0.
 """
+import contextlib
 import dataclasses
 import os
 import re
@@ -202,25 +205,40 @@ def _kinds(masked: bool):
                               pad_to=(256, 256), for_pallas=True)[1]
 
 
-def test_masked_routing_rule():
-    """A masked B=1 chunk at the -E run's shape (Qp 2304 x Tp 30208) goes
-    to the cluster when one cluster is resident; a masked chunk of more
-    pairs than the card holds clusters goes to K1; a mask-free chunk
-    follows the JAX package's streaming test whatever the count."""
-    masked, free = _kinds(True), _kinds(False)
-    assert cw._masked(masked) and not cw._masked(free)
-    assert not cw.streams(masked, 1, 2304, 30208)
-    assert cw.on_cluster(masked, 1, 2304, 30208, 1)
-    assert cw.on_cluster(masked, 7, 2304, 30208, 7)
-    assert not cw.on_cluster(masked, 8, 2304, 30208, 7)
-    assert not cw.on_cluster(masked, 1, 2304, 30208, 0)
+@pytest.mark.parametrize("masked", [True, False],
+                         ids=["masked", "mask-free"])
+def test_cluster_routing_rule(masked):
+    """The same rule masked and mask-free: a chunk at the -E run's shape
+    (Qp 2304 x Tp 30208, C = 9) goes to the cluster when its B clusters
+    are all resident; a chunk of more pairs than the card holds clusters
+    follows the JAX package's streaming test; none resident, K1; a
+    chromosome-scale B=1 scan goes to the cluster whatever the count; at
+    one CTA a pair (C = 1) a chunk stays on K1 unless it streams."""
+    kinds = _kinds(masked)
+    assert cw._masked(kinds) == masked
+    assert not cw.streams(kinds, 1, 2304, 30208)
+    assert cw.on_cluster(kinds, 1, 2304, 30208, (9, 1))
+    assert cw.on_cluster(kinds, 7, 2304, 30208, (9, 7))
+    assert not cw.on_cluster(kinds, 8, 2304, 30208, (9, 7))
+    assert not cw.on_cluster(kinds, 1, 2304, 30208, (9, 0))
+    for B, Tp in ((8, 30208), (8, 1356288), (64, 92928)):
+        assert cw.on_cluster(kinds, B, 2304, Tp, (9, 7)) \
+            == cw.streams(kinds, B, 2304, Tp)
+    assert cw.streams(kinds, 8, 2304, 1356288)
     for resident in (0, 1, 64):
-        assert not cw.on_cluster(free, 1, 2304, 30208, resident)
-        # a chromosome-scale B=1 scan streams, masked or not
-        assert cw.on_cluster(free, 1, 2304, 1356288, resident)
-        assert cw.on_cluster(masked, 1, 2304, 1356288, resident)
-    assert cw.masked_on_cluster(1, 1) and not cw.masked_on_cluster(2, 1)
-    assert not cw.masked_on_cluster(0, 4)
+        assert cw.on_cluster(kinds, 1, 2304, 1356288, (9, resident))
+    assert not cw.on_cluster(kinds, 1, 256, 30208, (1, 264))
+    assert cw.on_cluster(kinds, 1, 256, 30208, (2, 264))
+    assert cw.on_cluster(kinds, 64, 2304, 1356288, (1, 264))
+
+
+def test_fits_on_cluster():
+    assert cw.MIN_ROUTED_CLUSTER == 2
+    assert cw.fits_on_cluster(1, (2, 1))
+    assert not cw.fits_on_cluster(2, (2, 1))
+    assert not cw.fits_on_cluster(0, (9, 4))
+    assert not cw.fits_on_cluster(1, (1, 264))
+    assert cw.fits_on_cluster(16, (16, 16))
 
 
 def test_cluster_capacity_on_the_cpu():
@@ -251,13 +269,12 @@ def _spy(monkeypatch, name):
 
 @pytest.mark.parametrize("name", sorted(JOBS))
 def test_masked_runs_on_the_cluster_route_equal_jax(name, monkeypatch):
-    """Three Waterman-Eggert iterations with one cluster resident: each
-    masked region DP runs through K2's wrapper and each masked path DP
-    through K4's on the cluster (their plain versions on the CPU), the
-    mask-free first iteration on K1/K4; every result equals the JAX
-    package's XLA engine (scores, cells, paths)."""
-    real = cw.cluster_capacity
-    monkeypatch.setattr(cw, "cluster_capacity", lambda ki: (real(ki)[0], 1))
+    """Three Waterman-Eggert iterations with one cluster of two CTAs
+    resident: each region DP, the mask-free first and the masked
+    re-runs, runs through K2's wrapper and each path DP through K4's on
+    the cluster (their plain versions on the CPU); every result equals
+    the JAX package's XLA engine (scores, cells, paths)."""
+    monkeypatch.setattr(cw, "cluster_capacity", lambda ki: (2, 1))
     k1 = _spy(monkeypatch, "wavefront_scan")
     k2 = _spy(monkeypatch, "wavefront_stream_scan")
     k4 = _spy(monkeypatch, "wavefront_path")
@@ -282,5 +299,83 @@ def test_masked_runs_on_the_cluster_route_equal_jax(name, monkeypatch):
         sub.add_alignment(alignment)
         jsub.add_alignment(jopt._to_alignment(jmodel, jregion, ref))
     assert masked_runs >= 1
-    assert len(k1) == 1 and len(k2) == masked_runs
-    assert k4 == [False] + [True] * masked_runs
+    assert len(k1) == 0 and len(k2) == 1 + masked_runs
+    assert k4 == [True] * (1 + masked_runs)
+
+
+ROUTES = {  # case: (capacity, pairs, on the cluster)
+    "fits": ((2, 2), 1, True),
+    "more pairs than resident": ((2, 2), 3, False),
+    "one CTA a pair": ((1, 264), 1, False),
+    "none resident": ((9, 0), 1, False)}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_mask_free_chunks_take_the_cluster_where_they_fit(case,
+                                                          monkeypatch):
+    """A mask-free est2genome chunk, with the card's capacity patched in:
+    B=1 of clusters of two CTAs, one resident or more, goes to the
+    cluster entry points (K2's wrapper in region mode, K4's with
+    ``cluster=True`` in path mode); more pairs than resident clusters,
+    one CTA a pair or none resident go to K1 and K4.  The results equal
+    the forced K1 route's."""
+    capacity, pairs, want = ROUTES[case]
+    monkeypatch.setattr(cw, "cluster_capacity", lambda ki: capacity)
+    k1 = _spy(monkeypatch, "wavefront_scan")
+    k2 = _spy(monkeypatch, "wavefront_stream_scan")
+    k4 = _spy(monkeypatch, "wavefront_path")
+    model = PORT.est2genome_create()
+    calm = next(iter(PORT.iter_fasta(ALL4)))
+    data = PORT.AlignData(calm, calm)
+    jobs = [(PORT.Region(5 * k, 3 * k, 60, 80), data)
+            for k in range(pairs)]
+    got = cw.find_batched(model, jobs, "region", device=CPU)
+    assert (len(k1), len(k2)) == ((0, 1) if want else (1, 0))
+    assert k4 == []
+    paths = cw.find_path_batched(model, jobs, device=CPU)
+    assert k4 == [want]
+    del k1[:]
+    assert got == cw.find_batched(model, jobs, "region", device=CPU,
+                                  stream=False)
+    assert len(k1) == 1
+    assert [(p.score, p.query_end, p.target_end) for p in paths] == [
+        (r.score, r.query_end, r.target_end) for r in got]
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.mark.parametrize("mode", ["score", "region", "path"])
+@pytest.mark.parametrize("cluster", [None, 0], ids=["plan", "ring"])
+def test_launch_counts_diagonals_by_kernel_and_mode(mode, cluster,
+                                                    monkeypatch):
+    """``_launch`` adds each launch's swept diagonals to its kernel's
+    counter and to that kernel's counter of the mode: scan (score and
+    region) or path.  The launch itself is patched out (no card)."""
+    added = {}
+
+    def add(counter, n=1):
+        added[counter] = added.get(counter, 0) + n
+
+    monkeypatch.setattr(cw.observe, "add", add)
+    monkeypatch.setattr(cw, "_lib", lambda *a, **k: lambda *args: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream)
+    model = PORT.est2genome_create()
+    calm = next(iter(PORT.iter_fasta(ALL4)))
+    data = PORT.AlignData(calm, calm)
+    inputs, kinds = twf.prepare_inputs(model, PORT.Region(0, 0, 60, 80),
+                                       data, pad_to=(256, 256),
+                                       for_pallas=True)
+    ki = cw.to_kernel_inputs(model, [inputs], kinds, CPU, mode)
+    cw._launch(ki, cluster)
+    kernel = "plan" if cluster is None else "ring"
+    by_mode = "path" if mode == "path" else "scan"
+    swept = 60 + 80 + 1
+    want = {f"{kernel}.diagonals": swept,
+            f"{kernel}.{by_mode}_diagonals": swept}
+    if cluster is not None:
+        want["ring.smem_launches"] = 1
+    assert added == want

@@ -597,9 +597,10 @@ def test_masked_chunks_run_on_the_cluster(monkeypatch):
     on the cluster kernel with its ring in shared memory, in region mode
     (K2) and in path mode over all its diagonals (K4 on a cluster), and
     equals K1 and K4, also with two pairs of one chunk under different
-    masks; a masked protein2genome split pair in region mode
-    runs there with its ring in global memory.  Every launch is counted
-    by its route."""
+    masks; a masked protein2genome split pair in region mode (90 rows:
+    one CTA a pair) stays on K1, and forced onto the cluster runs there
+    with its ring in global memory.  Every launch is counted by its
+    route."""
     from exonerate_tpu_torch.engine.optimal import _to_alignment
     dev = _need_card()
     model = est2genome_create()
@@ -649,11 +650,15 @@ def test_masked_chunks_run_on_the_cluster(monkeypatch):
     p_sub = SubOpt()
     p_sub.add_alignment(_to_alignment(p2g, whole, cw.find_path_batched(
         p2g, [(whole, p_data)], device=dev)[0]))
+    # one CTA a pair (C = 1): the masked split pair stays on K1, and on
+    # the cluster, forced, its ring is in global memory
     n = counts()
     got = cw.find_batched(p2g, [(whole, p_data)], device=dev, subopt=p_sub)
-    assert [a - b for a, b in zip(counts(), n)] == [0, 1, 1, 0, 0, 1]
+    assert [a - b for a, b in zip(counts(), n)] == [1, 0, 1, 0, 0, 0]
+    n = counts()
     assert got == cw.find_batched(p2g, [(whole, p_data)], device=dev,
-                                  subopt=p_sub, stream=False)
+                                  subopt=p_sub, stream=True)
+    assert [a - b for a, b in zip(counts(), n)] == [0, 1, 1, 0, 0, 1]
 
 
 @pytest.mark.gpu
@@ -712,21 +717,95 @@ def test_k2_cluster_that_cannot_launch_raises():
 
 @pytest.mark.gpu
 def test_find_batched_routes_by_the_stream_gate(monkeypatch):
-    """find_batched sends a batch over STREAM_VMEM_BYTES to K2 and one
-    under it to K1, with the same results; stream=True/False force it."""
+    """find_batched sends a B=1 chunk whose cluster fits the card to K2;
+    stream=False forces K1, with the same results.  With no cluster
+    resident a batch over STREAM_VMEM_BYTES goes to K2 and one under it
+    to K1; stream=True/False force it."""
     dev = _need_card()
     model = est2genome_create()
     calm = _calm()
     jobs = [(Region(0, 0, 300, 400), AlignData(calm, calm))]
     n1, n2 = cw.wavefront_scan.launches, cw.K2.launches
-    low = cw.find_batched(model, jobs, device=dev)
-    assert (cw.wavefront_scan.launches, cw.K2.launches) == (n1 + 1, n2)
+    fits = cw.find_batched(model, jobs, device=dev)
+    assert (cw.wavefront_scan.launches, cw.K2.launches) == (n1, n2 + 1)
+    low = cw.find_batched(model, jobs, device=dev, stream=False)
+    assert (cw.wavefront_scan.launches, cw.K2.launches) == (n1 + 1, n2 + 1)
+    assert fits == low
+    real = cw.cluster_capacity
+    monkeypatch.setattr(cw, "cluster_capacity", lambda ki: (real(ki)[0], 0))
+    assert cw.find_batched(model, jobs, device=dev) == low
+    assert (cw.wavefront_scan.launches, cw.K2.launches) == (n1 + 2, n2 + 1)
     monkeypatch.setattr(cw, "STREAM_VMEM_BYTES", 0)
     assert cw.find_batched(model, jobs, device=dev) == low
-    assert cw.K2.launches == n2 + 1
+    assert cw.K2.launches == n2 + 2
     assert cw.find_batched(model, jobs, device=dev, stream=False) == low
-    assert cw.wavefront_scan.launches == n1 + 2
+    assert cw.wavefront_scan.launches == n1 + 3
     assert low == cw.find_batched(model, jobs, device=CPU)
+
+
+def _cell_pair(traffic, overrides, model, both, tmp_path):
+    """The first pair of the benchmark's traffic ``traffic`` (seed 19),
+    the target's forward strand whole, as the exhaustive route's first
+    scan of it takes it."""
+    from portbench.traffic import generate
+    inv = generate.make(traffic, 19, str(tmp_path),
+                        {"invocations": 1, **overrides}).invocations[0]
+    (qid, q), = inv.queries.items()
+    (tid, t), = inv.targets.items()
+    qs, ts = Sequence(qid, None, q.upper()), Sequence(tid, None, t.upper())
+    ts.strand = "+"
+    return model, Region(0, 0, len(q), len(t)), AlignData(qs, ts, both)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["e2g.exh_locus", "p2g.exh_locus"])
+def test_exhaustive_cells_route_equals_k1_k4(cell, tmp_path, monkeypatch):
+    """At each exhaustive cell's shape (calm against a 30 kb window with
+    two copies: Qp 2304 x Tp 30208; a 750 aa protein against its 80 kb
+    locus: Qp 768 x Tp 92928) the default route runs the B=1 mask-free
+    region scan and the path DP over its box on the cluster kernel, and
+    gives the DPResults and paths of the forced K1/K4 route."""
+    dev = _need_card()
+    if cell == "e2g.exh_locus":
+        model, region, data = _cell_pair("calm_locus30kb", {},
+                                         est2genome_create(), False,
+                                         tmp_path)
+    else:
+        mt = ModelType.PROTEIN2GENOME
+        model, region, data = _cell_pair(
+            "protein1_locus80kb", {"genome_bp": 80_000},
+            get_model(mt, AlphabetType.PROTEIN, AlphabetType.DNA),
+            translate_both(mt), tmp_path)
+    jobs = [(region, data)]
+    n1, n2 = cw.wavefront_scan.launches, cw.K2.launches
+    got = cw.find_batched(model, jobs, "region", device=dev)
+    assert (cw.wavefront_scan.launches, cw.K2.launches) == (n1, n2 + 1)
+    want = cw.find_batched(model, jobs, "region", device=dev, stream=False)
+    assert cw.wavefront_scan.launches == n1 + 1
+    assert got == want and got[0].score > 0
+    r = got[0]
+    box = Region(r.query_start, r.target_start, r.query_end - r.query_start,
+                 r.target_end - r.target_start)
+
+    def launches():
+        # K4's launches, and those of them on the cluster
+        return (cw.wavefront_path.launches,
+                cw.RING_SMEM.launches + cw.RING_GLOBAL.launches)
+
+    n4, n_ring = launches()
+    p_got = cw.find_path_batched(model, [(box, data)], device=dev)
+    assert launches() == (n4 + 1, n_ring + 1)
+    real = cw.cluster_capacity
+    monkeypatch.setattr(cw, "cluster_capacity", lambda ki: (real(ki)[0], 0))
+    p_want = cw.find_path_batched(model, [(box, data)], device=dev)
+    assert launches() == (n4 + 2, n_ring + 1)
+
+    def key(p):
+        return (p.score, p.query_start, p.target_start, p.query_end,
+                p.target_end, _names(p.path))
+
+    assert key(p_got[0]) == key(p_want[0])
+    assert p_got[0].score == r.score
 
 
 @pytest.mark.gpu

@@ -23,8 +23,8 @@ With ``--traced K`` the first seed's first K invocations also run under
 the benchmark's profiler (``portbench/trace.py``): ``plan_kernel``'s
 device seconds, split by the exhaustive route's span open at each
 launch's midpoint (``portbench/kernel_spans.py``, as the metrics
-``scan_us_per_diag.exh`` and ``path_us_per_diag.exh`` read them), with
-the diagonal counters and the trace's ``engine.*`` and ``fallback.*``
+``scan_us_per_diag.exh`` and ``path_us_per_diag.exh`` read them), and
+``ring_kernel``'s so, with the diagonal counters and the trace's ``engine.*`` and ``fallback.*``
 counters.  ``--overrides`` replaces parameters of the
 traffic (a smaller pair for a rehearsal on the CPU).
 
@@ -50,7 +50,8 @@ from portbench.reference import judge, p2g_viterbi  # noqa: E402
 
 CELL = "p2g.exh_locus"
 COUNTERS = ("plan.diagonals", "plan.scan_diagonals", "plan.path_diagonals",
-            "ring.diagonals", "ring.smem_launches", "ring.global_launches")
+            "ring.diagonals", "ring.scan_diagonals", "ring.path_diagonals",
+            "ring.smem_launches", "ring.global_launches")
 
 
 def _attribution(summary) -> dict:
@@ -65,6 +66,9 @@ def _attribution(summary) -> dict:
             "attributed_pct": (100.0 * (by["exh.scan"] + by["exh.path"])
                                / total if total else None),
             "ring_kernel_s": summary.seconds(lambda n: "ring_kernel" in n),
+            "ring_by_span_s": {
+                str(k): v for k, v in kernel_spans.seconds_by_span(
+                    ctx, "ring_kernel", kernel_spans.EXH).items()},
             "counters": {c: program_trace.counter(c) for c in COUNTERS},
             "engines_and_fallbacks": {
                 c: v for c, v in observe.trace().counters.items()
